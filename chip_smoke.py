@@ -20,6 +20,22 @@ without them. Phases, each printing one line (or a few):
   6. logits   one decode step's logits and written K/V, kernel path vs
               plain path, on the same prefilled pools; then where one
               decode step's time goes (wall vs device busy, top kernels)
+  7. flash    flash-attention forward, dq and dk/dv kernels vs their
+              plain versions: the training shape (B 4, H 16, S 1024,
+              D 64, bf16, causal), f32, ragged S, D 128, non-causal;
+              times against the bound and SDPA
+  8. lnbwd    LayerNorm backward kernel vs its plain version at the
+              training shape (4096 x 1024), f32 and bf16, with and
+              without residual, no / tanh / erf GeLU; times
+  9. train    GPT-2 345M training at full width, bench_gpt2's on-chip
+              config (bf16 O2, AdamW with f32 master weights, B 4 x S
+              1024, random weights from seed 0) through
+              TrainStepCompiler: loss decreases, launch counters per
+              step, step ms, tokens/s, MFU, peak memory, where a step's
+              time goes
+ 10. grads    one step's loss and every gradient, kernel path vs plain
+              path from the same state: full width in bf16, and 2
+              layers at full width in f32
 
 Then one JSON line with every kernel's launches, error and times, the
 nvidia-smi line, and as the LAST line
@@ -27,7 +43,10 @@ nvidia-smi line, and as the LAST line
 
 fp32 matrix products run in full f32: TF32 is switched off for matmul
 and cuDNN, so the kernel-vs-plain comparisons see only the kernels'
-own rounding.
+own rounding. bf16 matrix products keep PyTorch's default
+(`allow_bf16_reduced_precision_reduction`, printed in phase 10); in the
+kernel-vs-plain training comparisons the large products are the same
+`torch.matmul` calls on both sides.
 """
 from __future__ import annotations
 
@@ -42,6 +61,11 @@ import torch
 # H100 SXM data-sheet peaks (dense); the bound is stated against them
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+
+# bench_gpt2's on-chip training config (bench.py:540-545)
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_WINDOWS = 3, 10, 3
 
 # bench_serving's on-chip traffic (bench.py:741-747)
 SERVE_LENS = (16, 64, 192, 384, 17, 96, 256, 33)
@@ -104,11 +128,11 @@ def time_ms(fn, iters=100, flush=None):
     return dev_ms, host_s * 1e3 / iters
 
 
-def profile_ms(fn, reps=3):
+def profile_ms(fn, reps=3, n_top=5):
     """Where one call of a long launch chain spends its time: (wall ms
     per call, synchronised, without the profiler; device-busy ms per
     call, the sum of its kernels' device durations under
-    torch.profiler; kernels per call; the top five kernels as (name,
+    torch.profiler; kernels per call; the top `n_top` kernels as (name,
     count per call, ms per call)). Device numbers are None when the
     profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
@@ -135,7 +159,7 @@ def profile_ms(fn, reps=3):
         return wall, None, None, []
     busy = sum(us for _, us in by.values()) / reps / 1e3
     count = sum(n for n, _ in by.values()) / reps
-    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:5]
+    top = sorted(by.items(), key=lambda kv: -kv[1][1])[:n_top]
 
     def short(name):
         name = name.replace("void ", "").replace(
@@ -146,9 +170,9 @@ def profile_ms(fn, reps=3):
                                for name, (n, us) in top]
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -165,6 +189,27 @@ def assert_close(name, got, want, atol, rtol):
             f"{name}: max |err| {float(err.max()):.3e} over tolerance "
             f"(atol {atol}, rtol {rtol})")
     return float(err.max())
+
+
+def assert_close_rows(name, got, want, row_tol, floor=1e-3):
+    """Each row (the last axis) within row_tol x that row's max|want|:
+    a row whose values are small next to the tensor's largest (a late
+    causal row of o or dq, a late key of dk or dv, a rarely-used
+    embedding row) is held at its own scale. The row scale is floored
+    at `floor` x the tensor's max|want|, since a row that is rounding
+    noise around zero has no scale of its own (dq of the first causal
+    row: p = 1, and dp - delta cancels). Returns (max |err|, worst row
+    ratio max|err| / row scale)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(dim=-1)
+    row = w.abs().amax(dim=-1)
+    row = row.clamp_min(max(floor * float(row.max()), 1e-30))
+    ratio = float((err / row).max())
+    if not ratio <= row_tol:
+        raise AssertionError(
+            f"{name}: row max|err| / row max|ref| {ratio:.3e} over "
+            f"tolerance {row_tol}")
+    return float(err.max()), ratio
 
 
 # -- phase 1 -----------------------------------------------------------
@@ -573,6 +618,439 @@ def phase_logits(dev, model, num_blocks=512, lens=SERVE_LENS):
     return out
 
 
+# -- phase 7 -----------------------------------------------------------
+def _flash_inputs(rng, b, h, sq, d, dtype, dev, sk=None):
+    sk = sq if sk is None else sk
+
+    def t(*shape, scale=0.5):
+        return torch.from_numpy((scale * rng.randn(*shape)).astype(
+            np.float32)).to(dev, dtype)
+
+    return (t(b, h, sq, d), t(b, h, sk, d), t(b, h, sk, d),
+            t(b, h, sq, d, scale=1.0))
+
+
+# bf16 flash outputs vs their plain versions, per row of o, dq (a query)
+# and dk, dv (a key): 1e-2 x the row's max|ref|, one bf16 ulp of the
+# row's largest value (2^-7 = 7.8e-3: a final rounding to bf16 that
+# falls the other way) and a quarter ulp for what the f32 sums before it
+# differ by. The forward rounds p = exp(s - m) against per-tile running
+# maxima where the plain version takes the row maximum; the backward
+# kernels recompute p and ds in f32 as the plain versions do and differ
+# in summation order only. Per row, because causal rows and keys differ
+# in scale (o and dq shrink like 1/sqrt(row), dk and dv with the key
+# index): one limit for the whole tensor is set by its first rows and
+# passes a late row or key that lost a tile (chip_mutants.py).
+FLASH_BF16_ROW_TOL = 1e-2
+
+
+def _flash_check(tag, q, k, v, do, causal, scale):
+    """Kernels vs plain versions, each side from its own forward.
+    Returns {name: (max |err|, max |err| / row max|ref|)}. f32: o within
+    2e-5 and the gradients within 2e-4, abs + rel, the JAX package's
+    tolerances for its flash kernel (test_flash_attention.py:34, 53);
+    bf16: per row, FLASH_BF16_ROW_TOL."""
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
+
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    o0, lse0 = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    dq0, dk0, dv0 = fa.flash_attention_bwd_reference(q, k, v, o0, lse0, do,
+                                                     causal, scale)
+    # lse is f32 from the same inputs: summation order only
+    errs = {"lse": (assert_close(f"{tag} lse", lse, lse0, 1e-4, 1e-5),
+                    None)}
+    for name, got, want in (("o", o, o0), ("dq", dq, dq0), ("dk", dk, dk0),
+                            ("dv", dv, dv0)):
+        if got.dtype != q.dtype or got.shape != want.shape \
+                or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag} {name}: {got.dtype} "
+                                 f"{tuple(got.shape)} or non-finite")
+        if q.dtype == torch.float32:
+            t = 2e-5 if name == "o" else 2e-4
+            errs[name] = (assert_close(f"{tag} {name}", got, want, t, t),
+                          None)
+        else:
+            errs[name] = assert_close_rows(f"{tag} {name}", got, want,
+                                           FLASH_BF16_ROW_TOL)
+    return errs
+
+
+def phase_flash(dev, shape=(TRAIN_BATCH, 16, TRAIN_SEQ, 64), iters=50):
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
+
+    rng = np.random.RandomState(2)
+    b, h, s, d = shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # tag, B, H, Sq, D, dtype, causal, Sk
+        ("training shape", b, h, s, d, bf16, True, None),
+        ("S256", 2, 4, 256, 64, f32, True, None),
+        ("S129", 2, 4, 129, 64, f32, True, None),
+        ("S1000", 1, 4, 1000, 64, bf16, True, None),
+        ("S1000 D128", 1, 4, 1000, 128, f32, True, None),
+        ("S129 D128", 2, 4, 129, 128, bf16, True, None),
+        ("non-causal S256", 2, 4, 256, 64, f32, False, None),
+        ("non-causal Sq100 Sk333", 1, 4, 100, 64, bf16, False, 333),
+        ("non-causal Sq100 Sk333 D128", 1, 4, 100, 128, f32, False, 333),
+    ]
+    worst = {f32: {}, bf16: {}}
+    slice_err = None
+    for tag, bb, hh, sq, dd, dtype, causal, sk in cases:
+        q, k, v, do = _flash_inputs(rng, bb, hh, sq, dd, dtype, dev, sk)
+        errs = _flash_check(f"flash {tag} {dtype}", q, k, v, do, causal,
+                            dd ** -0.5)
+        slice_err = slice_err or {n: e for n, (e, _) in errs.items()}
+        for n, (e, r) in errs.items():
+            e0, r0 = worst[dtype].get(n, (0.0, None))
+            worst[dtype][n] = (max(e0, e),
+                               None if r is None else max(r0 or 0.0, r))
+    for dtype in (f32, bf16):
+        log("flash", f"kernels vs plain, {dtype}, worst of "
+            f"{sum(c[5] == dtype for c in cases)} cases, max|err| (/ row "
+            "max|ref|): " + ", ".join(
+                f"{n} {e:.3e}" + ("" if r is None else f" ({r:.3e})")
+                for n, (e, r) in worst[dtype].items()))
+    log("flash", "tolerances: f32 o 2e-5, grads 2e-4 (abs + rel); bf16 "
+        f"per row: {FLASH_BF16_ROW_TOL} x row max|ref| (floored at 1e-3 x "
+        "max|ref|); lse 1e-4 abs + 1e-5 rel")
+
+    # times at the training shape, bf16, causal; L2 flushed before each
+    # call (34 MB of inputs, most of which a step has evicted by then)
+    scale = d ** -0.5
+    q, k, v, do = _flash_inputs(rng, b, h, s, d, bf16, dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    pit = max(1, iters // 5)
+    ms = {
+        "fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, scale),
+                       iters, flush)[0],
+        "dq": time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, True, scale), iters, flush)[0],
+        "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, True, scale), iters, flush)[0],
+        "bwd": time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, do, True, scale), iters, flush)[0],
+    }
+    plain = {
+        "fwd": time_ms(lambda: fa.flash_attention_fwd_reference(
+            q, k, v, True, scale), pit, flush)[0],
+        "dq": time_ms(lambda: fa.flash_attention_bwd_dq_reference(
+            q, k, v, do, lse, delta, True, scale), pit, flush)[0],
+        "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
+            q, k, v, do, lse, delta, True, scale), pit, flush)[0],
+    }
+    # library yardstick, timed only: SDPA forward, and forward+backward
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale),
+                      iters, flush)[0]
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = sdpa(qg, kg, vg, is_causal=True, scale=scale)
+        return torch.autograd.grad(out, (qg, kg, vg), do)
+
+    lib_fb = time_ms(sdpa_fwd_bwd, iters, flush)[0]
+    # bounds: causal work is the lower triangle, diagonal included
+    bh = b * h
+    mm = 2.0 * bh * d * s * (s + 1) / 2      # one causal S x S x D product
+    elem = bh * s * d * 2                    # one bf16 [B, H, S, D] tensor
+    row = bh * s * 4                         # one f32 [B, H, S] row stat
+    work = {"fwd": (4 * elem + row, 2 * mm),
+            "dq": (5 * elem + 2 * row, 3 * mm),
+            "dkv": (6 * elem + 2 * row, 4 * mm)}
+    bounds = {n: bound_ms(nb, fl, PEAK_BF16_FLOPS)
+              for n, (nb, fl) in work.items()}
+    for n in ("fwd", "dq", "dkv"):
+        log("flash", f"B={b} H={h} S={s} D={d} bf16 causal, cold L2, "
+            f"{n}: kernel {ms[n]:.5f} ms | plain {plain[n]:.5f} ms | bound "
+            f"{bounds[n][0]:.5f} ms ({bounds[n][1]}; {work[n][1] / 1e9:.2f}"
+            f" GFLOP, {work[n][0] / 1e6:.1f} MB) | "
+            f"{work[n][1] / ms[n] / 1e9:.1f} TFLOP/s")
+    log("flash", f"backward wrapper (delta + dq + dk/dv) {ms['bwd']:.5f} ms;"
+        f" SDPA forward {lib_fwd:.5f} ms, forward+backward {lib_fb:.5f} "
+        f"ms (backward alone ~{lib_fb - lib_fwd:.5f} ms); kernels "
+        f"forward+backward {ms['fwd'] + ms['bwd']:.5f} ms")
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    rep = "paddle_tpu/incubate/nn/attention_pallas.py:"
+    rows = [("flash_attention_fwd", "fwd", "97", slice_err["o"], lib_fwd),
+            ("flash_attention_bwd_dq", "dq", "215", slice_err["dq"], None),
+            ("flash_attention_bwd_dkv", "dkv", "257",
+             max(slice_err["dk"], slice_err["dv"]), None)]
+    return [{"name": name, "route": "cuda", "source": src,
+             "replaces": rep + line, "max_abs_err": err, "ms": ms[key],
+             "plain_ms": plain[key], "bound_ms": bounds[key][0],
+             "bound_by": bounds[key][1], "library_ms": lib}
+            for name, key, line, err, lib in rows]
+
+
+# -- phase 8 -----------------------------------------------------------
+def phase_ln_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100):
+    from paddle_tpu_torch.incubate.nn.kernels.layernorm import (
+        layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
+        layer_norm_fwd_reference)
+
+    rng = np.random.RandomState(4)
+    eps = 1e-5
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+
+    w = 1 + 0.1 * t(hidden)
+    b = 0.1 * t(hidden)
+    # dx: f32 summation order (1e-5), bf16 one ulp (1e-2), relative to
+    # max|ref| and elementwise; dw, db: f32 sums over the rows in
+    # another order, 1e-5 x max|ref|
+    dx_tol = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    fwd_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, r, dy, ds = (t(rows, hidden, dtype=dtype) for _ in range(4))
+        for res in (False, True):
+            for act, approx in ((None, True), ("gelu", True),
+                                ("gelu", False)):
+                tag = f"lnbwd {dtype} res={res} act={act} approx={approx}"
+                # the forward kernel at the training shape, at phase 4's
+                # limits, before its outputs feed the backward
+                rr = r if res else None
+                y, s, mu, rs = layer_norm_fwd(x, rr, w, b, eps, act, approx)
+                y0, s0, mu0, rs0 = layer_norm_fwd_reference(
+                    x, rr, w, b, eps, act, approx)
+                fe = assert_close(f"{tag} fwd y", y, y0, dx_tol[dtype],
+                                  dx_tol[dtype])
+                fe = max(fe, assert_close(f"{tag} fwd mean", mu, mu0, 1e-5,
+                                          1e-5))
+                fe = max(fe, assert_close(f"{tag} fwd rstd", rs, rs0, 1e-5,
+                                          1e-5))
+                if res and not torch.equal(s, s0):
+                    raise AssertionError(tag + ": fwd s differs")
+                fwd_err[dtype] = max(fwd_err[dtype], fe)
+                s = s if res else x
+                dsr = ds if res else None
+                got = layer_norm_bwd(dy, dsr, s, w, b, mu, rs, act, approx)
+                want = layer_norm_bwd_reference(dy, dsr, s, w, b, mu, rs,
+                                                act, approx)
+                tol = dx_tol[dtype]
+                e = assert_close(tag + " dx", got[0], want[0],
+                                 tol * float(want[0].float().abs().max()),
+                                 tol)
+                for name, g_, w_ in (("dw", got[1], want[1]),
+                                     ("db", got[2], want[2])):
+                    e = max(e, assert_close(
+                        f"{tag} {name}", g_, w_,
+                        1e-5 * float(w_.abs().max()), 1e-5))
+                err[dtype] = max(err[dtype], e)
+    log("lnbwd", f"forward kernel vs plain, N={rows} H={hidden}: max|err| "
+        f"f32 {fwd_err[torch.float32]:.3e} (tol 1e-5 abs + 1e-5 rel), bf16 "
+        f"{fwd_err[torch.bfloat16]:.3e} (y tol 1e-2 abs + 1e-2 rel; "
+        "mean/rstd 1e-5); s bit-identical")
+    log("lnbwd", f"kernel vs plain, N={rows} H={hidden}: max|err| f32 "
+        f"{err[torch.float32]:.3e} (dx 1e-5 x max|ref| + 1e-5 rel), bf16 "
+        f"{err[torch.bfloat16]:.3e} (dx 1e-2 x max|ref| + 1e-2 rel); dw, db"
+        " 1e-5 x max|ref|")
+
+    # times at the training shape: bf16 with residual (ln2), warm L2
+    # (the backward's inputs were just written by the op before it)
+    x, r, dy, ds = (t(rows, hidden, dtype=torch.bfloat16) for _ in range(4))
+    _, s, mu, rs = layer_norm_fwd(x, r, w, b, eps)
+    k_ms, k_host = time_ms(
+        lambda: layer_norm_bwd(dy, ds, s, w, b, mu, rs), iters)
+    p_ms, _ = time_ms(
+        lambda: layer_norm_bwd_reference(dy, ds, s, w, b, mu, rs),
+        max(1, iters // 4))
+    # library yardstick, timed only: F.layer_norm's backward, without
+    # the residual's add; weight and bias in bf16, since F.layer_norm on
+    # the card takes one dtype
+    xl = s.detach().requires_grad_()
+    wl, bl = (t_.detach().bfloat16().requires_grad_() for t_ in (w, b))
+    yl = torch.nn.functional.layer_norm(xl, (hidden,), wl, bl, eps)
+    l_ms, _ = time_ms(lambda: torch.autograd.grad(
+        yl, (xl, wl, bl), dy, retain_graph=True), iters)
+    elems = rows * hidden
+    nbytes = 4 * elems * 2 + 4 * hidden * 4 + 2 * rows * 4
+    b_ms, b_by = bound_ms(nbytes, 12 * elems)
+    log("lnbwd", f"N={rows} H={hidden} bf16 residual, warm L2, device ms: "
+        f"kernel {k_ms:.5f} | plain {p_ms:.5f} | F.layer_norm backward "
+        f"{l_ms:.5f} | bound {b_ms:.5f} ({b_by}, {nbytes} B); host ms per "
+        f"call: kernel wrapper {k_host:.5f}")
+    return {"name": "fused_layer_norm_bwd", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/layernorm.cu",
+            "replaces": "paddle_tpu/incubate/nn/pallas/layernorm.py:156",
+            "max_abs_err": err[torch.bfloat16], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms}
+
+
+# -- phase 9 -----------------------------------------------------------
+def _train_model(dev, num_layers=24, o2=True):
+    """bench_gpt2's on-chip GPT-2 345M (bench.py:540-545), weights from
+    seed 0; bf16 O2 unless `o2` is False."""
+    import dataclasses
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt2_345m
+
+    cfg = dataclasses.replace(
+        gpt2_345m(max_seq_len=TRAIN_SEQ, dropout=0.0, remat=False,
+                  use_flash_attention=True), num_layers=num_layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = GPTForCausalLM(cfg, device=dev, generator=gen)
+    return amp.decorate(model, level="O2", dtype="bfloat16") if o2 else model
+
+
+def _train_batch(vocab, dev):
+    """bench_gpt2's batch: ids and labels from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    shape = (TRAIN_BATCH, TRAIN_SEQ)
+    ids = rng.randint(0, vocab, shape).astype(np.int32)
+    labels = rng.randint(0, vocab, shape).astype(np.int32)
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
+                steps=TRAIN_STEPS, warmup=TRAIN_WARMUP):
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = model or _train_model(dev)
+    cfg = model.config
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStepCompiler(model, opt)
+    ids, labels = _train_batch(cfg.vocab_size, dev)
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        loss = step(ids, labels)
+    first = float(loss.item())
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    dts = []
+    for _ in range(windows):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(ids, labels)
+        last = float(loss.item())         # .item() synchronises
+        dts.append((time.perf_counter() - t0) / steps)
+    counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_steps = windows * steps
+    n_layers = cfg.num_layers
+    per_step = {"flash_attention_fwd": n_layers,
+                "flash_attention_bwd_dq": n_layers,
+                "flash_attention_bwd_dkv": n_layers,
+                "fused_layer_norm": 2 * n_layers + 1,
+                "fused_layer_norm_bwd": 2 * n_layers + 1,
+                "paged_attention": 0}
+    for name, per in per_step.items():
+        if counts[name] != per * n_steps:
+            raise AssertionError(
+                f"train: {name} launched {counts[name]} times in {n_steps} "
+                f"steps, expected {per} per step")
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"train: loss did not decrease ({first:.4f} "
+                             f"-> {last:.4f})")
+    dt = float(np.median(dts))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in model.parameters())
+    mfu = 6 * n_params * tokens / dt / PEAK_BF16_FLOPS
+    log("train", f"[{smi}] GPT-2 345M ({n_params} params, {n_layers}L) bf16 "
+        f"O2, AdamW multi_precision, B={TRAIN_BATCH} S={TRAIN_SEQ}: loss "
+        f"{first:.4f} -> {last:.4f} over {n_steps} steps; step "
+        f"{dt * 1e3:.3f} ms (median of {windows} windows of {steps}: "
+        + ", ".join(f"{x * 1e3:.3f}" for x in dts) + f") = "
+        f"{tokens / dt:.1f} tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s "
+        f"(6 N tokens); peak memory {peak / 2 ** 30:.2f} GiB; {warmup} "
+        f"warm-up steps {warm_s:.2f} s")
+    log("train", f"launches over {n_steps} steps: "
+        + ", ".join(f"{n} {counts[n]} = {per} x {n_steps}"
+                    for n, per in per_step.items()))
+    wall, busy, count, top = profile_ms(lambda: step(ids, labels), reps=2,
+                                       n_top=10)
+    if busy is None:
+        log("train", f"[{smi}] step wall {wall:.3f} ms; device time not "
+            "measured (the profiler saw no device activity)")
+    else:
+        tops = "; ".join(f"{name} x{n:.0f} {t:.3f} ms"
+                         for name, n, t in top)
+        log("train", f"[{smi}] where a step goes (torch.profiler, 2 steps):"
+            f" wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall:.1f}%), {count:.0f} kernels; top: {tops}")
+    return model, counts
+
+
+# -- phase 10 ----------------------------------------------------------
+# (loss rtol, per-row tolerance x row max|g|) of one step's loss and
+# gradients, kernel path vs plain path. bf16: each bf16 rounding of o,
+# y or dx that falls the other way on the two paths (at most one ulp,
+# 2^-7) is carried through 24 layers into every gradient; a row whose
+# gradient is a sum that cancels (a small row of qkv_w, fc2_w, wte)
+# then differs by 2-4% of its own max on an H100 (chip_mutants.py,
+# PERF.md), so 8e-2 leaves a factor of 2. This is the end-to-end check;
+# the sharp one is phase 7's, per kernel. f32: summation order only
+# (online vs one-pass softmax, LN sums), ~3e-6 per row.
+GRADS_BF16_TOL = (1e-3, 8e-2)
+GRADS_F32_TOL = (1e-6, 1e-4)
+
+
+def _loss_and_grads(model, ids, labels, use_kernel):
+    from paddle_tpu_torch.text.models.gpt import gpt_loss
+
+    c = model.config
+    named = list(model.gpt.named_parameters())
+    loss = gpt_loss(ids, labels, model.gpt.params_tree(detach=False),
+                    c.num_heads, c.layer_norm_eps, use_kernel=use_kernel,
+                    use_flash=c.use_flash_attention, remat=c.remat)
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
+
+
+def _grads_check(tag, model, ids, labels, loss_rtol, row_tol):
+    """Loss and every gradient, kernels vs plain versions, from the
+    same parameters. Each gradient is held per row (its last axis: one
+    output unit of a weight, one token of an embedding, one layer of a
+    stacked bias) at row_tol x the row's max|g|. Returns the worst row
+    ratio max|err| / row max|g| over all parameters."""
+    loss_k, gk = _loss_and_grads(model, ids, labels, True)
+    loss_p, gp = _loss_and_grads(model, ids, labels, False)
+    if abs(loss_k - loss_p) > loss_rtol * abs(loss_p):
+        raise AssertionError(f"{tag}: loss {loss_k} vs plain {loss_p}")
+    worst = (0.0, "")
+    for name, want in gp.items():
+        got = gk[name]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag}: non-finite grad {name}")
+        _, ratio = assert_close_rows(name, got, want, float("inf"))
+        worst = max(worst, (ratio, name))
+    if not worst[0] <= row_tol:
+        raise AssertionError(
+            f"{tag}: grad {worst[1]} row max|err| / row max|g| "
+            f"{worst[0]:.3e} over tolerance {row_tol}")
+    log("grads", f"{tag}: loss kernel {loss_k:.6f} plain {loss_p:.6f} "
+        f"(tol {loss_rtol} rel); worst grad row max|err| / row max|g| "
+        f"{worst[0]:.3e} ({worst[1]}); tolerance {row_tol} x row max|g| "
+        f"on every row of {len(gp)} parameters")
+    return worst[0]
+
+
+def phase_grads(dev, model, f32_layers=2):
+    ids, labels = _train_batch(model.config.vocab_size, dev)
+    log("grads", "torch.backends.cuda.matmul."
+        "allow_bf16_reduced_precision_reduction = "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+        ", allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}; the large products are "
+        "the same torch.matmul calls on both paths")
+    _grads_check(f"full width {model.config.num_layers}L bf16 O2", model,
+                 ids, labels, *GRADS_BF16_TOL)
+    small = _train_model(dev, num_layers=f32_layers, o2=False)
+    _grads_check(f"full width {f32_layers}L f32", small, ids, labels,
+                 *GRADS_F32_TOL)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -592,6 +1070,13 @@ def main():
     phase_logits(dev, model)
     for e in entries:
         e["launches"] = counts[e["name"]]
+    del model
+    train_entries = phase_flash(dev) + [phase_ln_bwd(dev)]
+    model, counts = phase_train(dev, smi)
+    phase_grads(dev, model)
+    for e in train_entries:
+        e["launches"] = counts[e["name"]]
+    entries += train_entries
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

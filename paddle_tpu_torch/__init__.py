@@ -10,8 +10,16 @@ package's, so each counterpart sits at the same path:
   * `incubate.nn.kernels`               hand-written Hopper kernels
                                         (CUDA C++ in `csrc/`, built at
                                         first use) with their plain
-                                        PyTorch versions
-  * `text.models.gpt`                   GPT-2 as an `nn.Module`
+                                        PyTorch versions and autograd
+                                        Functions
+  * `text.models.gpt`                   GPT-2 as an `nn.Module`: logits,
+                                        causal-LM loss, training
+  * `amp`                               `decorate` (O2: bf16 params,
+                                        LayerNorm kept f32)
+  * `optimizer`                         Adam, AdamW with f32 master
+                                        weights (`multi_precision`)
+  * `jit`                               `TrainStepCompiler`: forward
+                                        loss, backward, update
   * `inference.serving`                 `LLMEngine`: paged KV cache,
                                         continuous batching, prefill +
                                         paged decode

@@ -9,6 +9,10 @@ caller — loads name for name:
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
     load_reference_params(port_model, tree)
 
+Trees of an O2 model (`amp.decorate` in the JAX package) hold bf16
+arrays (numpy's `bfloat16` from ml_dtypes); they load into bf16 port
+parameters unchanged, through an exact f32 round trip.
+
 Nothing here imports JAX: the caller hands over numpy.
 """
 from __future__ import annotations
@@ -19,17 +23,24 @@ import torch
 __all__ = ["params_from_numpy", "load_reference_params"]
 
 
+def _tensor(arr):
+    """CPU tensor of a numpy array: bf16 stays bf16, anything else f32."""
+    arr = np.asarray(arr)
+    t = torch.from_numpy(np.array(arr, np.float32))
+    return t.to(torch.bfloat16) if arr.dtype.name == "bfloat16" else t
+
+
 def params_from_numpy(tree):
-    """Flat {port parameter name: f32 CPU tensor} from a numpy
-    parameter tree: `wte`, `wpe`, `blocks.<name>`, `lnf_w`, `lnf_b`."""
+    """Flat {port parameter name: CPU tensor} from a numpy parameter
+    tree: `wte`, `wpe`, `blocks.<name>`, `lnf_w`, `lnf_b`; bf16 arrays
+    give bf16 tensors, the rest f32."""
     flat = {}
     for key, value in tree.items():
         if key == "blocks":
             for name, arr in value.items():
-                flat[f"blocks.{name}"] = torch.from_numpy(
-                    np.array(arr, np.float32))
+                flat[f"blocks.{name}"] = _tensor(arr)
         else:
-            flat[key] = torch.from_numpy(np.array(value, np.float32))
+            flat[key] = _tensor(value)
     return flat
 
 

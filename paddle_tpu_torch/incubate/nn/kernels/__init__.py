@@ -6,11 +6,14 @@ and bound through `ctypes` (a plain C interface: no PyTorch headers, so
 a build takes seconds):
 
 - `layernorm.fused_layer_norm` / `fused_residual_layer_norm`: row
-  LayerNorm with an optional residual-add prologue and GeLU epilogue
-  (`csrc/layernorm.cu`).
+  LayerNorm with an optional residual-add prologue and GeLU epilogue,
+  forward and backward (`csrc/layernorm.cu`).
 - `paged_attention.paged_attention`: ragged paged-attention decode, one
   query per sequence, K/V read through block tables
   (`csrc/paged_attention.cu`).
+- `flash_attention.flash_attention`: tiled online-softmax attention,
+  forward and the two backward kernels, dq and dk/dv
+  (`csrc/flash_attention.cu`).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version only for CPU tensors. There is no switch that turns the
@@ -41,7 +44,7 @@ __all__ = ["build", "load", "check", "count", "launches",
 PKG_DIR = Path(__file__).resolve().parents[3]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layernorm.cu", "paged_attention.cu")
+SOURCES = ("layernorm.cu", "paged_attention.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -51,7 +54,9 @@ DTYPE_BF16 = 1
 
 # kernel name -> launches since the last reset (one per wrapper call
 # that launched the kernel; plain-version calls on the CPU never count)
-_LAUNCHES = {"paged_attention": 0, "fused_layer_norm": 0}
+_LAUNCHES = {"paged_attention": 0, "fused_layer_norm": 0,
+             "fused_layer_norm_bwd": 0, "flash_attention_fwd": 0,
+             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -152,9 +157,20 @@ def _declare(lib):
     lib.ptt_layer_norm_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, f,
                                        i, i, p]
     lib.ptt_layer_norm_fwd.restype = i
+    lib.ptt_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i,
+                                       i, i, i, p]
+    lib.ptt_layer_norm_bwd.restype = i
     lib.ptt_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                         f, i, p]
     lib.ptt_paged_attention.restype = i
+    lib.ptt_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, p]
+    lib.ptt_flash_fwd.restype = i
+    lib.ptt_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i,
+                                     i, p]
+    lib.ptt_flash_bwd_dq.restype = i
+    lib.ptt_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f,
+                                      i, i, p]
+    lib.ptt_flash_bwd_dkv.restype = i
     lib.ptt_error_string.argtypes = [i]
     lib.ptt_error_string.restype = ctypes.c_char_p
 

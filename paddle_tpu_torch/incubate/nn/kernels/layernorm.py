@@ -1,9 +1,10 @@
-"""Fused LayerNorm forward: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Fused LayerNorm, forward and backward: the CUDA kernels' wrappers,
+their plain PyTorch versions, and the autograd Functions that join
+them.
 
-Counterpart of `paddle_tpu/incubate/nn/pallas/layernorm.py` (forward
-only; the backward is the training slice's). One kernel
-(`csrc/layernorm.cu`) covers both public functions:
+Counterpart of `paddle_tpu/incubate/nn/pallas/layernorm.py`. One
+forward kernel and one backward kernel (`csrc/layernorm.cu`) cover
+both public functions:
 
 - `fused_layer_norm(x, w, b)`: y = [gelu](LayerNorm(x) * w + b) over
   the last dim.
@@ -12,12 +13,22 @@ only; the backward is the training slice's). One kernel
   (y, s) — the normalised activation and the next block's residual
   from one pass.
 
-`layer_norm_fwd` returns every output of the kernel, (y, s, mean,
-rstd), with mean and rstd f32 of shape [rows]. For CUDA tensors it
-launches the kernel; for CPU tensors it runs
-`layer_norm_fwd_reference`, the same arithmetic in plain PyTorch.
+Both are `torch.autograd.Function`s (`FusedLayerNormFn`,
+`FusedResidualLayerNormFn`, the JAX package's `custom_vjp`s): the
+forward saves s, mean and rstd, the backward is `layer_norm_bwd`. The
+residual variant hands the same dx to x and to the residual.
+
+`layer_norm_fwd` returns every output of the forward kernel, (y, s,
+mean, rstd), with mean and rstd f32 of shape [rows]; `layer_norm_bwd`
+returns (dx, dw, db). For CUDA tensors they launch the kernels; for CPU
+tensors they run `layer_norm_fwd_reference` / `layer_norm_bwd_reference`,
+the same arithmetic in plain PyTorch. The `*_reference` public
+functions go through the plain versions on any device: the comparison
+path.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -27,9 +38,15 @@ from . import DTYPE_BF16, DTYPE_F32, check, count, load
 __all__ = ["fused_layer_norm", "fused_residual_layer_norm",
            "fused_layer_norm_reference",
            "fused_residual_layer_norm_reference", "layer_norm_fwd",
-           "layer_norm_fwd_reference", "MAX_HIDDEN"]
+           "layer_norm_fwd_reference", "layer_norm_bwd",
+           "layer_norm_bwd_reference", "FusedLayerNormFn",
+           "FusedResidualLayerNormFn", "MAX_HIDDEN"]
 
 MAX_HIDDEN = 4096  # kMaxHidden in csrc/layernorm.cu
+# CTAs of the backward kernel (fewer when there are fewer rows); each
+# writes one partial row of dw and db. Fixed, so the partial sums are
+# taken in the same order on every run.
+BWD_CTAS = 256
 _DTYPES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
 
 
@@ -121,30 +138,171 @@ def layer_norm_fwd(x, residual, weight, bias, eps=1e-5, activation=None,
     return y, s, mean, rstd
 
 
+def _gelu_grad(x, approximate):
+    """d gelu(x) / dx, `_gelu_grad`'s formulas (layernorm.py:67-76)."""
+    if approximate:
+        c = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(c * (x + 0.044715 * x * x * x))
+        du = c * (1.0 + 3.0 * 0.044715 * x * x)
+        return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * du
+    cdf = 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
+    pdf = torch.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
+    return cdf + x * pdf
+
+
+def layer_norm_bwd_reference(dy, ds, s, weight, bias, mean, rstd,
+                             activation=None, approximate=True):
+    """Plain PyTorch (dx, dw, db): the backward kernel's arithmetic
+    (`_ln_bwd_kernel`, layernorm.py:156-179). dx is in dy's dtype; dw
+    and db are f32. With a residual, ds (the cotangent of the sum s)
+    joins dx in f32 before the cast."""
+    _act_code(activation, approximate)
+    h = s.shape[-1]
+    rows = s.numel() // h
+    mu = mean.reshape(rows, 1)
+    rs = rstd.reshape(rows, 1)
+    xhat = (s.reshape(rows, h).float() - mu) * rs
+    w = weight.float()
+    g = dy.reshape(rows, h).float()
+    if activation == "gelu":
+        g = g * _gelu_grad(xhat * w + bias.float(), approximate)
+    dw = (g * xhat).sum(dim=0)
+    db = g.sum(dim=0)
+    dxhat = g * w
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = rs * (dxhat - m1 - xhat * m2)
+    if ds is not None:
+        dx = dx + ds.reshape(rows, h).float()
+    return dx.to(dy.dtype).reshape(dy.shape), dw, db
+
+
+def layer_norm_bwd(dy, ds, s, weight, bias, mean, rstd, activation=None,
+                   approximate=True):
+    """(dx, dw, db) of the fused LayerNorm from the forward's s, mean
+    and rstd; ds is None without a residual. CUDA tensors launch the
+    kernel, CPU tensors take `layer_norm_bwd_reference`; any other
+    device raises."""
+    if s.device.type == "cpu":
+        return layer_norm_bwd_reference(dy, ds, s, weight, bias, mean,
+                                        rstd, activation, approximate)
+    if s.device.type != "cuda":
+        raise ValueError(
+            f"fused_layer_norm runs on CUDA (kernel) or CPU (plain "
+            f"version), got {s.device}")
+    act = _act_code(activation, approximate)
+    _check(s, None, weight, bias)
+    h = s.shape[-1]
+    n = s.numel() // h
+    for name, t in (("dy", dy), ("ds", ds)):
+        if t is None:
+            continue
+        if t.shape != s.shape or t.dtype != s.dtype \
+                or t.device != s.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name} {tuple(t.shape)} {t.dtype} must be contiguous "
+                f"and match s {tuple(s.shape)} {s.dtype}")
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if t.dtype != torch.float32 or t.shape != (n,) \
+                or t.device != s.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be f32 of shape ({n},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    dx = torch.empty_like(dy)
+    if n == 0:                     # no rows: nothing to launch
+        zeros = torch.zeros(h, dtype=torch.float32, device=s.device)
+        return dx, zeros, zeros.clone()
+    grid = min(n, BWD_CTAS)
+    dw_part = torch.empty(grid, h, dtype=torch.float32, device=s.device)
+    db_part = torch.empty(grid, h, dtype=torch.float32, device=s.device)
+    lib = load()
+    rc = lib.ptt_layer_norm_bwd(
+        dy.data_ptr(), None if ds is None else ds.data_ptr(), s.data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
+        db_part.data_ptr(), n, h, grid, act, _DTYPES[s.dtype],
+        torch.cuda.current_stream(s.device).cuda_stream)
+    check(rc, "fused_layer_norm_bwd")
+    count("fused_layer_norm_bwd")
+    return dx, dw_part.sum(dim=0), db_part.sum(dim=0)
+
+
+def _fwd_bwd(use_kernel):
+    if use_kernel:
+        return layer_norm_fwd, layer_norm_bwd
+    return layer_norm_fwd_reference, layer_norm_bwd_reference
+
+
+class FusedLayerNormFn(torch.autograd.Function):
+    """y = [gelu](LayerNorm(x) * w + b), with the backward kernel as
+    its gradient (`use_kernel=False`: the plain versions both ways)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, activation, approximate,
+                use_kernel):
+        fwd, _ = _fwd_bwd(use_kernel)
+        y, _, mean, rstd = fwd(x, None, weight, bias, eps, activation,
+                               approximate)
+        ctx.save_for_backward(x, weight, bias, mean, rstd)
+        ctx.cfg = (activation, approximate, use_kernel)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, mean, rstd = ctx.saved_tensors
+        activation, approximate, use_kernel = ctx.cfg
+        _, bwd = _fwd_bwd(use_kernel)
+        dx, dw, db = bwd(dy.contiguous(), None, x, weight, bias, mean, rstd,
+                         activation, approximate)
+        return dx, dw, db, None, None, None, None
+
+
+class FusedResidualLayerNormFn(torch.autograd.Function):
+    """(y, s): s = x + residual, y = [gelu](LayerNorm(s) * w + b). Both
+    outputs carry cotangents; x and the residual get the same dx
+    (layernorm.py:300-310)."""
+
+    @staticmethod
+    def forward(ctx, x, residual, weight, bias, eps, activation,
+                approximate, use_kernel):
+        fwd, _ = _fwd_bwd(use_kernel)
+        y, s, mean, rstd = fwd(x, residual, weight, bias, eps, activation,
+                               approximate)
+        ctx.save_for_backward(s, weight, bias, mean, rstd)
+        ctx.cfg = (activation, approximate, use_kernel)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        s, weight, bias, mean, rstd = ctx.saved_tensors
+        activation, approximate, use_kernel = ctx.cfg
+        _, bwd = _fwd_bwd(use_kernel)
+        dx, dw, db = bwd(dy.contiguous(), ds.contiguous(), s, weight, bias,
+                         mean, rstd, activation, approximate)
+        return dx, dx, dw, db, None, None, None, None
+
+
 def fused_layer_norm(x, weight, bias, eps=1e-5, activation=None,
                      approximate=True):
     """y = [gelu](LayerNorm(x) * weight + bias) over the last dim."""
-    return layer_norm_fwd(x, None, weight, bias, eps, activation,
-                          approximate)[0]
+    return FusedLayerNormFn.apply(x, weight, bias, eps, activation,
+                                  approximate, True)
 
 
 def fused_residual_layer_norm(x, residual, weight, bias, eps=1e-5,
                               activation=None, approximate=True):
     """(y, s): s = x + residual; y = [gelu](LayerNorm(s) * w + b)."""
-    y, s, _, _ = layer_norm_fwd(x, residual, weight, bias, eps,
-                                activation, approximate)
-    return y, s
+    return FusedResidualLayerNormFn.apply(x, residual, weight, bias, eps,
+                                          activation, approximate, True)
 
 
 def fused_layer_norm_reference(x, weight, bias, eps=1e-5,
                                activation=None, approximate=True):
-    return layer_norm_fwd_reference(x, None, weight, bias, eps,
-                                    activation, approximate)[0]
+    return FusedLayerNormFn.apply(x, weight, bias, eps, activation,
+                                  approximate, False)
 
 
 def fused_residual_layer_norm_reference(x, residual, weight, bias,
                                         eps=1e-5, activation=None,
                                         approximate=True):
-    y, s, _, _ = layer_norm_fwd_reference(x, residual, weight, bias, eps,
-                                          activation, approximate)
-    return y, s
+    return FusedResidualLayerNormFn.apply(x, residual, weight, bias, eps,
+                                          activation, approximate, False)

@@ -48,7 +48,7 @@ def test_logits_match_jax_forward(init):
     ids = np.random.RandomState(1).randint(0, 128, (2, 40)).astype(np.int32)
     want = np.asarray(jax_gpt._k_gpt_forward(ids, params, 4, 1e-5, False,
                                              False))
-    got = pm(torch.from_numpy(ids))
+    got = pm(torch.from_numpy(ids)).detach()    # the forward now trains
     assert got.shape == (2, 40, 128) and got.dtype == torch.float32
     tol = 1e-5 * np.abs(want).max()
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
@@ -132,7 +132,8 @@ def _imports(path):
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                             "chip_mutants.py")]
     for root, _, fs in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     return files

@@ -13,7 +13,17 @@ and dense references, and through the port, at stated tolerances:
     bf16 ulp of the Pallas kernel (1e-2 x max|out| + 1e-2 relative);
   * LayerNorm: f32 within 1e-5; bf16 outputs within one bf16 ulp
     (1e-2), the residual sum bit-identical (both round the exact sum
-    once), the f32 statistics within 1e-5.
+    once), the f32 statistics within 1e-5. Its gradients, through the
+    port's autograd Functions and `jax.grad` of the Pallas kernels'
+    custom VJPs, within 1e-5 x max|g| (the same formulas, summed in
+    another order);
+  * flash attention in f32 against the Pallas kernels (interpret mode)
+    and their `jax.grad`: the forward within 2e-5, lse within 1e-5 and
+    the gradients within 2e-4, the JAX package's own tolerances for its
+    kernel (tests/test_flash_attention.py); in bf16 the forward within
+    2e-2 x max|out| + 2e-2 relative (one or two bf16 ulps: the Pallas
+    kernel rounds p against the running maximum of 128-key tiles, the
+    port's plain version against the row maximum).
 
 Also the contracts: CPU tensors take the plain version and never touch
 the kernel library; other devices raise; asking for CUDA without a GPU
@@ -25,12 +35,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
+from paddle_tpu.incubate.nn import attention_pallas as jax_fa
 from paddle_tpu.incubate.nn.pallas import layernorm as jax_ln
 from paddle_tpu.incubate.nn.pallas import paged_attention as jax_pa
 
 from paddle_tpu_torch import resolve_device
 from paddle_tpu_torch.incubate.nn import kernels
+from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
 from paddle_tpu_torch.incubate.nn.kernels import layernorm as ln
 from paddle_tpu_torch.incubate.nn.kernels import paged_attention as pa
 
@@ -277,3 +290,203 @@ def test_kernel_input_checks_raise():
         pa._check(q, torch.randn(6, 8, 4, 64), torch.randn(6, 8, 4, 64),
                   torch.zeros(3, 3, dtype=torch.int32),
                   torch.ones(2, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("act,approx,res", _LN_CASES)
+def test_layer_norm_grads_match_jax(act, approx, res):
+    """Gradients of sum(sin(y)) (+ sum(cos(s))) through the port's
+    Functions and through jax.grad of the Pallas kernels' VJPs: the
+    cotangent trick of test_pallas_fusion.py, which makes both outputs
+    carry a non-trivial cotangent."""
+    rng = np.random.RandomState(6)
+    x, r = (rng.randn(3, 7, 96).astype(np.float32) for _ in range(2))
+    w = (1 + 0.1 * rng.randn(96)).astype(np.float32)
+    b = (0.1 * rng.randn(96)).astype(np.float32)
+
+    if res:
+        def f(x, r, w, b):
+            y, s = jax_ln.fused_residual_layer_norm(x, r, w, b, 1e-5, act,
+                                                    approx, True)
+            return jnp.sum(jnp.sin(y)) + jnp.sum(jnp.cos(s))
+        want = jax.grad(f, (0, 1, 2, 3))(x, r, w, b)
+    else:
+        def f(x, w, b):
+            return jnp.sum(jnp.sin(jax_ln.fused_layer_norm(
+                x, w, b, 1e-5, act, approx, True)))
+        want = jax.grad(f, (0, 1, 2))(x, w, b)
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in ((x, r, w, b) if res else (x, w, b))]
+    if res:
+        y, s = ln.fused_residual_layer_norm(*leaves, 1e-5, act, approx)
+        loss = y.sin().sum() + s.cos().sum()
+    else:
+        loss = ln.fused_layer_norm(*leaves, 1e-5, act, approx).sin().sum()
+    got = torch.autograd.grad(loss, leaves)
+    for g, w_ in zip(got, want):
+        w_ = np.asarray(w_)
+        np.testing.assert_allclose(g.numpy(), w_, rtol=0,
+                                   atol=1e-5 * np.abs(w_).max())
+    if res:   # x and the residual get the same gradient
+        assert torch.equal(got[0], got[1])
+
+
+def test_layer_norm_bwd_matches_jax_kernel():
+    """The plain backward against `_ln_bwd_impl` (interpret mode) on
+    the same saved statistics, bf16 dy and s with a residual."""
+    rng = np.random.RandomState(8)
+    n, h = 20, 64
+    s = jnp.asarray(rng.randn(n, h), jnp.bfloat16)
+    dy, ds = (jnp.asarray(rng.randn(n, h), jnp.bfloat16) for _ in range(2))
+    w = jnp.asarray(1 + 0.1 * rng.randn(h), jnp.float32)
+    b = jnp.asarray(0.1 * rng.randn(h), jnp.float32)
+    _, _, mu, rs = jax_ln._ln_fwd_impl(s, None, w, b, 1e-5, "gelu", True,
+                                       True)
+    jdx, jdw, jdb = jax_ln._ln_bwd_impl(dy, ds, s, w, b, mu, rs, "gelu",
+                                        True, True)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    dx, dw, db = ln.layer_norm_bwd(
+        t(dy).bfloat16(), t(ds).bfloat16(), t(s).bfloat16(), t(w), t(b),
+        t(mu)[:, 0].contiguous(), t(rs)[:, 0].contiguous(), "gelu", True)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    np.testing.assert_allclose(dx.float().numpy(), np.asarray(jdx, np.float32),
+                               rtol=1e-2, atol=1e-2)
+    for got, want in ((dw, jdw), (db, jdb)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _qkv(b, h, s, d, seed, sk=None):
+    rng = np.random.RandomState(seed)
+    sk = s if sk is None else sk
+    return (0.5 * rng.randn(b, h, s, d).astype(np.float32),
+            0.5 * rng.randn(b, h, sk, d).astype(np.float32),
+            0.5 * rng.randn(b, h, sk, d).astype(np.float32),
+            rng.randn(b, h, s, d).astype(np.float32))
+
+
+@pytest.mark.parametrize("s,d,causal", [(256, 64, False), (256, 64, True),
+                                        (129, 64, True), (256, 16, True),
+                                        (129, 16, False)])
+def test_flash_attention_matches_jax(s, d, causal):
+    """Forward, lse and all three gradients of the port's Function (the
+    plain versions, on CPU tensors) against the Pallas kernels in
+    interpret mode with 128 blocks, and their custom VJP."""
+    q, k, v, w = _qkv(1, 2, s, d, seed=s + d)
+    scale = 1.0 / np.sqrt(d)
+    jo, jlse = jax_fa._flash_fwd_impl(q, k, v, causal, scale, 128, 128, True)
+
+    def f(q, k, v):
+        return jnp.sum(jax_fa.flash_attention(q, k, v, causal, scale, 128,
+                                              128, True) * w)
+    want = jax.grad(f, (0, 1, 2))(q, k, v)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal, sm_scale=scale)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(), leaves)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jo),
+                               rtol=2e-5, atol=2e-5)
+    _, lse = fa.flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    causal, scale)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-5,
+                               atol=1e-5)
+    for g, w_, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_), rtol=2e-4,
+                                   atol=2e-4, err_msg=f"d{name}")
+
+
+def test_flash_attention_bf16_matches_jax_kernel():
+    q, k, v, _ = _qkv(1, 2, 256, 64, seed=3)
+    jo, _ = jax_fa._flash_fwd_impl(*(jnp.asarray(a, jnp.bfloat16)
+                                     for a in (q, k, v)), True, 0.125, 128,
+                                   128, True)
+    jo = np.asarray(jo, np.float32)
+    o, lse = fa.flash_attention_fwd(*(torch.from_numpy(a).bfloat16()
+                                      for a in (q, k, v)), True, 0.125)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().numpy(), jo, rtol=2e-2,
+                               atol=2e-2 * np.abs(jo).max())
+
+
+def test_flash_attention_cross_attention_matches_jax():
+    """Non-causal, sq != sk, ragged: the padded-KV mask."""
+    q, k, v, _ = _qkv(1, 2, 100, 64, seed=4, sk=200)
+    jo, jlse = jax_fa._flash_fwd_impl(q, k, v, False, 0.125, 128, 128, True)
+    o, lse = fa.flash_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                                    False, 0.125)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_causal_masks_diverge_when_sq_ne_sk():
+    """A divergence in the reference: the Pallas kernel masks causal
+    attention from the top left (q_pos >= k_pos, `_mask_scores`),
+    `_attn_ref` from the bottom right (tril(k=sk-sq)). With sq == sk
+    they agree; with sq != sk they do not, and the port, which follows
+    the kernel, refuses the call."""
+    q, k, v, _ = _qkv(1, 1, 128, 16, seed=5, sk=256)
+    kern, _ = jax_fa._flash_fwd_impl(q, k, v, True, 0.25, 128, 128, True)
+    _, dense = jax_fa._attn_ref(q, k, v, True, 0.25)
+    assert np.abs(np.asarray(kern) - np.asarray(dense)).max() > 0.1
+    # query row 0 sees key 0 alone under the kernel's mask
+    np.testing.assert_allclose(np.asarray(kern)[0, 0, 0], v[0, 0, 0],
+                               rtol=1e-6, atol=1e-6)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    with pytest.raises(ValueError, match="sq == sk"):
+        fa.flash_attention(tq, tk, tv, causal=True, sm_scale=0.25)
+    with pytest.raises(ValueError, match="sq == sk"):
+        fa.flash_attention_fwd_reference(tq, tk, tv, True, 0.25)
+    q, k, v, _ = _qkv(1, 1, 128, 16, seed=5)
+    kern, _ = jax_fa._flash_fwd_impl(q, k, v, True, 0.25, 128, 128, True)
+    _, dense = jax_fa._attn_ref(q, k, v, True, 0.25)
+    np.testing.assert_allclose(np.asarray(kern), np.asarray(dense),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_plain_versions_round_like_the_kernel():
+    """bf16: the forward rounds the un-normalised p (so o differs from
+    a dense softmax that rounds the normalised p), the backward pieces
+    compose to flash_attention_bwd_reference."""
+    q, k, v, w = (torch.from_numpy(a).bfloat16()
+                  for a in _qkv(2, 2, 64, 64, seed=6))
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, True, 0.125)
+    s = fa._masked_scores(q, k, True, 0.125)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    want = (p.bfloat16().float() @ v.float()) / p.sum(-1, keepdim=True)
+    assert torch.equal(o, want.bfloat16())
+    dq, dk, dv = fa.flash_attention_bwd_reference(q, k, v, o, lse, w, True,
+                                                  0.125)
+    delta = (w.float() * o.float()).sum(-1)
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, w, lse, delta,
+                                                     True, 0.125))
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, w, lse, delta, True,
+                                          0.125)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+
+
+def test_flash_supported_and_shape_checks():
+    assert fa.flash_supported(64) and fa.flash_supported(128)
+    assert not fa.flash_supported(32) and not fa.flash_supported(16)
+    q = torch.randn(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="B, H, S, D"):
+        fa.flash_attention_fwd(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="do not match"):
+        fa.flash_attention_fwd(q, torch.randn(1, 3, 8, 16),
+                               torch.randn(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        m = torch.empty(1, 2, 8, 64, device="meta")
+        fa.flash_attention_fwd(m, m, m)
