@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Planted faults in the bf16 flash-attention kernels, and which of
-`chip_smoke.py`'s checks catch them.
+"""Planted faults in the bf16 flash-attention kernels and the
+multi-tensor optimizer kernel, and which of `chip_smoke.py`'s checks
+catch them.
 
     python3 chip_mutants.py
 
 Needs one CUDA card and `nvcc`. The source files are not touched: each
-mutant is `csrc/flash_attention.cu` with one edit, written and compiled
+mutant is one source of `csrc/` with one edit, written and compiled
 (one `nvcc` per mutant, all started together) under
 `paddle_tpu_torch/_build/mutants/`, and linked with the other kernels
-into a library of its own. The flash wrappers then run on that library
-in turn. Every mutant breaks only late causal rows or keys (query rows
-or keys >= 512 of 1024), or one tile: the faults a limit set by a
-tensor's first rows would miss.
+into a library of its own. The wrappers then run on that library in
+turn. Every flash mutant breaks only late causal rows or keys (query
+rows or keys >= 512 of 1024), or one tile: the faults a limit set by a
+tensor's first rows would miss. The two optimizer mutants divide the
+bias corrections by multiplying with an f32 reciprocal, and skip the
+last chunk of one tensor (the first of the table, GPT-2's wte).
 
-For the unmutated library (the control) and each mutant, three checks:
+For the unmutated library (the control) and each flash mutant, three
+checks:
   per-row    chip_smoke's flash check at the training shape (B 4, H 16,
              S 1024, D 64, bf16, causal, chip_smoke's inputs): o, dq,
              dk and dv per row, lse within 1e-4; with each output's
@@ -24,8 +28,12 @@ For the unmutated library (the control) and each mutant, three checks:
              (seed 0): one step's loss and every gradient of GPT-2 345M
              (24 layers, bf16 O2, B 4 x S 1024), kernel path vs plain
              path, per row
-Exits non-zero when the control fails a check or a mutant passes the
-per-row flash check.
+For the control and each optimizer mutant, one check:
+  optim      chip_smoke's phase 11 check: every optimizer case on the
+             GPT-2 345M O2 parameter set, kernel path vs per-parameter
+             rule, bit for bit after every step
+Exits non-zero when the control fails a check, a flash mutant passes the
+per-row flash check, or an optimizer mutant passes the optim check.
 """
 from __future__ import annotations
 
@@ -36,29 +44,31 @@ import sys
 
 import torch
 
-# (name, [(unique text of flash_attention.cu, replacement)])
+FLASH = "flash_attention.cu"
+OPTIM = "optim.cu"
+# (name, source in csrc/, [(unique text of the source, replacement)])
 MUTANTS = [
-    ("fwd: KV tile 0 skipped for query rows >= 512",
+    ("fwd: KV tile 0 skipped for query rows >= 512", FLASH,
      [("    __syncthreads();  // the previous tile's readers are done\n"
        "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n",
        "    __syncthreads();  // the previous tile's readers are done\n"
        "    if (k0 == 0 && q0 >= 512) continue;\n"
        "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n"
        )]),
-    ("fwd: causal diagonal masked for query rows >= 512",
+    ("fwd: causal diagonal masked for query rows >= 512", FLASH,
      [("        const bool ok = kp < sk && (!kCausal || qp >= kp);\n"
        "        s[nt][i] = ok",
        "        const bool ok = kp < sk && (!kCausal || qp > kp ||\n"
        "                                    (qp == kp && qp < 512));\n"
        "        s[nt][i] = ok")]),
-    ("dq: KV tile 0 skipped for query rows >= 512",
+    ("dq: KV tile 0 skipped for query rows >= 512", FLASH,
      [("    __syncthreads();\n"
        "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n",
        "    __syncthreads();\n"
        "    if (k0 == 0 && q0 >= 512) continue;\n"
        "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n"
        )]),
-    ("dq: causal diagonal masked for query rows >= 512",
+    ("dq: causal diagonal masked for query rows >= 512", FLASH,
      [("        const bool ok = kp < sk && (!kCausal || qp >= kp);\n"
        "        const float p =\n"
        "            expf((ok ? s[nt][i]",
@@ -66,7 +76,7 @@ MUTANTS = [
        "                                    (qp == kp && qp < 512));\n"
        "        const float p =\n"
        "            expf((ok ? s[nt][i]")]),
-    ("dk/dv: causal diagonal masked for keys >= 512",
+    ("dk/dv: causal diagonal masked for keys >= 512", FLASH,
      [("const bool ok = kp < sk && qp < sq && (!kCausal || qp >= kp);\n"
        "        const float p =\n"
        "            expf((ok ? st[nt][i]",
@@ -74,12 +84,23 @@ MUTANTS = [
        "                                    (qp == kp && kp < 512));\n"
        "        const float p =\n"
        "            expf((ok ? st[nt][i]")]),
-    ("dk/dv: last q tile skipped for keys < 512",
+    ("dk/dv: last q tile skipped for keys < 512", FLASH,
      [("  for (int q0 = kCausal ? k0 : 0; q0 < sq; q0 += kTcRows) {\n"
        "    __syncthreads();\n",
        "  for (int q0 = kCausal ? k0 : 0; q0 < sq; q0 += kTcRows) {\n"
        "    __syncthreads();\n"
        "    if (q0 + kTcRows >= sq && k0 < 512) continue;\n")]),
+    ("optim: bias corrections multiplied by an f32 reciprocal", OPTIM,
+     [("    const float mhat = __fdiv_rn(m, d1);\n"
+       "    const float vhat = __fdiv_rn(v, d2);\n",
+       "    const float mhat = __fmul_rn(m, __frcp_rn(d1));\n"
+       "    const float vhat = __fmul_rn(v, __frcp_rn(d2));\n")]),
+    ("optim: the last chunk of the table's first tensor skipped", OPTIM,
+     [("  const long long end = start + kChunk < e.n ? start + kChunk : "
+       "e.n;\n",
+       "  const long long end = start + kChunk < e.n ? start + kChunk : "
+       "e.n;\n"
+       "  if (e.chunk0 == 0 && end == e.n && start > 0) return;\n")]),
 ]
 
 
@@ -91,16 +112,13 @@ def build_mutants():
     root = K.BUILD_DIR / "mutants"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    base = (K.CSRC_DIR / "flash_attention.cu").read_text()
-    jobs, common = [], []
+    jobs, common = [], {}
     for src in K.SOURCES:
-        if src != "flash_attention.cu":
-            common.append(root / src.replace(".cu", ".o"))
-            jobs.append((src, [nvcc, *K.NVCC_FLAGS, "-c",
-                               str(K.CSRC_DIR / src), "-o",
-                               str(common[-1])]))
-    for i, (name, edits) in enumerate(MUTANTS):
-        text = base
+        common[src] = root / src.replace(".cu", ".o")
+        jobs.append((src, [nvcc, *K.NVCC_FLAGS, "-c", str(K.CSRC_DIR / src),
+                           "-o", str(common[src])]))
+    for i, (name, src, edits) in enumerate(MUTANTS):
+        text = (K.CSRC_DIR / src).read_text()
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f"mutant {name!r}: its text occurs "
@@ -117,11 +135,12 @@ def build_mutants():
         if p.returncode:
             raise RuntimeError(f"nvcc failed on {n}:\n{out}")
     libs = []
-    for i in range(len(MUTANTS)):
+    for i, (_, src, _) in enumerate(MUTANTS):
         so = root / f"m{i}.so"
+        others = [str(o) for s, o in common.items() if s != src]
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                         "-shared", "-o", str(so), str(root / f"m{i}.o"),
-                        *map(str, common)], check=True,
+                        *others], check=True,
                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         lib = ctypes.CDLL(str(so))
         K._declare(lib)
@@ -176,6 +195,16 @@ def run_checks(model, batch, inputs):
     return res
 
 
+def optim_check(named, grads):
+    import chip_smoke as cs
+
+    try:
+        cs.optim_checks(named, grads)
+        return "passes"
+    except AssertionError as e:
+        return f"FAILS ({e})"
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_mutants: no CUDA device", file=sys.stderr)
@@ -194,12 +223,19 @@ def main():
                               torch.bfloat16, dev)
     model = cs._train_model(dev)
     batch = cs._train_batch(model.config.vocab_size, dev)
+    named = list(cs._train_model(dev).named_parameters())
+    grads = cs._optim_grads(named, dev)
     ok = True
-    for name, lib in [("control (unmutated)", control)] + [
-            (n, lib) for (n, _), lib in zip(MUTANTS, libs)]:
+    runs = [("control (unmutated)", None, control)] + [
+        (n, src, lib) for (n, src, _), lib in zip(MUTANTS, libs)]
+    for name, src, lib in runs:
         K._lib = lib
         try:
-            res = run_checks(model, batch, inputs)
+            res = {}
+            if src in (None, FLASH):
+                res.update(run_checks(model, batch, inputs))
+            if src in (None, OPTIM):
+                res["optim"] = optim_check(named, grads)
         finally:
             K._lib = control
         for check, verdict in res.items():
@@ -207,10 +243,12 @@ def main():
         if lib is control:
             ok &= not any(r.lower().startswith("fails")
                           for r in res.values())
-        else:
+        elif src == FLASH:
             ok &= res["per-row"].startswith("FAILS")
-    print(f"[mutant] {'every' if ok else 'NOT every'} mutant fails the "
-          "per-row flash check and the control passes every check")
+        else:
+            ok &= res["optim"].startswith("FAILS")
+    print(f"[mutant] {'every' if ok else 'NOT every'} mutant fails its "
+          "check (per-row flash, optim) and the control passes every check")
     return 0 if ok else 1
 
 

@@ -36,9 +36,27 @@ without them. Phases, each printing one line (or a few):
  10. grads    one step's loss and every gradient, kernel path vs plain
               path from the same state: full width in bf16, and 2
               layers at full width in f32
+ 11. optim    the three multi-tensor optimizer kernels (fused_adam,
+              fused_momentum, fused_sgd) vs the per-parameter rule on the
+              GPT-2 345M O2 parameter set (16 tensors, grads from numpy
+              seeds), bit for bit after 3 steps: AdamW with the decay
+              filter, Adam with coupled L2, SGD, Momentum, Nesterov, an
+              f32 model without masters, a zero-size tensor, a parameter
+              without a grad, set_state_dict mid-run; times against the
+              bound, the plain version and torch.optim's fused step
+ 12. recipe   GPT-2 345M at full width and depth, bf16 O2, trained with
+              a pretraining recipe: AdamW under a warm-up + cosine
+              schedule, a global-norm clip, the decay filter, gradient
+              merge over 2 microsteps and the non-finite guard, 16 calls
+              (8 optimizer steps): the loss falls, every call's lr is
+              the schedule's, launches exact per call; then Nesterov
+              Momentum and SGD train the model at full width and 4
+              layers: the loss falls, one launch a step
 
-Then one JSON line with every kernel's launches, error and times, the
-nvidia-smi line, and as the LAST line
+Then one JSON line with every kernel's launches (the optimizer kernels'
+from phase 12, the other training kernels' from phase 9, the serving
+kernels' from phase 5), error and times, the nvidia-smi line, and as
+the LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 fp32 matrix products run in full f32: TF32 is switched off for matmul
@@ -51,6 +69,7 @@ kernel-vs-plain training comparisons the large products are the same
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -128,13 +147,36 @@ def time_ms(fn, iters=100, flush=None):
     return dev_ms, host_s * 1e3 / iters
 
 
+def chain_ms(fn, iters=20):
+    """(device ms, host ms) of one fn() call for a function of
+    milliseconds of device work: a CUDA event pair around `iters` calls
+    back to back after warm-up, and the host's wall time to enqueue
+    them. Where the host enqueues a call faster than the card runs it,
+    the events bracket device work alone; the host ms says whether it
+    did."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters, host_ms
+
+
 def profile_ms(fn, reps=3, n_top=5):
     """Where one call of a long launch chain spends its time: (wall ms
     per call, synchronised, without the profiler; device-busy ms per
     call, the sum of its kernels' device durations under
     torch.profiler; kernels per call; the top `n_top` kernels as (name,
-    count per call, ms per call)). Device numbers are None when the
-    profiler saw no device activity."""
+    count per call, ms per call); {kernel name: ms per call} of every
+    kernel). Device numbers are None when the profiler saw no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -156,7 +198,7 @@ def profile_ms(fn, reps=3, n_top=5):
             n, us = by.get(e.name, (0, 0.0))
             by[e.name] = (n + 1, us + e.time_range.elapsed_us())
     if not by:
-        return wall, None, None, []
+        return wall, None, None, [], {}
     busy = sum(us for _, us in by.values()) / reps / 1e3
     count = sum(n for n, _ in by.values()) / reps
     top = sorted(by.items(), key=lambda kv: -kv[1][1])[:n_top]
@@ -167,7 +209,8 @@ def profile_ms(fn, reps=3, n_top=5):
         return name if len(name) <= 72 else f"{name[:34]}..{name[-36:]}"
 
     return wall, busy, count, [(short(name), n / reps, us / reps / 1e3)
-                               for name, (n, us) in top]
+                               for name, (n, us) in top], {
+        name: us / reps / 1e3 for name, (_, us) in by.items()}
 
 
 def bound_ms(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
@@ -603,7 +646,7 @@ def phase_logits(dev, model, num_blocks=512, lens=SERVE_LENS):
 
     out = {}
     for use, label in ((True, "kernel path"), (False, "plain path")):
-        wall, busy, count, top = profile_ms(lambda: step(use))
+        wall, busy, count, top, _ = profile_ms(lambda: step(use))
         out[use] = (wall, busy)
         if busy is None:
             log("where", f"decode step (B=8), {label}: wall {wall:.3f} ms;"
@@ -908,6 +951,17 @@ def _train_batch(vocab, dev):
     return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
 
 
+def _train_launches(n_layers):
+    """Launches of the forward and backward kernels in one training
+    step of an n-layer GPT (no optimizer kernel, no serving kernel)."""
+    return {"flash_attention_fwd": n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers,
+            "fused_layer_norm": 2 * n_layers + 1,
+            "fused_layer_norm_bwd": 2 * n_layers + 1,
+            "paged_attention": 0, "fused_sgd": 0, "fused_momentum": 0}
+
+
 def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
                 steps=TRAIN_STEPS, warmup=TRAIN_WARMUP):
     from paddle_tpu_torch.incubate.nn import kernels
@@ -939,12 +993,9 @@ def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
     peak = torch.cuda.max_memory_allocated(dev)
     n_steps = windows * steps
     n_layers = cfg.num_layers
-    per_step = {"flash_attention_fwd": n_layers,
-                "flash_attention_bwd_dq": n_layers,
-                "flash_attention_bwd_dkv": n_layers,
-                "fused_layer_norm": 2 * n_layers + 1,
-                "fused_layer_norm_bwd": 2 * n_layers + 1,
-                "paged_attention": 0}
+    # AdamW over the 16 parameters is one fused_adam launch a step: one
+    # table holds up to MAX_TENSORS tensors
+    per_step = dict(_train_launches(n_layers), fused_adam=1)
     for name, per in per_step.items():
         if counts[name] != per * n_steps:
             raise AssertionError(
@@ -968,8 +1019,8 @@ def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
     log("train", f"launches over {n_steps} steps: "
         + ", ".join(f"{n} {counts[n]} = {per} x {n_steps}"
                     for n, per in per_step.items()))
-    wall, busy, count, top = profile_ms(lambda: step(ids, labels), reps=2,
-                                       n_top=10)
+    wall, busy, count, top, by = profile_ms(lambda: step(ids, labels),
+                                           reps=2, n_top=10)
     if busy is None:
         log("train", f"[{smi}] step wall {wall:.3f} ms; device time not "
             "measured (the profiler saw no device activity)")
@@ -979,6 +1030,12 @@ def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
         log("train", f"[{smi}] where a step goes (torch.profiler, 2 steps):"
             f" wall {wall:.3f} ms, device busy {busy:.3f} ms "
             f"({100 * busy / wall:.1f}%), {count:.0f} kernels; top: {tops}")
+        opt_ms = sum(ms for name, ms in by.items()
+                     if "multi_tensor_optim" in name
+                     or "advance_beta_pows" in name)
+        log("train", f"[{smi}] optimizer (fused_adam: beta-power kernel + "
+            f"multi-tensor kernel) {opt_ms:.3f} ms of the step's "
+            f"{busy:.3f} ms device busy ({100 * opt_ms / busy:.2f}%)")
     return model, counts
 
 
@@ -1051,6 +1108,377 @@ def phase_grads(dev, model, f32_layers=2):
                  *GRADS_F32_TOL)
 
 
+# -- phase 11 ----------------------------------------------------------
+OPTIM_LR = 1e-4          # bench_gpt2's AdamW (phase 9)
+OPTIM_WD = 0.01
+OPTIM_STEPS = 3
+# kernel name -> (optimizer classes it serves, line of the TPU kernel)
+OPTIM_KERNELS = {"fused_adam": ("Adam", "48"),
+                 "fused_momentum": ("Momentum", "79"),
+                 "fused_sgd": ("SGD", "70")}
+
+
+def decay_filter(name):
+    """The recipe's weight-decay filter: no decay for biases and
+    LayerNorm parameters."""
+    return not (name.endswith("_b") or "ln" in name)
+
+
+# tag, optimizer, its arguments, and what is done to the parameter set
+OPTIM_CASES = [
+    ("AdamW, decay filter", "AdamW", dict(
+        learning_rate=OPTIM_LR, weight_decay=OPTIM_WD,
+        apply_decay_param_fun=decay_filter), {}),
+    ("Adam, coupled L2", "Adam", dict(learning_rate=OPTIM_LR,
+                                      weight_decay=OPTIM_WD), {}),
+    ("SGD, coupled L2", "SGD", dict(learning_rate=0.1,
+                                    weight_decay=OPTIM_WD), {}),
+    ("Momentum", "Momentum", dict(learning_rate=0.1, momentum=0.9), {}),
+    ("Nesterov", "Momentum", dict(learning_rate=0.1, momentum=0.9,
+                                  use_nesterov=True), {}),
+    ("AdamW, f32 model without masters", "AdamW", dict(
+        learning_rate=OPTIM_LR, weight_decay=OPTIM_WD), {"f32": True}),
+    ("AdamW, a zero-size tensor", "AdamW", dict(
+        learning_rate=OPTIM_LR, weight_decay=OPTIM_WD), {"empty": True}),
+    ("AdamW, a parameter without a grad", "AdamW", dict(
+        learning_rate=OPTIM_LR, weight_decay=OPTIM_WD),
+     {"no_grad": "gpt.blocks.fc1_b"}),
+    ("AdamW, set_state_dict after 2 steps, 2 more", "AdamW", dict(
+        learning_rate=OPTIM_LR, weight_decay=OPTIM_WD), {"reload": 2}),
+]
+
+
+def _optim_grads(named, dev, steps=OPTIM_STEPS):
+    """One gradient per parameter and step, uniform in [-1e-2, 1e-2)
+    from numpy seeds (step s, tensor i: seed 1000 s + i; uniform, since
+    numpy draws 355M normals a step in ~7 s), in the parameter's dtype
+    on the card."""
+    out = []
+    for s in range(steps):
+        grads = {}
+        for i, (n, p) in enumerate(named):
+            a = np.random.default_rng(1000 * s + i).random(
+                tuple(p.shape), dtype=np.float32)
+            a -= 0.5
+            a *= 2e-2
+            grads[n] = torch.from_numpy(a).to(dev, p.dtype)
+        out.append(grads)
+    return out
+
+
+def _optim_set(named, f32=False, empty=False):
+    out = [(n, torch.nn.Parameter(p.detach().float().clone() if f32
+                                  else p.detach().clone()))
+           for n, p in named]
+    if empty:
+        out.append(("gpt.empty", torch.nn.Parameter(torch.zeros(
+            0, dtype=named[0][1].dtype, device=named[0][1].device))))
+    return out
+
+
+def _optim_compare(tag, sets, opts):
+    """Parameters and every slot of the kernel path (0) and the plain
+    path (1), bit for bit; raises with the first difference."""
+    for (n, a), (_, b) in zip(*sets):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"optim {tag}: parameter {n} differs in "
+                f"{int((a != b).sum())} elements, max|err| "
+                f"{max_err(a, b):.3e}")
+    acc = [o._accumulators for o in opts]
+    if {n: set(s) for n, s in acc[0].items()} != {
+            n: set(s) for n, s in acc[1].items()}:
+        raise AssertionError(f"optim {tag}: the two paths hold other slots")
+    for n, slots in acc[0].items():
+        for sname, a in slots.items():
+            b = acc[1][n][sname]
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"optim {tag}: {n}.{sname} differs in "
+                    f"{int((a != b).sum())} elements, max|err| "
+                    f"{max_err(a, b):.3e}")
+    if opts[0]._step_count != opts[1]._step_count:
+        raise AssertionError(f"optim {tag}: step counts differ")
+
+
+def optim_checks(named, grads, cases=OPTIM_CASES):
+    """Every case of phase 11: step() through the kernel against step()
+    through the per-parameter rule (use_kernel=False), from the same
+    parameters and grads, bit for bit after every step; one launch a
+    step. Returns {kernel name: max |err|} (0.0: bit-identical)."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.incubate.nn import kernels
+
+    worst = {}
+    for tag, cls_name, kw, opts_ in cases:
+        cls = getattr(optim, cls_name)
+        kernel = next(k for k, (c, _) in OPTIM_KERNELS.items()
+                      if issubclass(cls, getattr(optim, c)))
+        sets = [_optim_set(named, opts_.get("f32", False),
+                           opts_.get("empty", False)) for _ in range(2)]
+
+        def make():
+            return [cls(parameters=s, multi_precision=True, use_kernel=u,
+                        **kw) for s, u in zip(sets, (True, False))]
+
+        opts = make()
+        steps = len(grads) + (1 if "reload" in opts_ else 0)
+        for step in range(steps):
+            if step == opts_.get("reload"):
+                sd = opts[0].state_dict()
+                opts = make()
+                for o in opts:
+                    o.set_state_dict(sd)
+                del sd
+            g = grads[step % len(grads)]
+            for s in sets:
+                for n, p in s:
+                    if n == opts_.get("no_grad"):
+                        p.grad = None
+                    elif n == "gpt.empty":
+                        p.grad = torch.zeros_like(p)
+                    else:
+                        p.grad = g[n].to(p.dtype)
+            before = kernels.launches()[kernel]
+            for o in opts:
+                o.step()
+            torch.cuda.synchronize()
+            if kernels.launches()[kernel] != before + 1:
+                raise AssertionError(f"optim {tag}: {kernel} launched "
+                                     f"{kernels.launches()[kernel] - before}"
+                                     " times in a step")
+            _optim_compare(f"{tag}, step {step + 1}", sets, opts)
+        if "no_grad" in opts_ and opts_["no_grad"] in opts[0]._accumulators:
+            raise AssertionError(f"optim {tag}: slots for a parameter "
+                                 "without a grad")
+        worst[kernel] = 0.0
+        del sets, opts
+    return worst
+
+
+def _optim_lists(named, grads, kernel):
+    """The wrapper's lists over the O2 set, with masters and fresh
+    slots: (params, grads, masters, slot lists...)."""
+    params = [p.detach().clone() for _, p in named]
+    masters = [p.float() if p.dtype == torch.bfloat16 else None
+               for p in params]
+    g = [grads[n] for n, _ in named]
+    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in params]
+    if kernel == "fused_sgd":
+        return params, g, masters
+    if kernel == "fused_momentum":
+        return params, g, masters, zeros
+    ones = [torch.ones((), device=p.device) for p in params]
+    return (params, g, masters, zeros,
+            [z.clone() for z in zeros], ones, [o.clone() for o in ones])
+
+
+def _optim_bytes(named, grads, kernel):
+    """Bytes the update must move: each input read once, each output
+    written once (the update base read and written, a master's bf16
+    parameter written, the grad read, each f32 slot read and
+    written)."""
+    total = 0
+    slots = {"fused_adam": 2, "fused_momentum": 1, "fused_sgd": 0}[kernel]
+    for n, p in named:
+        e = p.numel()
+        base = 4 if p.dtype == torch.bfloat16 else p.element_size()
+        total += e * (2 * base + grads[n].element_size() + 8 * slots)
+        if p.dtype == torch.bfloat16:
+            total += 2 * e                      # the re-derived parameter
+    return total
+
+
+def phase_optim(dev, smi, named, iters=20):
+    from paddle_tpu_torch.incubate.nn.kernels import optim as ko
+
+    n_elem = sum(p.numel() for _, p in named)
+    t0 = time.perf_counter()
+    grads = _optim_grads(named, dev)
+    torch.cuda.synchronize()
+    n_bf16 = sum(p.dtype == torch.bfloat16 for _, p in named)
+    log("optim", f"GPT-2 345M O2 parameter set: {len(named)} tensors, "
+        f"{n_elem} elements ({n_bf16} bf16 with f32 masters, the rest f32 "
+        f"without); grads for "
+        f"{OPTIM_STEPS} steps from numpy in {time.perf_counter() - t0:.1f} s")
+    errs = optim_checks(named, grads)
+    log("optim", f"kernel path vs per-parameter rule, {len(OPTIM_CASES)} "
+        f"cases x {OPTIM_STEPS}+ steps: parameters, masters, moments, "
+        "velocities and beta powers bit-identical after every step; one "
+        "launch a step")
+
+    # times at the set (chain_ms: each call is milliseconds of device
+    # work): the wrapper over the 16 tensors, its plain version, and
+    # torch.optim's fused step over f32 copies (another
+    # rounding: it multiplies by the bias corrections' reciprocals; and
+    # other bytes: f32 grads, no master or bf16 parameter)
+    g0 = grads[0]
+    lr, wd = OPTIM_LR, OPTIM_WD
+    decay = [float(np.float32(1) - np.float32(lr) * np.float32(wd))
+             if decay_filter(n) else 1.0 for n, _ in named]
+    calls = {
+        "fused_adam": (dict(lr=lr, beta1=0.9, beta2=0.999, eps=1e-8,
+                            decay=decay), 15),
+        "fused_momentum": (dict(lr=0.1, momentum=0.9), 4),
+        "fused_sgd": (dict(lr=0.1), 2),
+    }
+    lib_p = [p.detach().float().clone() for _, p in named]
+    for p, (n, _) in zip(lib_p, named):
+        p.grad = g0[n].float()
+    entries = []
+    for kernel, (kw, ops) in calls.items():
+        lists = _optim_lists(named, g0, kernel)
+        fn = getattr(ko, kernel)
+        ref = getattr(ko, kernel + "_reference")
+        k_ms, k_host = chain_ms(lambda: fn(*lists, **kw), iters)
+        p_ms, p_host = chain_ms(lambda: ref(*lists, **kw),
+                                max(1, iters // 4))
+        del lists
+        if kernel == "fused_adam":
+            lib = torch.optim.AdamW(lib_p, lr=lr, weight_decay=wd,
+                                    fused=True)
+        else:
+            lib = torch.optim.SGD(lib_p, lr=0.1, fused=True, momentum=(
+                0.9 if kernel == "fused_momentum" else 0.0))
+        l_ms, _ = chain_ms(lib.step, iters)
+        del lib
+        nbytes = _optim_bytes(named, g0, kernel)
+        b_ms, b_by = bound_ms(nbytes, ops * n_elem)
+        log("optim", f"[{smi}] {kernel}, {len(named)} tensors, {n_elem} "
+            f"elements: kernel {k_ms:.5f} ms | plain {p_ms:.5f} ms | "
+            f"torch.optim fused {l_ms:.5f} ms | bound {b_ms:.5f} ms "
+            f"({b_by}, {nbytes / 1e9:.3f} GB) = {nbytes / k_ms / 1e9:.3f} "
+            f"TB/s, {100 * b_ms / k_ms:.1f}% of the bound; host ms per "
+            f"call: kernel wrapper {k_host:.5f}, plain {p_host:.5f}")
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/optim.cu",
+            "replaces": "paddle_tpu/incubate/nn/pallas/optim.py:"
+                        + OPTIM_KERNELS[kernel][1],
+            "max_abs_err": errs[kernel], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+    return entries
+
+
+# -- phase 12 ----------------------------------------------------------
+RECIPE_CALLS = 16        # 8 optimizer steps under accumulate_steps=2
+RECIPE_WARMUP, RECIPE_T_MAX, RECIPE_PEAK = 2, 16, 1e-4
+
+
+def recipe_lr(epoch):
+    """The schedule's lr at `epoch`, written out: a linear warm-up from
+    0 to the peak, then a cosine from the peak to 0 (LinearWarmup and
+    CosineAnnealingDecay's formulas)."""
+    if epoch < RECIPE_WARMUP:
+        return 0.0 + (RECIPE_PEAK - 0.0) * epoch / RECIPE_WARMUP
+    t = epoch - RECIPE_WARMUP
+    return 0 + (RECIPE_PEAK - 0) * (1 + math.cos(math.pi * t
+                                                 / RECIPE_T_MAX)) / 2
+
+
+def _run_calls(tag, step, ids, labels, per_call, calls, sched=None,
+               opt=None):
+    """`calls` train-step calls; each call's launches held to
+    per_call(i), the lr to the written-out schedule; returns (losses,
+    wall seconds per call)."""
+    from paddle_tpu_torch.incubate.nn import kernels
+
+    losses, dts = [], []
+    for i in range(calls):
+        if sched is not None and opt.get_lr() != recipe_lr(i):
+            raise AssertionError(f"{tag}: call {i} lr {opt.get_lr()} is "
+                                 f"not the schedule's {recipe_lr(i)}")
+        before = kernels.launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        losses.append(float(loss.item()))
+        dts.append(time.perf_counter() - t0)
+        if sched is not None:
+            sched.step()
+        got = {k: v - before[k] for k, v in kernels.launches().items()}
+        want = per_call(i)
+        if got != want:
+            raise AssertionError(f"{tag}: call {i} launched {got}, expected "
+                                 f"{want}")
+        if step.last_skips:
+            raise AssertionError(f"{tag}: call {i} skipped a non-finite "
+                                 "step")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    return losses, dts
+
+
+def phase_recipe(dev, smi, calls=RECIPE_CALLS, small_layers=4,
+                 small_steps=6):
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import SGD, AdamW, Momentum, lr
+
+    model = _train_model(dev)
+    cfg = model.config
+    n_layers = cfg.num_layers
+    ids, labels = _train_batch(cfg.vocab_size, dev)
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(RECIPE_PEAK, T_max=RECIPE_T_MAX),
+        warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=RECIPE_PEAK)
+    opt = AdamW(sched, parameters=model.named_parameters(),
+                weight_decay=OPTIM_WD, multi_precision=True,
+                grad_clip=nn.ClipGradByGlobalNorm(1.0),
+                apply_decay_param_fun=decay_filter)
+    step = TrainStepCompiler(model, opt, accumulate_steps=2,
+                             guard_nonfinite=True)
+    fwd = _train_launches(n_layers)
+    kernels.reset_launches()
+    losses, dts = _run_calls(
+        "recipe", step, ids, labels,
+        lambda i: dict(fwd, fused_adam=i % 2), calls, sched, opt)
+    counts = kernels.launches()
+    lrs = [recipe_lr(i) for i in range(calls)]
+    log("recipe", f"[{smi}] GPT-2 345M {n_layers}L bf16 O2, AdamW (wd "
+        f"{OPTIM_WD}, decay filter) + ClipGradByGlobalNorm(1.0) + "
+        f"LinearWarmup({RECIPE_WARMUP}) over CosineAnnealingDecay("
+        f"{RECIPE_PEAK}, T_max={RECIPE_T_MAX}), accumulate_steps=2, "
+        f"guard_nonfinite, B={TRAIN_BATCH} S={TRAIN_SEQ}: {calls} calls, "
+        f"{opt._step_count} optimizer steps; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; lr at the apply calls "
+        + ", ".join(f"{lrs[i]:.3e}" for i in range(1, calls, 2))
+        + f"; median call {1e3 * float(np.median(dts)):.3f} ms (apply "
+        f"calls {1e3 * float(np.median(dts[1::2])):.3f}, merge-only "
+        f"{1e3 * float(np.median(dts[0::2])):.3f}); last_skips 0")
+    log("recipe", "launches over the calls (exact per call): "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    log("recipe", "losses " + " ".join(f"{x:.4f}" for x in losses))
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    small = dict(_train_launches(small_layers))
+    runs = {"fused_momentum": lambda params: Momentum(
+                0.1, momentum=0.9, parameters=params, use_nesterov=True,
+                multi_precision=True),
+            "fused_sgd": lambda params: SGD(1.0, parameters=params,
+                                            multi_precision=True)}
+    for kernel, make in runs.items():
+        model = _train_model(dev, num_layers=small_layers)
+        step = TrainStepCompiler(model, make(model.named_parameters()))
+        kernels.reset_launches()
+        losses, dts = _run_calls(
+            kernel, step, ids, labels, lambda i: dict(small, fused_adam=0,
+                                                      **{kernel: 1}),
+            small_steps)
+        counts[kernel] = kernels.launches()[kernel]
+        log("recipe", f"[{smi}] {kernel}: GPT-2 345M width, {small_layers}L "
+            f"bf16 O2, {type(step._opt).__name__} ({kernel}), "
+            f"{small_steps} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f};"
+            f" median step {1e3 * float(np.median(dts)):.3f} ms; {kernel} "
+            f"launches {counts[kernel]} = 1 x {small_steps}")
+        del model, step
+    return counts
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1077,6 +1505,16 @@ def main():
     for e in train_entries:
         e["launches"] = counts[e["name"]]
     entries += train_entries
+    del model
+    torch.cuda.empty_cache()
+    named = list(_train_model(dev).named_parameters())
+    optim_entries = phase_optim(dev, smi, named)
+    del named
+    torch.cuda.empty_cache()
+    counts = phase_recipe(dev, smi)
+    for e in optim_entries:
+        e["launches"] = counts[e["name"]]
+    entries += optim_entries
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

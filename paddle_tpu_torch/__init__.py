@@ -15,11 +15,18 @@ package's, so each counterpart sits at the same path:
   * `text.models.gpt`                   GPT-2 as an `nn.Module`: logits,
                                         causal-LM loss, training
   * `amp`                               `decorate` (O2: bf16 params,
-                                        LayerNorm kept f32)
-  * `optimizer`                         Adam, AdamW with f32 master
-                                        weights (`multi_precision`)
+                                        LayerNorm kept f32), `GradScaler`
+  * `optimizer`                         SGD, Momentum, Adam, AdamW (one
+                                        multi-tensor kernel launch a
+                                        step on the card) and the rules
+                                        without a kernel; f32 master
+                                        weights; `optimizer.lr`, the LR
+                                        schedulers
+  * `nn`                                the gradient clips
   * `jit`                               `TrainStepCompiler`: forward
-                                        loss, backward, update
+                                        loss, backward, update; gradient
+                                        merge, the non-finite guard,
+                                        loss scaling, K steps a call
   * `inference.serving`                 `LLMEngine`: paged KV cache,
                                         continuous batching, prefill +
                                         paged decode

@@ -13,6 +13,11 @@ Trees of an O2 model (`amp.decorate` in the JAX package) hold bf16
 arrays (numpy's `bfloat16` from ml_dtypes); they load into bf16 port
 parameters unchanged, through an exact f32 round trip.
 
+`optimizer_state_from_numpy` carries a JAX optimizer's slots (moments,
+velocity, beta powers, master weights) into the port's
+`Optimizer.set_state_dict` keys, so that both packages can go on from
+the same mid-run state.
+
 Nothing here imports JAX: the caller hands over numpy.
 """
 from __future__ import annotations
@@ -20,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "load_reference_params"]
+__all__ = ["params_from_numpy", "load_reference_params",
+           "optimizer_state_from_numpy"]
 
 
 def _tensor(arr):
@@ -65,3 +71,34 @@ def load_reference_params(model, tree):
                 f"{tuple(p.shape)}")
         p.copy_(value.to(device=p.device, dtype=p.dtype))
     return model
+
+
+def optimizer_state_from_numpy(jax_state, names):
+    """The port's `set_state_dict` dict of a JAX optimizer state.
+
+    `jax_state` is either the compiled step's state tree, {JAX parameter
+    name: {slot: array}}, or a flat {"<JAX name>.<slot>": array} dict as
+    the eager `state_dict()` gives it (numpy arrays, or anything
+    `np.asarray` takes), with an optional "@step" and "LR_Scheduler".
+    `names` maps each JAX parameter name to the port's (a dict, or a
+    callable); a name it does not map raises. Slots become f32 CPU
+    tensors under "<port name>.<slot>"; `set_state_dict` moves them to
+    the parameters' device."""
+    rename = names if callable(names) else names.__getitem__
+    flat = {}
+    for key, value in jax_state.items():
+        if key in ("@step", "LR_Scheduler"):
+            continue
+        if isinstance(value, dict):
+            for slot, arr in value.items():
+                flat[(key, slot)] = arr
+        else:
+            pname, _, slot = key.rpartition(".")
+            flat[(pname, slot)] = value
+    out = {f"{rename(pname)}.{slot}": torch.from_numpy(
+               np.array(np.asarray(arr), np.float32))
+           for (pname, slot), arr in flat.items()}
+    out["@step"] = int(jax_state.get("@step", 0))
+    if "LR_Scheduler" in jax_state:
+        out["LR_Scheduler"] = dict(jax_state["LR_Scheduler"])
+    return out

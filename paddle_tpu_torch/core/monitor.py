@@ -1,10 +1,11 @@
-"""Process-wide stat counters and histograms for the serving path
-(reference: paddle/fluid/platform/monitor.h:44 StatValue/StatRegistry
-with STAT_ADD:130).
+"""Process-wide stat counters and histograms for the serving and
+training paths (reference: paddle/fluid/platform/monitor.h:44
+StatValue/StatRegistry with STAT_ADD:130).
 
-A copy of the part of `paddle_tpu.core.monitor` that the serving code
-uses — `stat_add`, `stat_set`, `stat_get`, `hist_observe`,
-`registry.snapshot()` — so the `serve/*` counters keep their names.
+A copy of the part of `paddle_tpu.core.monitor` that the serving and
+training code uses — `stat_add`, `stat_set`, `stat_get`,
+`hist_observe`, `registry.snapshot()` — so the `serve/*`, `jit/*`,
+`train/nonfinite_skips` and `amp/scale/*` counters keep their names.
 The JAX package's fleet merge, windowed deltas and PJRT memory readers
 are not carried over, nor histogram quantiles and the env knobs of the
 bucket layout: nothing in the port reads a quantile yet.

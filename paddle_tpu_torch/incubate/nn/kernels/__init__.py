@@ -14,6 +14,9 @@ a build takes seconds):
 - `flash_attention.flash_attention`: tiled online-softmax attention,
   forward and the two backward kernels, dq and dk/dv
   (`csrc/flash_attention.cu`).
+- `optim.fused_adam` / `fused_sgd` / `fused_momentum`: multi-tensor
+  optimizer updates, one launch over a whole parameter list
+  (`csrc/optim.cu`).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version only for CPU tensors. There is no switch that turns the
@@ -44,7 +47,8 @@ __all__ = ["build", "load", "check", "count", "launches",
 PKG_DIR = Path(__file__).resolve().parents[3]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layernorm.cu", "paged_attention.cu", "flash_attention.cu")
+SOURCES = ("layernorm.cu", "paged_attention.cu", "flash_attention.cu",
+           "optim.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -56,7 +60,8 @@ DTYPE_BF16 = 1
 # that launched the kernel; plain-version calls on the CPU never count)
 _LAUNCHES = {"paged_attention": 0, "fused_layer_norm": 0,
              "fused_layer_norm_bwd": 0, "flash_attention_fwd": 0,
-             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+             "fused_adam": 0, "fused_sgd": 0, "fused_momentum": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -171,6 +176,12 @@ def _declare(lib):
     lib.ptt_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f,
                                       i, i, p]
     lib.ptt_flash_bwd_dkv.restype = i
+    lib.ptt_fused_optim.argtypes = [p, p, i, p]
+    lib.ptt_fused_optim.restype = i
+    for name in ("ptt_optim_entry_size", "ptt_optim_max_tensors",
+                 "ptt_optim_chunk"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
     lib.ptt_error_string.argtypes = [i]
     lib.ptt_error_string.restype = ctypes.c_char_p
 

@@ -7,19 +7,42 @@
 
 The JAX class traces forward, backward and update into one donated XLA
 program. PyTorch runs eagerly, so there is nothing to trace, compile or
-donate here: each call clears the gradients, runs the forward loss,
-`backward()` and `optimizer.step()` in order, and returns the loss
-detached, as f32. The name is kept so that a training script carries
-over unchanged.
+donate here: each microstep clears the gradients, runs the forward
+loss, `backward()` and the optimizer's update in order, with the
+compiled step's semantics (`one_step`, :1515-1598):
 
-Queued: `accumulate_steps`, `steps_per_dispatch`, `guard_nonfinite`,
-`grad_scaler` and `amp_level="O1"`; asking for one raises
-NotImplementedError. O2 is `amp.decorate` on the model, as in the JAX
-package.
+- `accumulate_steps=k`: gradient merge. Each microstep's gradients are
+  added in f32 buffers (`acc + g.float()`); on every k-th microstep the
+  optimizer applies `(acc / k).to(g.dtype)` and the buffers are zeroed
+  (:1561-1580). The gradients are cleared every microstep, so PyTorch
+  never sums them in the parameter's dtype.
+- `guard_nonfinite=True`: a microstep whose loss or any gradient is not
+  finite is skipped: without merge the update does not run at all (the
+  parameters, slots and beta powers stay as they were); under merge it
+  adds nothing and the cadence runs on schedule (:1534-1547, 1582-1592).
+  Its non-finite loss is still returned. `last_skips` counts the trips
+  of the last call; reading the verdict costs one host sync per
+  microstep.
+- `grad_scaler=amp.GradScaler(...)`: the backward runs on loss * scale,
+  the gradients are unscaled to their own dtype (:1651-1653), the guard
+  is implied, and each microstep's verdict feeds the scaler's
+  `_record_step` after the call (:1289-1291).
+- `steps_per_dispatch=K`: every batch element carries a leading K axis;
+  one call runs the K microsteps, samples the learning rate (and the
+  loss scale) once, as `np.float32(get_lr())` (:1200), and returns the
+  K losses.
+
+The optimizer's `_step_count` advances by the merge boundaries a call
+crossed (:1269-1275), skipped or not, as in the JAX package. O2 is
+`amp.decorate` on the model, as in the JAX package; `amp_level="O1"` is
+queued and raises NotImplementedError.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..core import monitor as _monitor
 
 __all__ = ["TrainStepCompiler"]
 
@@ -28,34 +51,116 @@ class TrainStepCompiler:
     def __init__(self, model, optimizer, loss_fn=None, accumulate_steps=1,
                  amp_level=None, steps_per_dispatch=1, guard_nonfinite=False,
                  grad_scaler=None):
-        queued = {"accumulate_steps": accumulate_steps != 1,
-                  "steps_per_dispatch": steps_per_dispatch != 1,
-                  "guard_nonfinite": bool(guard_nonfinite),
-                  "grad_scaler": grad_scaler is not None,
-                  "amp_level='O1'": amp_level == "O1"}
-        asked = [name for name, on in queued.items() if on]
-        if asked:
+        if amp_level == "O1":
             raise NotImplementedError(
-                f"TrainStepCompiler: {', '.join(asked)} not ported yet")
+                "TrainStepCompiler: amp_level='O1' is not ported yet (it "
+                "needs an op-level cast hook in the model code)")
         if amp_level not in (None, "O2"):
             raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
                              f"{amp_level!r}")
         self._model = model
         self._opt = optimizer
         self._loss_fn = loss_fn
+        self._accum_steps = max(1, int(accumulate_steps))
+        self._steps_per_dispatch = max(1, int(steps_per_dispatch))
+        # a disabled scaler is no scaler, as on the eager path
+        if grad_scaler is not None and not grad_scaler.is_enable():
+            grad_scaler = None
+        self._grad_scaler = grad_scaler
+        self._guard_nonfinite = bool(guard_nonfinite
+                                     or grad_scaler is not None)
+        self.last_skips = 0  # non-finite trips in the last call
+        self._accum = {}     # param name -> f32 gradient-merge buffer
+        self._step = 0       # microsteps run
 
     def _device(self):
         return next(self._model.parameters()).device
 
+    def _loss(self, batch):
+        if self._loss_fn is not None:
+            return self._loss_fn(self._model(*batch[:-1]), batch[-1])
+        return self._model(*batch)
+
     def __call__(self, *batch):
         dev = self._device()
         batch = [torch.as_tensor(b, device=dev) for b in batch]
-        self._opt.clear_grad()
-        if self._loss_fn is not None:
-            loss = self._loss_fn(self._model(*batch[:-1]), batch[-1])
+        k = self._steps_per_dispatch
+        if k > 1:
+            bad = [tuple(b.shape) for b in batch if b.dim() < 1
+                   or b.shape[0] != k]
+            if bad:
+                raise ValueError(f"steps_per_dispatch={k}: every batch "
+                                 f"element needs a leading axis of {k}, "
+                                 f"got {bad}")
+        # host scalars, sampled once per call
+        lr = np.float32(self._opt.get_lr())
+        scale = np.float32(self._grad_scaler._scale
+                           if self._grad_scaler is not None else 1.0)
+        losses, skips = [], []
+        for i in range(k):
+            micro = [b[i] for b in batch] if k > 1 else batch
+            loss, skipped = self._one_step(micro, lr, scale, self._step + i)
+            losses.append(loss)
+            skips.append(skipped)
+        prev = self._step
+        self._step += k
+        # optimizer steps: the merge boundaries these microsteps crossed
+        a = self._accum_steps
+        self._opt._step_count += self._step // a - prev // a
+        _monitor.stat_add("jit/dispatches", 1)
+        _monitor.stat_add("jit/steps", k)
+        if self._guard_nonfinite:
+            self.last_skips = n = sum(skips)
+            if n:
+                _monitor.stat_add("train/nonfinite_skips", n)
+            if self._grad_scaler is not None:
+                for s in skips:
+                    self._grad_scaler._record_step(s)
+        return losses[0] if k == 1 else torch.stack(losses)
+
+    def _one_step(self, batch, lr, scale, microstep):
+        """One microstep; returns (its loss, detached f32; whether the
+        guard tripped)."""
+        opt = self._opt
+        opt.clear_grad()
+        loss = self._loss(batch).float()
+        if self._grad_scaler is not None:
+            (loss * float(scale)).backward()
         else:
-            loss = self._model(*batch)
-        loss = loss.float()
-        loss.backward()
-        self._opt.step()
-        return loss.detach()
+            loss.backward()
+        named = [(n, p) for n, p in opt._named
+                 if p.grad is not None and p.requires_grad]
+        with torch.no_grad():
+            if self._grad_scaler is not None:
+                inv = float(np.float32(1.0) / scale)
+                for _, p in named:
+                    p.grad = (p.grad.float() * inv).to(p.grad.dtype)
+            ok = True
+            if self._guard_nonfinite:
+                finite = [torch.isfinite(loss)] + [
+                    torch.isfinite(p.grad).all() for _, p in named]
+                ok = bool(torch.stack(finite).all())   # one host sync
+            k = self._accum_steps
+            if k == 1:
+                if ok:
+                    opt._apply(float(lr))
+            else:
+                for n, p in named:
+                    acc = self._accum.get(n)
+                    if acc is None:
+                        acc = self._accum[n] = torch.zeros(
+                            p.shape, dtype=torch.float32, device=p.device)
+                    if ok:   # a tripped microstep adds nothing
+                        acc.add_(p.grad.float())
+                if microstep % k == k - 1:
+                    div = torch.tensor(float(k), device=loss.device)
+                    for n, p in opt._named:
+                        acc = self._accum.get(n)
+                        if acc is None:
+                            continue
+                        # a true division (a host scalar divisor is a
+                        # reciprocal multiply on the card)
+                        p.grad = (acc / div).to(p.dtype)
+                        acc.zero_()
+                    opt._apply(float(lr))
+        return loss.detach(), int(not ok)

@@ -2,27 +2,36 @@
 
 Every optimizer defines ONE update rule `_update(param, grad, slots, lr)
 -> (new_param, new_slots)` in plain tensor ops, the JAX package's pure
-rule; `step()` runs it per parameter, the dygraph loop of
-optimizer.py:101-134:
+rule. `step()` keeps the dygraph order of optimizer.py:101-134:
 
-- the gradient is cast to f32;
+- the gradients of the parameters that have one are clipped
+  (`grad_clip`, a `paddle_tpu_torch.nn.ClipGrad*`), then cast to f32;
 - with `multi_precision`, a bf16 or f16 parameter gets an f32
   `master_weight` slot; the rule updates the master weight and the
   parameter is re-derived from it (rounded once to its dtype);
 - without `weight_decay`'s decoupled form (AdamW), a weight decay is
-  L2 added to the gradient.
+  L2 added to the gradient;
+- then the rule.
 
-The rule returns new tensors, as the JAX rule does; `step()` then
-writes the parameter in place (`copy_`) and keeps the new slots, so
-the model's parameter tensors never change identity.
+An optimizer whose rule has a multi-tensor kernel (`_fused_kind`:
+"sgd", "momentum", "adam", "adamw", as `_pallas_fused_kind` in the JAX
+package) makes ONE call of `incubate.nn.kernels.optim.fused_*` for all
+its CUDA parameters: one kernel launch. There is no switch that turns
+the kernel off on the card: `use_kernel=False`, a constructor argument,
+asks for the per-parameter `_update` loop, the comparison path, which
+CPU parameters always take. Both paths update the parameters and the
+slots in place, so the model's parameter tensors and the tensors in
+`_accumulators` never change identity.
+
+The learning rate is a float or an `LRScheduler` (`get_lr()` reads the
+scheduler, `set_lr` refuses one, `set_lr_scheduler` installs one).
+Parameter groups are flattened, as in the JAX package: group-specific
+settings are ignored there too.
 
 Slots are keyed by parameter name: `parameters` may be an iterable of
 tensors (named `param_0`, `param_1`, ...) or of (name, tensor) pairs,
 as `model.named_parameters()` gives them. `state_dict()` keys are
-`"<name>.<slot>"` plus `"@step"`.
-
-Queued: `LRScheduler` learning rates, `grad_clip` and parameter groups
-raise NotImplementedError.
+`"<name>.<slot>"`, `"@step"` and, with a scheduler, `"LR_Scheduler"`.
 """
 from __future__ import annotations
 
@@ -30,45 +39,58 @@ import numbers
 
 import torch
 
+from .lr import LRScheduler
+
 __all__ = ["Optimizer"]
 
 
 class Optimizer:
     _slot_names = ()  # e.g. ("moment1", "moment2")
     _decoupled_wd = False
+    # the multi-tensor kernel this rule has a twin in, or None
+    _fused_kind = None
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=False):
-        if not isinstance(learning_rate, numbers.Real):
-            raise NotImplementedError(
-                "only a float learning rate is ported; LRScheduler is "
-                "queued")
-        if grad_clip is not None:
-            raise NotImplementedError("grad_clip is queued")
-        named = []
-        for i, item in enumerate(parameters or ()):
-            if isinstance(item, dict):
-                raise NotImplementedError("parameter groups are queued")
-            if isinstance(item, tuple):
-                named.append(item)
-            else:
-                named.append((f"param_{i}", item))
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False, use_kernel=True):
+        if not isinstance(learning_rate, (numbers.Real, LRScheduler)):
+            raise TypeError(f"learning_rate must be a float or an "
+                            f"LRScheduler, got {type(learning_rate)}")
+        items = list(parameters or ())
+        if items and isinstance(items[0], dict):
+            # parameter groups: flattened (group-specific settings are
+            # unsupported, as in the JAX package)
+            items = [p for group in items for p in group["params"]]
+        named = [item if isinstance(item, tuple) else (f"param_{i}", item)
+                 for i, item in enumerate(items)]
         if len({n for n, _ in named}) != len(named):
             raise ValueError("parameter names must be unique")
         self._named = named
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate
         self._weight_decay = weight_decay
+        self._grad_clip = grad_clip
         self._multi_precision = multi_precision
+        self._use_kernel = use_kernel
         self._accumulators = {}  # param name -> {slot: tensor}
         self._step_count = 0
-        self._current_param_name = None  # set per parameter in step()
+        self._current_param_name = None  # set per parameter in the loop
 
     # -- lr ---------------------------------------------------------------
     def get_lr(self):
-        return self._learning_rate
+        lr = self._learning_rate
+        if isinstance(lr, LRScheduler):
+            return float(lr())
+        return float(lr)
 
     def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError(
+                "can't set_lr when the lr is an LRScheduler; call "
+                "scheduler.step() instead")
         self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
 
     # -- slots ------------------------------------------------------------
     def _create_slots(self, p):
@@ -92,6 +114,11 @@ class Optimizer:
     def _update(self, param, grad, slots, lr):
         raise NotImplementedError
 
+    def _fused_update(self, items, lr):
+        """One call of this rule's multi-tensor kernel over `items`,
+        (name, param, grad) triples of CUDA tensors (`_fused_kind`)."""
+        raise NotImplementedError
+
     def _wd_coeff(self):
         wd = self._weight_decay
         if wd is None:
@@ -101,30 +128,48 @@ class Optimizer:
     # -- dygraph step -----------------------------------------------------
     @torch.no_grad()
     def step(self):
-        lr = self.get_lr()
+        self._apply(self.get_lr())
+        self._step_count += 1
+
+    @torch.no_grad()
+    def _apply(self, lr):
+        """Clip, then the rule over every parameter with a gradient, at
+        learning rate `lr`; the step count is the caller's."""
+        name_of = {id(p): name for name, p in self._named}
+        pairs = [(p, p.grad) for _, p in self._named
+                 if p.grad is not None and p.requires_grad]
+        if self._grad_clip is not None:
+            pairs = self._grad_clip(pairs)
+        items = [(name_of[id(p)], p, g) for p, g in pairs if g is not None]
+        if not items:
+            return
+        if (self._fused_kind is not None and self._use_kernel
+                and items[0][1].device.type == "cuda"):
+            self._fused_update(items, lr)
+            return
         wd = self._wd_coeff()
-        for name, p in self._named:
-            if p.grad is None or not p.requires_grad:
-                continue
-            g = p.grad.float()
+        for name, p, g in items:
+            g = g.float()
             slots = self._get_slots(name, p)
             mw = slots.get("master_weight")
             base = mw if mw is not None else p
             if wd and not self._decoupled_wd:
                 g = g + wd * base.float()
             self._current_param_name = name
+            rest = {k: v for k, v in slots.items() if k != "master_weight"}
+            new_base, new_slots = self._update(base, g, rest, lr)
+            for k, v in new_slots.items():
+                slots[k].copy_(v)
+            base.copy_(new_base)
             if mw is not None:
-                sub = {k: v for k, v in slots.items()
-                       if k != "master_weight"}
-                new_master, new_slots = self._update(mw, g, sub, lr)
-                new_slots["master_weight"] = new_master
-                p.copy_(new_master)
-            else:
-                new_p, new_slots = self._update(p, g, slots, lr)
-                p.copy_(new_p)
-            self._accumulators[name] = new_slots
+                p.copy_(new_base)
         self._current_param_name = None
-        self._step_count += 1
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        loss.backward()
+        self.step()
+        return None, None
 
     def clear_grad(self, set_to_zero=False):
         for _, p in self._named:
@@ -135,22 +180,31 @@ class Optimizer:
             else:
                 p.grad = None
 
+    clear_gradients = clear_grad
+
     # -- state dict -------------------------------------------------------
     def state_dict(self):
         out = {f"{pname}.{sname}": v.detach().clone()
                for pname, slots in self._accumulators.items()
                for sname, v in slots.items()}
         out["@step"] = self._step_count
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
         return out
 
     def set_state_dict(self, state_dict):
         self._step_count = int(state_dict.get("@step", 0))
+        if "LR_Scheduler" in state_dict and isinstance(
+                self._learning_rate, LRScheduler):
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
         devices = {name: p.device for name, p in self._named}
         self._accumulators = {}
         for key, v in state_dict.items():
-            if key == "@step":
+            if key in ("@step", "LR_Scheduler"):
                 continue
             pname, _, sname = key.rpartition(".")
             t = torch.as_tensor(v, dtype=torch.float32,
                                 device=devices.get(pname))
             self._accumulators.setdefault(pname, {})[sname] = t.clone()
+
+    set_dict = set_state_dict

@@ -23,7 +23,10 @@ against per-tile running maxima, the plain version against the row
 maximum. The LayerNorm
 backward: f32 within 1e-5 x max|ref| (dw, db sum over rows in another
 order); bf16 dx within one bf16 ulp (1e-2), dw and db (f32 sums of the
-same bf16 inputs) within 1e-5 x max|ref|.
+same bf16 inputs) within 1e-5 x max|ref|. The optimizer kernels: bit
+for bit, parameters and every slot, against the per-parameter rule and
+against their plain versions (the kernel rounds every operation as
+PyTorch does).
 """
 import numpy as np
 import pytest
@@ -32,6 +35,7 @@ import torch
 from paddle_tpu_torch.incubate.nn import kernels
 from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
 from paddle_tpu_torch.incubate.nn.kernels import layernorm as ln
+from paddle_tpu_torch.incubate.nn.kernels import optim as ok
 from paddle_tpu_torch.incubate.nn.kernels import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -293,3 +297,155 @@ def test_training_step_on_card_remat_and_dropout(cuda):
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+def _optim_params(dev, seed, masters=True):
+    """Named parameters of an O2-like set: bf16 weights (f32 without
+    masters), f32 LayerNorm-like vectors, a tail that is no multiple of
+    the vector width, a view at an odd offset (the scalar path), a
+    tensor of several chunks, and a zero-size tensor."""
+    rng = np.random.RandomState(seed)
+    half = torch.bfloat16 if masters else torch.float32
+
+    def t(n, dtype, offset=0):
+        a = torch.from_numpy(rng.randn(n + offset).astype(np.float32))
+        return a.to(dev, dtype)[offset:]
+
+    return [("w", torch.nn.Parameter(t(3 * ok.CHUNK + 5, half).view(-1, 1))),
+            ("b", torch.nn.Parameter(t(1001, half))),
+            ("ln_w", torch.nn.Parameter(t(96, torch.float32))),
+            ("odd", torch.nn.Parameter(t(777, half, offset=1))),
+            ("odd32", torch.nn.Parameter(t(513, torch.float32, offset=3))),
+            ("empty", torch.nn.Parameter(t(0, half)))]
+
+
+OPTIM_CASES = {
+    "adamw_filter": ("AdamW", dict(learning_rate=1e-3, weight_decay=0.05,
+                                   apply_decay_param_fun=lambda n:
+                                   not n.startswith("ln"))),
+    "adam_l2": ("Adam", dict(learning_rate=1e-3, weight_decay=0.02)),
+    "sgd_l2": ("SGD", dict(learning_rate=0.1, weight_decay=0.01)),
+    "momentum": ("Momentum", dict(learning_rate=0.1, momentum=0.9)),
+    "nesterov": ("Momentum", dict(learning_rate=0.1, momentum=0.9,
+                                  use_nesterov=True)),
+    "adamw_f32_no_masters": ("AdamW", dict(learning_rate=1e-3,
+                                           weight_decay=0.01)),
+    "adamw_no_grad": ("AdamW", dict(learning_rate=1e-3, weight_decay=0.01)),
+    "adamw_set_state_dict": ("AdamW", dict(learning_rate=1e-3,
+                                           weight_decay=0.01)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTIM_CASES))
+def test_optimizer_kernels_bit_identical(cuda, case):
+    """step() through the kernel against step() through the
+    per-parameter rule (use_kernel=False), three steps: parameters,
+    masters, moments, velocities and beta powers bit for bit; the
+    kernel launched once a step."""
+    from paddle_tpu_torch import optimizer as optim
+
+    cls_name, kw = OPTIM_CASES[case]
+    cls = getattr(optim, cls_name)
+    masters = case != "adamw_f32_no_masters"
+    sets = [_optim_params(cuda, 0, masters) for _ in range(2)]
+    opts = [cls(parameters=s, multi_precision=True, use_kernel=u, **kw)
+            for s, u in zip(sets, (True, False))]
+    kind = {"AdamW": "fused_adam", "Adam": "fused_adam", "SGD": "fused_sgd",
+            "Momentum": "fused_momentum"}[cls_name]
+    rng = np.random.RandomState(1)
+    for step in range(3):
+        if case == "adamw_set_state_dict" and step == 2:
+            sd = opts[0].state_dict()
+            opts = [cls(parameters=s, multi_precision=True, use_kernel=u,
+                        **kw) for s, u in zip(sets, (True, False))]
+            for o in opts:
+                o.set_state_dict(sd)
+        grads = {n: rng.randn(*p.shape).astype(np.float32)
+                 for n, p in sets[0]}
+        for s in sets:
+            for n, p in s:
+                skip = case == "adamw_no_grad" and n == "b"
+                p.grad = None if skip else torch.from_numpy(
+                    grads[n]).to(cuda, p.dtype)
+        before = kernels.launches()[kind]
+        for o in opts:
+            o.step()
+        torch.cuda.synchronize()
+        assert kernels.launches()[kind] == before + 1
+    for (n, a), (_, b) in zip(*sets):
+        assert torch.equal(a, b), n
+    sd = [o.state_dict() for o in opts]
+    assert set(sd[0]) == set(sd[1])
+    for key, v in sd[0].items():
+        assert (v == sd[1][key] if key == "@step"
+                else torch.equal(v, sd[1][key])), key
+    if case == "adamw_no_grad":      # no grad: no slots, no update
+        assert "b.moment1" not in sd[0]
+
+
+def test_optimizer_kernel_wrappers_against_plain_versions(cuda):
+    """fused_adam / fused_momentum / fused_sgd vs their plain versions on
+    the same tensors, and a list longer than one table (two launches)."""
+    n = ok.MAX_TENSORS + 3
+    rng = np.random.RandomState(2)
+
+    def lists():
+        r = np.random.RandomState(3)
+        ps = [torch.from_numpy(r.randn(37 * (i + 1)).astype(np.float32))
+              .to(cuda, torch.bfloat16) for i in range(n)]
+        ms = [p.float() for p in ps]
+        return ps, ms, [torch.zeros_like(m) for m in ms], [
+            torch.zeros_like(m) for m in ms], [
+            torch.ones((), device=cuda) for _ in ps], [
+            torch.ones((), device=cuda) for _ in ps]
+
+    grads = [torch.from_numpy(rng.randn(37 * (i + 1)).astype(np.float32))
+             .to(cuda, torch.bfloat16) for i in range(n)]
+    decay = [0.9999 if i % 2 else 1.0 for i in range(n)]
+    got, want = lists(), lists()
+    before = kernels.launches()["fused_adam"]
+    ok.fused_adam(got[0], grads, got[1], *got[2:], lr=1e-3, beta1=0.9,
+                  beta2=0.999, eps=1e-8, decay=decay)
+    ok.fused_adam_reference(want[0], grads, want[1], *want[2:], lr=1e-3,
+                            beta1=0.9, beta2=0.999, eps=1e-8, decay=decay)
+    torch.cuda.synchronize()
+    assert kernels.launches()["fused_adam"] == before + 2
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    for nesterov in (False, True):
+        got, want = lists(), lists()
+        ok.fused_momentum(got[0], grads, got[1], got[2], lr=0.1,
+                          momentum=0.9, nesterov=nesterov, l2=[0.01] * n)
+        ok.fused_momentum_reference(want[0], grads, want[1], want[2], lr=0.1,
+                                    momentum=0.9, nesterov=nesterov,
+                                    l2=[0.01] * n)
+        for a, b in zip(got[:3], want[:3]):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+    got, want = lists(), lists()
+    ok.fused_sgd(got[0], grads, [None] * n, lr=0.1)
+    ok.fused_sgd_reference(want[0], grads, [None] * n, lr=0.1)
+    for x, y in zip(got[0], want[0]):
+        assert torch.equal(x, y)
+    # nothing to do: nothing launched, nothing counted
+    before = kernels.launches()
+    ok.fused_sgd([], [], [], lr=0.1)
+    empty = torch.zeros(0, device=cuda)
+    ok.fused_momentum([empty], [empty], [None], [empty.clone()], lr=0.1,
+                      momentum=0.9)
+    assert kernels.launches() == before
+
+
+def test_optimizer_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    p = torch.zeros(8, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        ok.fused_sgd([p], [p], [None], lr=0.1)
+    p = torch.zeros(4, 4, device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        ok.fused_sgd([p], [p.contiguous()], [None], lr=0.1)
+    p = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError, match="tensors on"):
+        ok.fused_sgd([p], [p.cpu()], [None], lr=0.1)
+    with pytest.raises(TypeError, match="master"):
+        ok.fused_sgd([p], [p], [p.clone()], lr=0.1)

@@ -51,7 +51,7 @@ from paddle_tpu.text.models import gpt as jax_gpt
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.convert import load_reference_params
 from paddle_tpu_torch.jit import TrainStepCompiler
-from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.optimizer import Adam, AdamW, lr
 from paddle_tpu_torch.text.models import gpt as port_gpt
 
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
@@ -331,17 +331,24 @@ def test_optimizer_state_dict_and_queued_options():
                                sd["weight.moment1"])
     opt.clear_grad()
     assert lin.weight.grad is None
+    # an LRScheduler's state rides in the optimizer's state dict
+    sched = lr.StepDecay(0.1, step_size=2, gamma=0.5)
+    opt3 = AdamW(sched, parameters=lin.named_parameters())
+    for _ in range(3):
+        sched.step()
+    assert opt3.get_lr() == 0.05
+    with pytest.raises(RuntimeError):
+        opt3.set_lr(0.2)
+    sd3 = opt3.state_dict()
+    assert sd3["LR_Scheduler"]["last_epoch"] == 3
+    sched4 = lr.StepDecay(0.1, step_size=2, gamma=0.5)
+    opt4 = AdamW(0.3, parameters=lin.named_parameters())
+    opt4.set_lr_scheduler(sched4)
+    opt4.set_state_dict(sd3)
+    assert sched4.last_epoch == 3 and opt4.get_lr() == 0.05
+    # the one queued option: O1 auto-cast
     with pytest.raises(NotImplementedError):
-        AdamW(1e-3, parameters=lin.parameters(), grad_clip=object())
-    with pytest.raises(NotImplementedError):
-        AdamW(object(), parameters=lin.parameters())
-    with pytest.raises(NotImplementedError):
-        AdamW(1e-3, parameters=[{"params": list(lin.parameters())}])
-    for kw in ({"accumulate_steps": 2}, {"steps_per_dispatch": 4},
-               {"guard_nonfinite": True}, {"grad_scaler": object()},
-               {"amp_level": "O1"}):
-        with pytest.raises(NotImplementedError):
-            TrainStepCompiler(lin, opt, **kw)
+        TrainStepCompiler(lin, opt, amp_level="O1")
 
 
 def test_train_step_with_loss_fn_and_cuda_default():
