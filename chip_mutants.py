@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Planted faults in the bf16 flash-attention kernels and the
-multi-tensor optimizer kernel, and which of `chip_smoke.py`'s checks
-catch them.
+"""Planted faults in the bf16 flash-attention kernels, the multi-tensor
+optimizer kernel and the multi-query paged-attention kernel, and which
+of `chip_smoke.py`'s checks catch them.
 
     python3 chip_mutants.py
 
@@ -14,7 +14,12 @@ turn. Every flash mutant breaks only late causal rows or keys (query
 rows or keys >= 512 of 1024), or one tile: the faults a limit set by a
 tensor's first rows would miss. The two optimizer mutants divide the
 bias corrections by multiplying with an f32 reciprocal, and skip the
-last chunk of one tensor (the first of the table, GPT-2's wte).
+last chunk of one tensor (the first of the table, GPT-2's wte). The three
+multi-query mutants let slot t see one token too many (ctx0 + t + 1),
+make the deepest slot skip the last live group of 8 tokens, and weight
+the rows past slot t's context (which later slots read) by zero instead
+of skipping them: exact zeros on finite data, so only the per-slot NaN
+poison check can see it.
 
 For the unmutated library (the control) and each flash mutant, three
 checks:
@@ -32,8 +37,14 @@ For the control and each optimizer mutant, one check:
   optim      chip_smoke's phase 11 check: every optimizer case on the
              GPT-2 345M O2 parameter set, kernel path vs per-parameter
              rule, bit for bit after every step
+For the control and each multi-query mutant, one check:
+  multi      chip_smoke's phase 13 check: the multi-query kernel vs its
+             plain version over T 1/2/4/8, two head widths, f32 and
+             bf16, ragged contexts, with the per-slot NaN poison check;
+             the verdict names the check that failed first
 Exits non-zero when the control fails a check, a flash mutant passes the
-per-row flash check, or an optimizer mutant passes the optim check.
+per-row flash check, an optimizer mutant passes the optim check, or a
+multi-query mutant passes the multi check.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ import torch
 
 FLASH = "flash_attention.cu"
 OPTIM = "optim.cu"
+PAGED = "paged_attention.cu"
 # (name, source in csrc/, [(unique text of the source, replacement)])
 MUTANTS = [
     ("fwd: KV tile 0 skipped for query rows >= 512", FLASH,
@@ -101,6 +113,21 @@ MUTANTS = [
        "  const long long end = start + kChunk < e.n ? start + kChunk : "
        "e.n;\n"
        "  if (e.chunk0 == 0 && end == e.n && start > 0) return;\n")]),
+    ("multi: slot t sees one token too many (ctx0 + t + 1)", PAGED,
+     [("  for (int t = 0; t < NQ; ++t) ctx[t] = ctx0 + t < cap ? ctx0 + t : "
+       "cap;\n",
+       "  for (int t = 0; t < NQ; ++t)\n"
+       "    ctx[t] = ctx0 + t + 1 < cap ? ctx0 + t + 1 : cap;\n")]),
+    ("multi: the deepest slot skips the last live group", PAGED,
+     [("      if (n_valid <= 0) continue;\n",
+       "      if (n_valid <= 0) continue;\n"
+       "      if (t == NQ - 1 && g == n_groups - 1) continue;\n")]),
+    ("multi: rows past slot t's context weighted by zero, not skipped",
+     PAGED,
+     [("        if (u >= n_valid) continue;  // skipped, not weighted by zero\n"
+       "        const float p = expf(__fsub_rn(s[u], m_new));\n",
+       "        const float p = u < n_valid ? expf(__fsub_rn(s[u], m_new))"
+       " : 0.f;\n")]),
 ]
 
 
@@ -205,6 +232,16 @@ def optim_check(named, grads):
         return f"FAILS ({e})"
 
 
+def multi_check(dev):
+    import chip_smoke as cs
+
+    try:
+        cs.multi_checks(dev)
+        return "passes"
+    except AssertionError as e:
+        return f"FAILS ({e})"
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_mutants: no CUDA device", file=sys.stderr)
@@ -236,6 +273,8 @@ def main():
                 res.update(run_checks(model, batch, inputs))
             if src in (None, OPTIM):
                 res["optim"] = optim_check(named, grads)
+            if src in (None, PAGED):
+                res["multi"] = multi_check(dev)
         finally:
             K._lib = control
         for check, verdict in res.items():
@@ -245,10 +284,13 @@ def main():
                           for r in res.values())
         elif src == FLASH:
             ok &= res["per-row"].startswith("FAILS")
-        else:
+        elif src == OPTIM:
             ok &= res["optim"].startswith("FAILS")
+        else:
+            ok &= res["multi"].startswith("FAILS")
     print(f"[mutant] {'every' if ok else 'NOT every'} mutant fails its "
-          "check (per-row flash, optim) and the control passes every check")
+          "check (per-row flash, optim, multi) and the control passes every "
+          "check")
     return 0 if ok else 1
 
 

@@ -8,7 +8,8 @@ without them. Phases, each printing one line (or a few):
 
   1. device   card name and power limit (nvidia-smi), torch's name
   2. build    the port's CUDA kernels compiled from paddle_tpu_torch/csrc
-  3. paged    paged-attention kernel vs its plain version on the card:
+  3. paged    paged-attention decode (the kernel's one-slot launch) vs
+              its plain version on the card:
               ragged lengths, f32 and bf16 pools, head_dim 64 and 128,
               the dead-block poison check, and times
   4. ln       fused LayerNorm kernel vs its plain version: rows 8 and
@@ -52,11 +53,34 @@ without them. Phases, each printing one line (or a few):
               the schedule's, launches exact per call; then Nesterov
               Momentum and SGD train the model at full width and 4
               layers: the loss falls, one launch a step
+ 13. multi    multi-query paged-attention kernel (speculative verify) vs
+              its plain version: B 8, T 1/2/4/8, H 16 D 64 and H 8 D 128,
+              f32 and bf16, phase 3's ragged contexts plus contexts
+              whose deepest slot ends at the table's last real column,
+              tables with the NULL column appended; the per-slot NaN
+              poison check (NaN past slot s's context leaves slot s
+              bit-identical); slot t vs the decode wrapper, the same
+              kernel's one-slot launch, at context + t; times
+ 14. spec     GPT-2 345M f32 through LLMEngine(spec_k=4) on phase 5's
+              traffic, with the default 12-layer draft and with a draft
+              equal to the target: tokens equal phase 5's k=1 tokens (a
+              divergence passes only at a shown near-tie), one verify
+              dispatch's logits equal sequential decodes', launch counts
+              exact, no leaks; acceptance, tokens/s, ITL, where a round's
+              time goes
+ 15. prefix   8 requests sharing a 256-token prefix with phase 5's
+              prompts as tails, prefix_cache=True: tokens equal the
+              cache-off engine's, hits 7 / 112 blocks shared / 1792
+              tokens saved, prefill ms with and without, and each hit's
+              tail-only prefill profiled against its whole-context
+              prefill (wall vs device busy); then spec_k=4 +
+              prefix caching on a pool that forces evictions: tokens
+              equal k=1, zero leaks, no block left used
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
-from phase 12, the other training kernels' from phase 9, the serving
-kernels' from phase 5), error and times, the nvidia-smi line, and as
-the LAST line
+from phase 12, the other training kernels' from phase 9, the multi-query
+kernel's from phase 14, the other serving kernels' from phase 5), error
+and times, the nvidia-smi line, and as the LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 fp32 matrix products run in full f32: TF32 is switched off for matmul
@@ -70,6 +94,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -220,6 +245,13 @@ def bound_ms(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
                                  else "operations")
 
 
+def quantile_ms(v, frac):
+    """The `frac` quantile of seconds `v` in ms: sorted(v) at rank
+    min(n - 1, int(n * frac))."""
+    v = sorted(v)
+    return v[min(len(v) - 1, int(len(v) * frac))] * 1e3
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -277,8 +309,12 @@ def phase_build():
     lines = info["log"].splitlines()
     regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
             if "Used " in ln and " registers" in ln]
-    spills = [ln.strip() for ln in lines
-              if "spill stores" in ln and not ln.strip().startswith("0 ")]
+    spills, fn = [], ""
+    for ln in lines:               # "Function properties for <kernel>"
+        if "Function properties for " in ln:
+            fn = ln.split("Function properties for ")[1].strip()
+        elif "spill stores" in ln and not ln.strip().startswith("0 "):
+            spills.append(f"{fn[:60]}: {ln.strip()}")
     log("build", f"{info['seconds']:.1f} s -> {info['path']}; "
         f"{len(regs)} kernel instantiations, registers "
         f"{min(regs, default=0)}..{max(regs, default=0)}; non-zero spills:"
@@ -559,10 +595,7 @@ def phase_serve(dev, model, smi, lens=SERVE_LENS,
                   for a, b in zip(r.token_times, r.token_times[1:]))
     ttft = sorted(r.token_times[0] - r.arrival_perf for r in reqs)
     total = sum(len(o) for o in outs)
-
-    def q(v, frac):
-        return v[min(len(v) - 1, int(len(v) * frac))] * 1e3
-
+    q = quantile_ms
     log("serve", f"[{smi}] GPT-2 {cfg.hidden_size}h x {n_layers}L f32, "
         f"{len(prompts)} prompts {tuple(lens)}, {new_tokens} greedy tokens"
         f" each: {total} tokens in {dt:.3f} s = {total / dt:.1f} tokens/s"
@@ -575,7 +608,9 @@ def phase_serve(dev, model, smi, lens=SERVE_LENS,
     log("serve", f"launches: {counts} = {n_layers} x {n_dec} paged, "
         f"{per_dispatch} x {n_pre + n_dec} LN; drained, 0 blocks used")
     log("serve", f"tokens (reported, not gated) req0: {outs[0][:16]}")
-    return counts, outs
+    stats = {"tokens_s": total / dt, "itl_p50": q(gaps, 0.5),
+             "itl_p99": q(gaps, 0.99)}
+    return counts, outs, stats
 
 
 # -- phase 6 -----------------------------------------------------------
@@ -959,7 +994,8 @@ def _train_launches(n_layers):
             "flash_attention_bwd_dkv": n_layers,
             "fused_layer_norm": 2 * n_layers + 1,
             "fused_layer_norm_bwd": 2 * n_layers + 1,
-            "paged_attention": 0, "fused_sgd": 0, "fused_momentum": 0}
+            "paged_attention": 0, "paged_attention_multi": 0,
+            "fused_sgd": 0, "fused_momentum": 0}
 
 
 def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
@@ -1478,6 +1514,612 @@ def phase_recipe(dev, smi, calls=RECIPE_CALLS, small_layers=4,
     return counts
 
 
+# -- phase 13 ----------------------------------------------------------
+def _multi_inputs(rng, lens, t, h, d, bs, maxb, dtype, dev, null_slots=()):
+    """Phase 3's pools, tables and contexts, a [B, T, H, D] query, and
+    the tables one NULL column wider, as the speculative path passes
+    them."""
+    _, kp, vp, bt, cl = _paged_inputs(rng, lens, h, d, bs, maxb, dtype,
+                                      dev, null_slots)
+    q = torch.from_numpy(rng.randn(len(lens), t, h, d).astype(np.float32))
+    wide = torch.cat([bt, torch.zeros_like(bt[:, :1])], dim=1).contiguous()
+    return q.to(dev, dtype), kp, vp, wide, cl
+
+
+def _multi_poison(kp, vp, tables, lens, bs, n):
+    """The pools with NaN at every position at or past each sequence's
+    ctx0 + n (clamped to the table), and in every block no table maps:
+    all that slot n does not read (n = T - 1: all that no slot reads)."""
+    live = np.zeros(kp.shape[:2], bool)
+    t_np, l_np = tables.cpu().numpy(), lens.cpu().numpy()
+    cap = t_np.shape[1] * bs
+    for b in range(len(l_np)):
+        pos = np.arange(min(int(l_np[b]) + n, cap))
+        live[t_np[b, pos // bs], pos % bs] = True
+    live = torch.from_numpy(live).to(kp.device)[:, :, None, None]
+    nan = torch.full_like(kp, float("nan"))
+    return torch.where(live, kp, nan), torch.where(live, vp, nan)
+
+
+def _multi_live(lens, t, cap):
+    """(rows the deepest slot reads, scores all slots compute) of a
+    verify window: per sequence min(ctx0 + T - 1, cap) rows, and
+    sum_t min(ctx0 + t, cap) scores."""
+    rows = sum(min(int(c) + t - 1, cap) for c in lens)
+    scores = sum(min(int(c) + s, cap) for c in lens for s in range(t))
+    return rows, scores
+
+
+def multi_checks(dev, h=16, d=64, bs=16, maxb=64):
+    """Phase 13's checks: the multi-query kernel against its plain
+    version (T 1/2/4/8; H16 D64 and H8 D128; f32 and bf16; phase 3's
+    contexts and contexts whose deepest slot ends at the table's last
+    real column; the NULL column appended), each case also with NaN at
+    every position past slot s's context, for each s (slot s
+    bit-identical), and slot t against the decode wrapper, the kernel's
+    one-slot launch, at context + t (reported). Raises on a failure;
+    returns ({dtype: max|err|}, {dtype: (max slot diff, slots
+    bit-identical, slots)}, cases)."""
+    from paddle_tpu_torch.incubate.nn.kernels.paged_attention import (
+        paged_attention, paged_attention_multi,
+        paged_attention_multi_reference)
+
+    rng = np.random.RandomState(13)
+    top = maxb * bs
+    serve_ctx = tuple(min(top, n + SERVE_NEW_TOKENS // 2)
+                      for n in SERVE_LENS)
+    base_cases = {
+        "single": (1,) * 8,
+        "block_edges": tuple(min(top, bs * k)
+                             for k in (1, 2, 3, 4, 8, 16, 32, maxb)),
+        "edges_pm1": (1, bs - 1, bs, bs + 1, 2 * bs - 1, 2 * bs + 1,
+                      top - 1, top),
+        "odd": tuple(min(top, x) for x in (37, 3, 23, 15, 501, 777, 129,
+                                           999)),
+        "serve": serve_ctx,
+    }
+
+    # phase 3's tolerances: f32 summation order; bf16 about one ulp
+    def tol(dtype, ref):
+        if dtype == torch.float32:
+            return 1e-5, 1e-5
+        return 1e-2 * float(ref.float().abs().max()), 1e-2
+
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    slots = {torch.float32: [0.0, 0, 0], torch.bfloat16: [0.0, 0, 0]}
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for hh, dd in ((h, d), (8, 128)):
+            scale = dd ** -0.5
+            for t in (1, 2, 4, 8):
+                # the deepest slot's context ends at the last real
+                # column: the NULL column is what lies past it
+                cases = dict(base_cases, table_end=tuple(
+                    max(1, top - t + 1 - k) for k in range(8)))
+                for name, lens in cases.items():
+                    nulls = (7,) if name == "serve" else ()
+                    q, kp, vp, wt, cl = _multi_inputs(
+                        rng, lens, t, hh, dd, bs, maxb, dtype, dev, nulls)
+                    tag = f"multi {name} T={t} H={hh} D={dd} {dtype}"
+                    out = paged_attention_multi(q, kp, vp, wt, cl, scale)
+                    ref = paged_attention_multi_reference(q, kp, vp, wt, cl,
+                                                          scale)
+                    if out.dtype != dtype or out.shape != q.shape:
+                        raise AssertionError(f"{tag}: {out.dtype} "
+                                             f"{tuple(out.shape)}")
+                    e = assert_close(tag, out, ref, *tol(dtype, ref))
+                    err[dtype] = max(err[dtype], e)
+                    n_cases += 1
+                    # slot s reads nothing at or past ctx0 + s: NaN there
+                    # leaves slot s bit-identical (a row skipped, not
+                    # weighted by zero), and at s = T - 1 the whole output
+                    for s in range(t):
+                        pk, pv = _multi_poison(kp, vp, wt, cl, bs, s)
+                        out2 = paged_attention_multi(q, pk, pv, wt, cl,
+                                                     scale)
+                        if not torch.equal(out[:, s], out2[:, s]):
+                            raise AssertionError(
+                                f"{tag}: NaN past slot {s}'s context "
+                                f"changed slot {s}")
+                    if not torch.equal(out, out2):
+                        raise AssertionError(f"{tag}: poison changed the "
+                                             "output")
+                    # slot t against the decode kernel at context + t
+                    for s in range(t):
+                        one = paged_attention(q[:, s].contiguous(), kp, vp,
+                                              wt, cl + s, scale)
+                        st = slots[dtype]
+                        st[0] = max(st[0], max_err(out[:, s], one))
+                        st[1] += int(torch.equal(out[:, s], one))
+                        st[2] += 1
+    return err, {k: tuple(v) for k, v in slots.items()}, n_cases
+
+
+def phase_multi(dev, h=16, d=64, bs=16, maxb=64, iters=100):
+    from paddle_tpu_torch.incubate.nn.kernels.paged_attention import (
+        paged_attention_multi, paged_attention_multi_reference)
+
+    err, slots, n_cases = multi_checks(dev, h, d, bs, maxb)
+    log("multi", f"kernel vs plain over {n_cases} cases (T 1/2/4/8; H16 D64 "
+        f"and H8 D128; f32 and bf16; 6 context sets; NULL column "
+        f"appended): max|err| f32 {err[torch.float32]:.3e} (tol 1e-5 abs + "
+        f"1e-5 rel), bf16 {err[torch.bfloat16]:.3e} (tol 1e-2 x max|ref| abs"
+        " + 1e-2 rel); per-slot NaN poison check (NaN past slot s's "
+        "context, slot s unchanged) bit-identical in every case")
+    log("multi", "slot t vs the decode wrapper (one-slot launch) at context +"
+        " t (reported, not gated): " + "; ".join(
+            f"{dt}: {n_eq}/{n} slots bit-identical, max|diff| {e:.3e}"
+            for dt, (e, n_eq, n) in slots.items()))
+
+    # times at the serving verify shape: B 8, T 4, f32, serve contexts,
+    # one inactive slot, tables 65 columns wide; L2 flushed before each
+    rng = np.random.RandomState(14)
+    serve_ctx = tuple(min(maxb * bs, n + SERVE_NEW_TOKENS // 2)
+                      for n in SERVE_LENS)
+    t = 4
+    scale = d ** -0.5
+    q, kp, vp, wt, cl = _multi_inputs(rng, serve_ctx, t, h, d, bs, maxb,
+                                      torch.float32, dev, (7,))
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    k_ms, k_host = time_ms(
+        lambda: paged_attention_multi(q, kp, vp, wt, cl, scale), iters,
+        flush)
+    p_ms, p_host = time_ms(
+        lambda: paged_attention_multi_reference(q, kp, vp, wt, cl, scale),
+        max(1, iters // 5), flush)
+    # library yardstick: SDPA over K/V gathered beforehand (the gather
+    # not timed), a per-slot [B, 1, T, S] mask
+    b = len(serve_ctx)
+    s_len = wt.shape[1] * bs
+    tables = wt.long()
+    kg = kp[tables].reshape(b, s_len, h, d).transpose(1, 2).contiguous()
+    vg = vp[tables].reshape(b, s_len, h, d).transpose(1, 2).contiguous()
+    ctx = cl.long()[:, None] + torch.arange(t, device=dev)[None, :]
+    mask = (torch.arange(s_len, device=dev)[None, None, :]
+            < ctx[:, :, None])[:, None]
+    q4 = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    l_ms, _ = time_ms(
+        lambda: sdpa(q4, kg, vg, attn_mask=mask, scale=scale), iters, flush)
+    rows, scores = _multi_live(cl.tolist(), t, s_len)
+    nbytes = (2 * q.numel() * 4 + 2 * rows * h * d * 4 + wt.numel() * 4
+              + cl.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, 4 * h * d * scores)
+    log("multi", f"B={b} T={t} H={h} D={d} BS={bs} ctx0={tuple(cl.tolist())}"
+        f" f32, tables {tuple(wt.shape)}, cold L2, device ms: kernel "
+        f"{k_ms:.5f} | plain {p_ms:.5f} | sdpa {l_ms:.5f} | bound {b_ms:.5f} "
+        f"({b_by}, {nbytes} B, {4 * h * d * scores} FLOP); host ms per call:"
+        f" kernel wrapper {k_host:.5f}, plain {p_host:.5f}")
+    return {"name": "paged_attention_multi", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/incubate/nn/pallas/paged_attention.py:187",
+            "max_abs_err": err[torch.float32], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms}
+
+
+# -- phase 14 ----------------------------------------------------------
+SPEC_K = 4
+SPEC_BLOCKS = 512        # pool for phases 14-15: the traffic without
+                         # evictions, with the draft's twin pools beside
+
+
+def near_tie(model, dev, ctx, tokens, limit_rel=1e-3):
+    """The two paths' logits for the output right after `ctx` (whose
+    last token is pending): a decode step (the k=1 path) and slot 0 of
+    a verify dispatch (the speculative path, `tokens` in slots 1..),
+    each from ctx[:-1] prefilled into the same pools, one live slot of
+    a B = max_batch dispatch. Returns (max|dlogits|, limit, top-2 of
+    each path as ((token, logit), (token, logit)), top-2 gap)."""
+    from paddle_tpu_torch.inference.serving import LLMEngine
+    from paddle_tpu_torch.inference.serving import model_runner as mr
+
+    cfg = model.config
+    eng = LLMEngine(model, max_batch=SERVE_MAX_BATCH, num_blocks=SPEC_BLOCKS,
+                    device=dev)
+    kw = dict(n_head=cfg.num_heads, eps=cfg.layer_norm_eps,
+              block_size=eng.block_size)
+    n = len(ctx)
+    eng.cache.allocator.alloc("probe", eng.cache.blocks_for_tokens(
+        n + len(tokens)))
+    table = eng.cache.block_table("probe", eng.max_blocks_per_seq)
+    padded = eng.cache.blocks_for_tokens(n - 1) * eng.block_size
+    ids = np.zeros((1, padded), np.int32)
+    ids[0, :n - 1] = ctx[:-1]
+    mr.prefill_step(eng.params, torch.from_numpy(ids).to(dev), n - 1,
+                    eng.cache.k, eng.cache.v, torch.from_numpy(table).to(dev),
+                    0.0, 0, 0, **kw)
+    b = SERVE_MAX_BATCH
+    tables = np.zeros((b, eng.max_blocks_per_seq + 1), np.int32)
+    tables[0, :-1] = table
+    lens = np.ones((b,), np.int32)
+    lens[0] = n
+    pos = lens - 1
+    dec_ids = np.zeros((b,), np.int32)
+    dec_ids[0] = ctx[-1]
+    ver_ids = np.zeros((b, 1 + len(tokens)), np.int32)
+    ver_ids[0] = [ctx[-1]] + list(tokens)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    k2, v2 = eng.cache.k.clone(), eng.cache.v.clone()
+    one = mr.decode_logits(eng.params, t(dec_ids), t(pos), eng.cache.k,
+                           eng.cache.v, t(tables), t(lens), **kw)[0]
+    ver = mr.verify_logits(eng.params, t(ver_ids), t(pos), k2, v2,
+                           t(tables), t(lens), **kw)[0, 0]
+    limit = limit_rel * float(one.abs().max())
+    tops = []
+    for row in (one, ver):
+        val, idx = row.float().topk(2)
+        tops.append(tuple((int(i), float(v)) for i, v in zip(idx, val)))
+    gap = max(tp[0][1] - tp[1][1] for tp in tops)
+    del eng, k2, v2
+    return max_err(one, ver), limit, tops, gap
+
+
+def _spec_gate(tag, model, dev, prompts, want, got):
+    """Gate 1: token identity to the k=1 engine, request by request. A
+    divergence passes only where the two paths' logits agree within
+    phase 6's limit AND the top-2 gap there is below it (a near-tie,
+    shown, not assumed). Returns the near-ties found."""
+    ties = []
+    for r, (w, g) in enumerate(zip(want, got)):
+        if w == g:
+            continue
+        p = next((i for i, (a, b) in enumerate(zip(w, g)) if a != b),
+                 min(len(w), len(g)))
+        ctx = prompts[r] + w[:p]
+        d, limit, tops, gap = near_tie(model, dev, ctx, g[p:p + SPEC_K - 1])
+        log("spec", f"{tag}: request {r} diverges at output {p} (k=1 "
+            f"{w[p:p + 4]}, spec {g[p:p + 4]}); top-2 there, decode path "
+            f"{tops[0]}, verify path {tops[1]}; max|dlogits| {d:.3e}, top-2 "
+            f"gap {gap:.3e}, limit {limit:.3e}")
+        if not (d <= limit and gap < limit):
+            raise AssertionError(f"{tag}: request {r} diverges at output {p}"
+                                 " and it is not a near-tie")
+        ties.append((r, p))
+    return ties
+
+
+def _spec_setup(model, dev, lens=SERVE_LENS, **kw):
+    """An engine with phase 5's 8 prompts admitted and prefilled and
+    room for a speculative window: the state one round starts from."""
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    eng = LLMEngine(model, max_batch=SERVE_MAX_BATCH, num_blocks=SPEC_BLOCKS,
+                    device=dev, **kw)
+    for p in _serve_prompts(model.config.vocab_size, lens):
+        eng.add_request(p, SamplingParams(max_new_tokens=SERVE_NEW_TOKENS))
+    eng.scheduler.schedule(
+        on_admit=lambda r: eng._emit(r, eng._prefill(r), {}))
+    for req in list(eng.scheduler.running.values()):
+        eng.scheduler.ensure_capacity(req, new_tokens=SPEC_K)
+    return eng
+
+
+def spec_logits_check(model, dev, k=SPEC_K):
+    """Gate 2: one verify dispatch's logits, slot by slot, against k
+    sequential decode_logits calls on the same prefilled pools (the
+    decodes feed the verify's slot tokens one at a time), kernel paths
+    both; and the K/V each writes. Returns (max|dlogits|, limit)."""
+    from paddle_tpu_torch.inference.serving import model_runner as mr
+
+    cfg = model.config
+    eng = _spec_setup(model, dev, spec_k=k)
+    ids, pos, tables, lens, _, _, _ = eng._batch_arrays()
+    wide = eng._wide_tables(tables)
+    kw = dict(n_head=cfg.num_heads, eps=cfg.layer_norm_eps,
+              block_size=eng.block_size)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    live = sorted(eng.scheduler.running)
+    k_seq, v_seq = eng.cache.k.clone(), eng.cache.v.clone()
+    v_ids = np.zeros((len(ids), k), np.int32)
+    v_ids[:, 0] = ids
+    dec = []
+    for j in range(k):
+        lg = mr.decode_logits(eng.params, t(v_ids[:, j]), t(pos + j), k_seq,
+                              v_seq, t(wide), t(lens + j), **kw)
+        dec.append(lg)
+        if j + 1 < k:                   # the greedy continuation
+            v_ids[:, j + 1] = lg.argmax(-1).cpu().numpy()
+    ver = mr.verify_logits(eng.params, t(v_ids), t(pos), eng.cache.k,
+                           eng.cache.v, t(wide), t(lens), **kw)
+    dec = torch.stack(dec, dim=1)
+    if not bool(torch.isfinite(ver[live]).all()):
+        raise AssertionError("spec logits: non-finite verify logits")
+    scale = float(dec[live].abs().max())
+    err = max_err(ver[live], dec[live])
+    limit = 1e-3 * scale
+    if err > limit:
+        raise AssertionError(f"spec logits: verify vs sequential decodes "
+                             f"max|dlogits| {err:.3e} > {limit:.3e}")
+    # the K/V both wrote at the window's positions (held on the live
+    # slots; inactive slots write into the NULL block), and nothing else
+    def window(slots):
+        p = (pos[slots][:, None] + np.arange(k)[None, :]).reshape(-1)
+        blk = wide[np.repeat(slots, k), p // eng.block_size]
+        return (torch.from_numpy(blk).long().to(dev),
+                torch.from_numpy(p % eng.block_size).long().to(dev))
+
+    blk, off = window(np.asarray(live))
+    all_blk, all_off = window(np.arange(len(ids)))
+    kv_err = 0.0
+    for name, pv, ps in (("k", eng.cache.k, k_seq), ("v", eng.cache.v, v_seq)):
+        e = max_err(pv[:, blk, off], ps[:, blk, off])
+        if e > 1e-4 * float(ps[:, blk, off].abs().max()):
+            raise AssertionError(f"spec written {name}: max|err| {e:.3e}")
+        kv_err = max(kv_err, e)
+        pv[:, all_blk, all_off] = ps[:, all_blk, all_off]
+        if not torch.equal(pv, ps):
+            raise AssertionError(f"spec {name} pool changed off the window")
+    agree = int((ver[live].argmax(-1) == dec[live].argmax(-1)).sum())
+    log("spec", f"one verify dispatch (B={len(ids)}, k={k}) vs {k} "
+        f"sequential decodes on the same pools: max|dlogits| {err:.3e} (tol "
+        f"1e-3 x max|logits| = {limit:.3e}); written K/V max|err| "
+        f"{kv_err:.3e}, rest of pools identical; argmax agrees on "
+        f"{agree}/{len(live) * k} slots (reported, not gated)")
+    del eng, k_seq, v_seq
+    return err, limit
+
+
+def _spec_round_profile(model, dev, draft_layers=None):
+    """Where one speculative round's time goes: draft proposals + one
+    verify dispatch on a fixed state (every write lands on the same
+    positions each time)."""
+    eng = _spec_setup(model, dev, spec_k=SPEC_K, draft_layers=draft_layers)
+    arrays = eng._batch_arrays()
+    wide = eng._to_device(eng._wide_tables(arrays[2]))
+    running = dict(eng.scheduler.running)
+
+    def one_round():
+        drafts = eng._draft_propose(running, wide, arrays)
+        eng._dispatch_verify(running, drafts, wide, arrays)
+
+    out = profile_ms(one_round, n_top=6)
+    del eng
+    return out
+
+
+def phase_spec(dev, model, smi, want, base_stats, lens=SERVE_LENS,
+               new_tokens=SERVE_NEW_TOKENS, k=SPEC_K):
+    from paddle_tpu_torch.core import monitor as cmon
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    cfg = model.config
+    n_layers = cfg.num_layers
+    prompts = _serve_prompts(cfg.vocab_size, lens)
+    sampling = SamplingParams(max_new_tokens=new_tokens)
+    keys = ("serve/prefills", "serve/decode_dispatches", "serve/tokens",
+            "serve/evictions", "serve/spec/proposed", "serve/spec/accepted",
+            "serve/prefill_us", "serve/decode_us")
+    counts_main = None
+    for tag, draft in (("default draft", None), ("draft = target", n_layers)):
+        def run():
+            eng = LLMEngine(model, max_batch=SERVE_MAX_BATCH,
+                            num_blocks=SPEC_BLOCKS, device=dev, spec_k=k,
+                            draft_layers=draft)
+            ids = [eng.add_request(p, sampling=sampling) for p in prompts]
+            t0 = time.perf_counter()
+            while eng.has_unfinished():
+                eng.step()
+            torch.cuda.synchronize()
+            return eng, ids, time.perf_counter() - t0
+
+        run()                           # warm-up pass, same traffic
+        before = {key: cmon.stat_get(key) for key in keys}
+        kernels.reset_launches()
+        eng, ids, dt = run()
+        counts = kernels.launches()
+        delta = {key: cmon.stat_get(key) - before[key] for key in keys}
+        reqs = [eng.get_request(i) for i in ids]
+        outs = [r.output_ids for r in reqs]
+        n_draft = eng.draft_layers
+        if eng.check_drained() != {} or eng.cache.allocator.used_blocks:
+            raise AssertionError(f"spec {tag}: KV blocks leaked")
+        ties = _spec_gate(f"spec {tag}", model, dev, prompts, want, outs)
+        if not ties and [len(o) for o in outs] != [new_tokens] * len(prompts):
+            raise AssertionError(f"spec {tag}: output lengths")
+        rounds = delta["serve/decode_dispatches"]
+        n_pre = delta["serve/prefills"]
+        expect = {
+            "paged_attention_multi": n_layers * rounds,
+            "paged_attention": n_draft * k * rounds,
+            "fused_layer_norm": (2 * n_layers + 1) * (n_pre + rounds)
+            + (2 * n_draft + 1) * (n_pre + k * rounds),
+        }
+        for name, n in expect.items():
+            if counts[name] != n or rounds < 1:
+                raise AssertionError(f"spec {tag}: {name} launched "
+                                     f"{counts[name]} times, expected {n} "
+                                     f"({rounds} rounds, {n_pre} prefills)")
+        if any(v for name, v in counts.items() if name not in expect):
+            raise AssertionError(f"spec {tag}: other kernels launched: "
+                                 f"{counts}")
+        gaps = [b - a for r in reqs
+                for a, b in zip(r.token_times, r.token_times[1:])]
+        total = sum(len(o) for o in outs)
+        prop = delta["serve/spec/proposed"]
+        acc = delta["serve/spec/accepted"]
+        log("spec", f"[{smi}] {tag} ({n_draft} layers), k={k}: {total} "
+            f"tokens in {dt:.3f} s = {total / dt:.1f} tokens/s (k=1: "
+            f"{base_stats['tokens_s']:.1f}) | ITL p50 "
+            f"{quantile_ms(gaps, 0.5):.3f} ms p99 "
+            f"{quantile_ms(gaps, 0.99):.3f} ms (k=1: "
+            f"{base_stats['itl_p50']:.3f} / {base_stats['itl_p99']:.3f}) | "
+            f"accepted {acc}/{prop} proposals ({100 * acc / max(1, prop):.1f}"
+            f"%), {total / max(1, rounds * len(prompts)):.2f} tokens per "
+            f"request-round | {rounds} rounds "
+            f"({delta['serve/decode_us'] / 1e3 / rounds:.3f} ms each), "
+            f"{n_pre} prefills | tokens "
+            + ("equal phase 5's" if not ties else f"near-ties at {ties}"))
+        log("spec", f"{tag} launches: {counts} = {n_layers} x {rounds} multi,"
+            f" {n_draft} x {k} x {rounds} paged, LN {expect['fused_layer_norm']}"
+            "; drained, 0 blocks used")
+        if counts_main is None:
+            counts_main = counts
+        del eng
+    spec_logits_check(model, dev, k)
+    for tag, draft in (("default draft", None), ("draft = target", n_layers)):
+        wall, busy, count, top, by = _spec_round_profile(model, dev, draft)
+        if busy is None:
+            log("spec", f"one round, {tag}: wall {wall:.3f} ms; device time "
+                "not measured (the profiler saw no device activity)")
+            continue
+        # one kernel, told apart by its slot count: T = 1 is the decode
+        nq = {name: re.search(r"paged_multi_kernel<[^,]+, *\d+, *(\d+)>",
+                              name) for name in by}
+        multi = sum(ms for name, ms in by.items()
+                    if nq[name] and nq[name].group(1) != "1")
+        decode = sum(ms for name, ms in by.items()
+                     if nq[name] and nq[name].group(1) == "1")
+        tops = "; ".join(f"{name} x{n:.0f} {ms:.4f} ms" for name, n, ms in top)
+        log("spec", f"[{smi}] where one round goes (B=8, k={k}, {tag}): wall "
+            f"{wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall:.1f}%), {count:.0f} kernels; multi kernel "
+            f"{multi:.4f} ms, decode kernel {decode:.4f} ms; top: {tops}")
+    return counts_main
+
+
+# -- phase 15 ----------------------------------------------------------
+PREFIX_TOKENS = 256      # 16 blocks of 16
+PREFIX_TIGHT_BLOCKS = 64  # forces evictions in the everything-on run
+
+
+def _prefill_profiles(model, dev, prompts):
+    """Where the prefills of the prefix-cache hits go, each request's
+    tail-only prefill against its whole-context prefill on the same
+    state: every prompt admitted and prefilled in order (the first
+    publishes the prefix, the others hit), then, for each hit, both
+    prefills of its prompt profiled (their writes land on the same
+    positions each time). Returns [(prompt length, cached tokens, tail
+    profile_ms, full profile_ms)] per hit."""
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.inference.serving import model_runner as mr
+
+    eng = LLMEngine(model, max_batch=SERVE_MAX_BATCH, num_blocks=SPEC_BLOCKS,
+                    device=dev, prefix_cache=True)
+    ids = [eng.add_request(p, SamplingParams(max_new_tokens=SERVE_NEW_TOKENS))
+           for p in prompts]
+    eng.scheduler.schedule(
+        on_admit=lambda r: eng._emit(r, eng._prefill(r), {}))
+    kw = eng._fwd_kwargs()
+    out = []
+    for i in ids:
+        req = eng.get_request(i)
+        cached, plen = req.cached_tokens, len(req.prompt_ids)
+        if not cached:
+            continue
+        padded = eng.cache.blocks_for_tokens(plen) * eng.block_size
+        full = np.zeros((1, padded), np.int32)
+        full[0, :plen] = req.prompt_ids
+        full_t, tail_t = eng._to_device(full), eng._to_device(
+            np.ascontiguousarray(full[:, cached:]))
+        table = eng._to_device(eng.cache.block_table(
+            i, eng.max_blocks_per_seq))
+        pools = (eng.cache.k, eng.cache.v, table, 0.0, 0, 0)
+        tail = profile_ms(lambda: mr.prefill_tail_step(
+            eng.params, tail_t, cached, plen, *pools, **kw), n_top=3)
+        whole = profile_ms(lambda: mr.prefill_step(
+            eng.params, full_t, plen, *pools, **kw), n_top=3)
+        out.append((plen, cached, tail, whole))
+    del eng
+    return out
+
+
+def phase_prefix(dev, model, smi, lens=SERVE_LENS,
+                 new_tokens=SERVE_NEW_TOKENS):
+    from paddle_tpu_torch.core import monitor as cmon
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+
+    cfg = model.config
+    rng = np.random.RandomState(15)
+    prefix = list(rng.randint(1, cfg.vocab_size, PREFIX_TOKENS))
+    prompts = [prefix + tail for tail in _serve_prompts(cfg.vocab_size, lens)]
+    sampling = SamplingParams(max_new_tokens=new_tokens)
+    names = ("serve/prefix/hits", "serve/prefix/blocks_shared",
+             "serve/prefix/prefill_tokens_saved", "serve/prefill_us",
+             "serve/prefills", "serve/evictions")
+
+    def run(**kw):
+        kw.setdefault("num_blocks", SPEC_BLOCKS)
+        eng = LLMEngine(model, max_batch=SERVE_MAX_BATCH, device=dev, **kw)
+        before = {n: cmon.stat_get(n) for n in names}
+        t0 = time.perf_counter()
+        outs = eng.generate(prompts, sampling=sampling)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        delta = {n: cmon.stat_get(n) - before[n] for n in names}
+        if eng.check_drained() != {} or eng.cache.allocator.used_blocks:
+            raise AssertionError(f"prefix {kw}: KV blocks leaked")
+        del eng
+        return outs, delta, dt
+
+    run(prefix_cache=True)              # warm-up pass
+    want, d_off, t_off = run()
+    got, d_on, t_on = run(prefix_cache=True)
+    if got != want:
+        bad = [r for r, (a, b) in enumerate(zip(want, got)) if a != b]
+        raise AssertionError(f"prefix: tokens differ from the cache-off "
+                             f"engine for requests {bad}")
+    n_blocks = PREFIX_TOKENS // 16
+    expect = {"serve/prefix/hits": len(prompts) - 1,
+              "serve/prefix/blocks_shared": (len(prompts) - 1) * n_blocks,
+              "serve/prefix/prefill_tokens_saved":
+                  (len(prompts) - 1) * PREFIX_TOKENS}
+    for n, v in expect.items():
+        if d_on[n] != v:
+            raise AssertionError(f"prefix: {n} {d_on[n]}, expected {v}")
+    log("prefix", f"[{smi}] {len(prompts)} requests, a {PREFIX_TOKENS}-token "
+        f"shared prefix + tails {tuple(lens)}, {new_tokens} greedy tokens "
+        f"each: tokens equal the cache-off engine's; hits "
+        f"{d_on['serve/prefix/hits']}, blocks shared "
+        f"{d_on['serve/prefix/blocks_shared']}, prefill tokens saved "
+        f"{d_on['serve/prefix/prefill_tokens_saved']}; prefill ms "
+        f"{d_on['serve/prefill_us'] / 1e3:.3f} with the cache vs "
+        f"{d_off['serve/prefill_us'] / 1e3:.3f} without ({d_on['serve/prefills']}"
+        f" prefills each); generate {t_on:.3f} s vs {t_off:.3f} s")
+
+    prof = _prefill_profiles(model, dev, prompts)
+    if len(prof) != len(prompts) - 1:
+        raise AssertionError(f"prefix profile: {len(prof)} hits")
+    tot = {}
+    for _, _, tail, whole in prof:
+        for key, p in (("tail", tail), ("full", whole)):
+            w, b = tot.get(key, (0.0, 0.0))
+            tot[key] = (w + p[0], None if b is None or p[1] is None
+                        else b + p[1])
+    busy = {key: "not measured" if b is None else f"{b:.3f} ms"
+            for key, (_, b) in tot.items()}
+    plen, cached, tail, whole = max(prof, key=lambda r: r[0])
+    tops = {key: "; ".join(f"{n} x{c:.0f} {ms:.4f} ms" for n, c, ms in p[3])
+            for key, p in (("tail", tail), ("full", whole))}
+    log("prefix", f"[{smi}] the {len(prof)} hits' prefills, profiled on one "
+        f"state (wall synchronised / device busy, summed): tail-only "
+        f"{tot['tail'][0]:.3f} ms / {busy['tail']} vs whole context "
+        f"{tot['full'][0]:.3f} ms / {busy['full']}; longest ({plen} tokens,"
+        f" {cached} cached): tail {tail[0]:.3f} ms wall, top: {tops['tail']}"
+        f" | whole {whole[0]:.3f} ms wall, top: {tops['full']}")
+
+    got, d_all, t_all = run(spec_k=SPEC_K, prefix_cache=True,
+                            num_blocks=PREFIX_TIGHT_BLOCKS)
+    if got != want:
+        bad = [r for r, (a, b) in enumerate(zip(want, got)) if a != b]
+        _spec_gate("prefix everything-on", model, dev, prompts, want, got)
+        log("prefix", f"everything-on: requests {bad} differ at near-ties")
+    if d_all["serve/evictions"] < 1:
+        raise AssertionError("prefix everything-on: no eviction; the pool "
+                             "was not tight")
+    log("prefix", f"[{smi}] everything on (spec_k={SPEC_K}, prefix cache, "
+        f"{PREFIX_TIGHT_BLOCKS} blocks): tokens equal k=1 cache-off; "
+        f"evictions {d_all['serve/evictions']}, prefills "
+        f"{d_all['serve/prefills']}, hits {d_all['serve/prefix/hits']}; "
+        f"drained, 0 leaks, 0 blocks used; {t_all:.3f} s")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1494,11 +2136,11 @@ def main():
     phase_build()
     entries = [phase_paged(dev), phase_ln(dev)]
     model = _serve_model(dev)
-    counts, _ = phase_serve(dev, model, smi)
+    counts, serve_outs, serve_stats = phase_serve(dev, model, smi)
     phase_logits(dev, model)
     for e in entries:
         e["launches"] = counts[e["name"]]
-    del model
+    serve_model = model             # phases 14-15 serve it again
     train_entries = phase_flash(dev) + [phase_ln_bwd(dev)]
     model, counts = phase_train(dev, smi)
     phase_grads(dev, model)
@@ -1515,6 +2157,12 @@ def main():
     for e in optim_entries:
         e["launches"] = counts[e["name"]]
     entries += optim_entries
+    torch.cuda.empty_cache()
+    multi_entry = phase_multi(dev)
+    counts = phase_spec(dev, serve_model, smi, serve_outs, serve_stats)
+    multi_entry["launches"] = counts["paged_attention_multi"]
+    phase_prefix(dev, serve_model, smi)
+    entries.append(multi_entry)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -8,9 +8,11 @@ a build takes seconds):
 - `layernorm.fused_layer_norm` / `fused_residual_layer_norm`: row
   LayerNorm with an optional residual-add prologue and GeLU epilogue,
   forward and backward (`csrc/layernorm.cu`).
-- `paged_attention.paged_attention`: ragged paged-attention decode, one
-  query per sequence, K/V read through block tables
-  (`csrc/paged_attention.cu`).
+- `paged_attention.paged_attention_multi`: ragged paged attention, up
+  to 8 query slots per sequence, K/V read through block tables, slot t
+  seeing t more tokens (speculative-decode verification), and
+  `paged_attention.paged_attention`: the decode step, its one-slot
+  launch (`csrc/paged_attention.cu`).
 - `flash_attention.flash_attention`: tiled online-softmax attention,
   forward and the two backward kernels, dq and dk/dv
   (`csrc/flash_attention.cu`).
@@ -58,7 +60,8 @@ DTYPE_BF16 = 1
 
 # kernel name -> launches since the last reset (one per wrapper call
 # that launched the kernel; plain-version calls on the CPU never count)
-_LAUNCHES = {"paged_attention": 0, "fused_layer_norm": 0,
+_LAUNCHES = {"paged_attention": 0, "paged_attention_multi": 0,
+             "fused_layer_norm": 0,
              "fused_layer_norm_bwd": 0, "flash_attention_fwd": 0,
              "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
              "fused_adam": 0, "fused_sgd": 0, "fused_momentum": 0}
@@ -165,9 +168,9 @@ def _declare(lib):
     lib.ptt_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i,
                                        i, i, i, p]
     lib.ptt_layer_norm_bwd.restype = i
-    lib.ptt_paged_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                        f, i, p]
-    lib.ptt_paged_attention.restype = i
+    lib.ptt_paged_attention_multi.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                              i, i, f, i, p]
+    lib.ptt_paged_attention_multi.restype = i
     lib.ptt_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, p]
     lib.ptt_flash_fwd.restype = i
     lib.ptt_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i,

@@ -2,16 +2,19 @@
 
   * `kv_cache`      block-allocated paged KV cache: fixed-size blocks
                     in preallocated device pools, per-request block
-                    tables, alloc/free + admission control
+                    tables, alloc/free + admission control, the draft
+                    model's twin pools, copy-on-write prefix sharing
   * `scheduler`     continuous batching: FIFO admit / evict / preempt
                     between decode dispatches
-  * `model_runner`  prefill + paged decode forward passes (gpt2),
+  * `model_runner`  prefill, paged decode, speculative verify and
+                    prefix-cache tail prefill forward passes (gpt2),
                     per-request sampling
   * `engine`        `LLMEngine.generate()` / `add_request()` streaming
-                    front end
+                    front end; `spec_k` / `draft_layers` (speculative
+                    decoding) and `prefix_cache` (prefix caching)
 
-The paged-attention decode kernel lives in
-`incubate.nn.kernels.paged_attention`.
+The paged-attention kernels (single-query decode and multi-query
+verify) live in `incubate.nn.kernels.paged_attention`.
 """
 from __future__ import annotations
 

@@ -1,6 +1,5 @@
 """LLMEngine — the generation front end, the port of
-`paddle_tpu/inference/serving/engine.py` (one token per decode
-dispatch).
+`paddle_tpu/inference/serving/engine.py`.
 
 A GPTForCausalLM plus a paged KV cache, a continuous-batching
 scheduler, and two forward passes — a per-request prefill and ONE
@@ -27,16 +26,44 @@ are the hand-written kernels (`incubate.nn.kernels`);
 `use_kernel=False` makes the forward passes call their plain PyTorch
 versions instead, which is what the kernel comparisons use.
 
+Speculative decoding (`spec_k` > 1, at most 8): a DRAFT model — the
+target's first `draft_layers` blocks (default half the depth) sharing
+its embeddings and head (`model_runner.draft_params`) — proposes k-1
+tokens with k batched decode dispatches against its own twin pools,
+then ONE `verify_step` dispatch runs the target over all k slots
+(pending token + proposals) through the multi-query paged-attention
+kernel. The engine emits the longest prefix of proposals that AGREE
+with the target's own position-seeded choices, plus the first
+disagreeing target token: every emitted token is the target's choice
+for its position, so the stream equals k=1 at any temperature, and a
+bad draft only costs speed (1..k tokens per round). Speculative
+dispatches take block tables one guaranteed-NULL column wider, so a
+near-`max_seq_len` slot's overflow writes land in the null block.
+`serve/spec/{k,proposed,accepted}` and `serve/hist/accept_len` price
+it.
+
+Prefix caching (`prefix_cache=True`): full immutable prompt blocks are
+content-hashed after prefill; a later request whose context chains
+onto published blocks admits with them mapped copy-on-write and
+prefills ONLY the uncached tail (`prefill_tail_step`), counted in
+`serve/prefix/{hits,blocks_shared,prefill_tokens_saved}`. Both features
+are off by default, and then the k=1 decode and prefill are exactly
+the paths without them.
+
 Failure path: a decode dispatch that runs out of device memory
 (`torch.cuda.OutOfMemoryError`) evicts a victim and retries with the
-smaller batch; after max(3, max_batch) consecutive failures it
-re-raises. The pools are updated in place and survive a failed
-dispatch: a retry rewrites the same positions.
+smaller batch (a speculative round retries whole); after
+max(3, max_batch) consecutive failures it re-raises. The pools are
+updated in place and survive a failed dispatch: a retry rewrites the
+same positions.
 
 Telemetry: `serve/{requests,tokens,prefills,prefill_us,
 decode_dispatches,decode_us,evictions,oom_evictions,queue_depth,
 kv_blocks/*}` counters and the `serve/hist/{ttft_us,itl_us,
-queue_wait_us,e2e_us}` histograms (`paddle_tpu_torch.core.monitor`).
+queue_wait_us,e2e_us,accept_len}` histograms, `serve/spec/*` and
+`serve/prefix/*` (`paddle_tpu_torch.core.monitor`). A speculative round
+counts as one `serve/decode_dispatches` (its verify dispatch; its k
+draft dispatches come with it).
 """
 from __future__ import annotations
 
@@ -48,7 +75,8 @@ import torch
 
 from ...core import monitor as _cmon
 from ...device import resolve_device
-from ...incubate.nn.kernels.paged_attention import paged_decode_supported
+from ...incubate.nn.kernels.paged_attention import (MAX_QUERY_SLOTS,
+                                                    paged_decode_supported)
 from . import model_runner as _mr
 from .kv_cache import (DEFAULT_BLOCK_SIZE, DEFAULT_MAX_BATCH, NULL_BLOCK,
                        PagedKVCache)
@@ -71,7 +99,8 @@ class LLMEngine:
 
     def __init__(self, model, max_batch=DEFAULT_MAX_BATCH,
                  block_size=DEFAULT_BLOCK_SIZE, num_blocks=None,
-                 pool_bytes=None, dtype=None, use_kernel=True, device=None):
+                 pool_bytes=None, dtype=None, use_kernel=True, device=None,
+                 spec_k=1, draft_layers=None, prefix_cache=False):
         self.device = resolve_device(device)
         self.params, self.config = _mr.extract_params(model)
         if self.params["wte"].device != self.device:
@@ -83,10 +112,22 @@ class LLMEngine:
         self.max_batch = int(max_batch)
         self.max_seq_len = int(cfg.max_seq_len)
         head_dim = cfg.hidden_size // cfg.num_heads
+        # speculative width: 1 = off (the verify kernel unrolls its
+        # query slots, so k is capped at MAX_QUERY_SLOTS)
+        self.spec_k = max(1, min(MAX_QUERY_SLOTS, int(spec_k)))
+        self.draft_layers = 0
+        if self.spec_k > 1:
+            n_draft = int(draft_layers or 0)
+            if n_draft <= 0:             # default: half the depth
+                n_draft = max(1, cfg.num_layers // 2)
+            self.draft_layers = min(n_draft, cfg.num_layers)
+        self.prefix_cache = bool(prefix_cache)
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_heads, head_dim,
             block_size=block_size, num_blocks=num_blocks,
-            pool_bytes=pool_bytes, dtype=dtype, device=self.device)
+            pool_bytes=pool_bytes, dtype=dtype, device=self.device,
+            draft_layers=self.draft_layers,
+            prefix_cache=self.prefix_cache)
         self.block_size = self.cache.block_size
         self.use_kernel = bool(use_kernel)
         if self.use_kernel and self.device.type == "cuda" \
@@ -100,7 +141,13 @@ class LLMEngine:
         self.max_blocks_per_seq = math.ceil(
             self.max_seq_len / self.block_size)
         self.scheduler = Scheduler(self.cache, self.max_batch,
-                                   self.max_seq_len)
+                                   self.max_seq_len,
+                                   spec_tokens=self.spec_k)
+        self._draft_params = None
+        if self.spec_k > 1:
+            self._draft_params = _mr.draft_params(self.params,
+                                                  self.draft_layers)
+            _cmon.stat_set("serve/spec/k", self.spec_k)
         self._requests = {}          # req_id -> Request (all states)
         self._oom_streak = 0         # consecutive OOM'd dispatches
         # finished requests kept for result retrieval, bounded
@@ -209,24 +256,48 @@ class LLMEngine:
     def _prefill(self, req):
         """Causal forward over the (re)admitted request's context —
         prompt plus any generation an eviction preserved — writing its
-        K/V and sampling the next token."""
+        K/V and sampling the next token. On a prefix-cache hit the
+        leading `req.cached_tokens` (a block multiple, below the context
+        length) already sit in shared blocks and only the tail runs
+        (`prefill_tail_step`): its writes land in the request's private
+        blocks alone, since admission caps sharing below the full
+        context. Then the request's full blocks are published for later
+        sharers, and with speculation on the draft prefills its twin
+        pools through the same table."""
         ctx = req.prompt_ids + req.output_ids
         plen = len(ctx)
+        cached = req.cached_tokens
         padded = self.cache.blocks_for_tokens(plen) * self.block_size
-        ids = np.zeros((1, padded), np.int32)
-        ids[0, :plen] = ctx
+        ids = np.zeros((1, padded - cached), np.int32)
+        ids[0, :plen - cached] = ctx[cached:]
         table = self.cache.block_table(req.req_id,
                                        self.max_blocks_per_seq)
         s = req.sampling
         t0 = time.perf_counter()
-        tok = _mr.prefill_step(
-            self.params, self._to_device(ids), plen, self.cache.k,
-            self.cache.v, self._to_device(table), s.temperature, s.top_k,
-            _mr.seed_for(s.seed, plen), **self._fwd_kwargs())
-        tok = int(tok)               # waits for the device
+        ids_t, table_t = self._to_device(ids), self._to_device(table)
+        kw = self._fwd_kwargs()
+
+        def run(params, k_pool, v_pool, *sampling):
+            if cached:
+                return _mr.prefill_tail_step(params, ids_t, cached, plen,
+                                             k_pool, v_pool, table_t,
+                                             *sampling, **kw)
+            return _mr.prefill_step(params, ids_t, plen, k_pool, v_pool,
+                                    table_t, *sampling, **kw)
+
+        tok = int(run(self.params, self.cache.k, self.cache.v,
+                      s.temperature, s.top_k,
+                      _mr.seed_for(s.seed, plen)))  # waits for the device
+        if self._draft_params is not None:
+            run(self._draft_params, self.cache.k_draft, self.cache.v_draft,
+                0.0, 0, 0)
+            req._spec_gap = False
         _cmon.stat_add("serve/prefill_us",
                        int((time.perf_counter() - t0) * 1e6))
         _cmon.stat_add("serve/prefills", 1)
+        if cached:
+            _cmon.stat_add("serve/prefix/prefill_tokens_saved", cached)
+        self.cache.register_prefix(req.req_id, ctx)
         self.heartbeat = time.monotonic()
         return tok
 
@@ -267,20 +338,30 @@ class LLMEngine:
         return toks.cpu().numpy()    # waits for the device
 
     def _decode_batch(self, emitted):
-        """Grow tables, dispatch once, apply stop conditions. An
-        out-of-memory dispatch evicts a victim and retries with the
-        smaller batch; a persistent one re-raises after
-        max(3, max_batch) consecutive failed dispatches."""
-        # re-check membership per request: growing A can evict B
-        # later in the snapshot
+        """Grow tables, run one decode dispatch (or, with spec_k > 1, one
+        speculative round), apply stop conditions. An out-of-memory
+        dispatch evicts a victim and retries with the smaller batch; a
+        persistent one re-raises after max(3, max_batch) consecutive
+        failed dispatches."""
+        k = self.spec_k
+        # re-check membership per request: growing A can evict B later
+        # in the snapshot. A round lands up to k tokens, capped so a
+        # sequence near max_seq_len never asks for blocks past the
+        # table's width
         for req in list(self.scheduler.running.values()):
-            self.scheduler.ensure_capacity(req, new_tokens=1)
+            self.scheduler.ensure_capacity(req, new_tokens=min(
+                k, max(1, self.max_seq_len - req.context_len)))
         if not self.scheduler.running:
             return
         arrays = self._batch_arrays()
+        running = dict(self.scheduler.running)
         t0 = time.perf_counter()
         try:
-            toks = self._dispatch_decode(arrays)
+            if k > 1:
+                rows = self._spec_round(running, arrays)
+            else:
+                toks = self._dispatch_decode(arrays)
+                rows = {slot: [int(toks[slot])] for slot in running}
         except torch.cuda.OutOfMemoryError:
             self._oom_streak += 1
             if self._oom_streak > max(3, self.max_batch):
@@ -296,8 +377,116 @@ class LLMEngine:
         _cmon.stat_add("serve/decode_us",
                        int((time.perf_counter() - t0) * 1e6))
         _cmon.stat_add("serve/decode_dispatches", 1)
-        for slot, req in list(self.scheduler.running.items()):
-            self._emit(req, int(toks[slot]), emitted)
+        for slot, req in running.items():
+            for tok in rows[slot]:
+                self._emit(req, tok, emitted)
+                if req.finished:
+                    break
+
+    # -- speculative decode (spec_k > 1) -----------------------------
+    def _wide_tables(self, tables):
+        """Speculative dispatch tables carry ONE extra guaranteed-NULL
+        column: a near-`max_seq_len` slot whose position overflows the
+        real table width clamps into the null block instead of writing
+        into an at-cap sequence's own last block."""
+        wide = np.full((tables.shape[0], self.max_blocks_per_seq + 1),
+                       NULL_BLOCK, np.int32)
+        wide[:, :-1] = tables
+        return wide
+
+    def _draft_propose(self, running, wide, arrays):
+        """k batched draft decode dispatches -> k-1 proposed tokens per
+        running request ({slot: [tokens]}); `arrays` are the round's
+        `_batch_arrays()`.
+
+        Step 0 is the REALIGN step: a request whose previous round
+        accepted every proposal has one context position whose draft
+        K/V was never written (the verify dispatch writes only the
+        target's). Re-feeding ctx[-2] at its own position writes it;
+        requests without the gap re-feed ctx[-1] (step 1 writes the
+        same value again), keeping the dispatch one fixed shape. Steps
+        1..k-1 feed the pending token, then each proposal, every write
+        landing in the request's private tail; position-keyed seeds
+        make the proposals the same on every replay."""
+        b = self.max_batch
+        r_ids = np.zeros((b,), np.int32)
+        r_pos = np.zeros((b,), np.int32)
+        r_lens = np.ones((b,), np.int32)
+        for slot, req in running.items():
+            ctx = req.prompt_ids + req.output_ids
+            back = 2 if req._spec_gap else 1
+            r_ids[slot] = ctx[-back]
+            r_pos[slot] = len(ctx) - back
+            r_lens[slot] = len(ctx) - back + 1
+        kw = self._fwd_kwargs()
+        _mr.decode_logits(
+            self._draft_params, self._to_device(r_ids),
+            self._to_device(r_pos), self.cache.k_draft, self.cache.v_draft,
+            wide, self._to_device(r_lens), **kw)
+        drafts = {slot: [] for slot in running}
+        ids, pos, _, lens, temp, topk, seeds = (a.copy() for a in arrays)
+        for _ in range(self.spec_k - 1):
+            toks = _mr.decode_step(
+                self._draft_params, self._to_device(ids),
+                self._to_device(pos), self.cache.k_draft,
+                self.cache.v_draft, wide, self._to_device(lens), temp,
+                topk, seeds, **kw)
+            toks = toks.cpu().numpy()      # waits for the device
+            for slot, req in running.items():
+                d = int(toks[slot])
+                drafts[slot].append(d)
+                ids[slot] = d
+                pos[slot] += 1
+                lens[slot] += 1
+                seeds[slot] = _mr.seed_for(req.sampling.seed,
+                                           int(lens[slot]))
+        return drafts
+
+    def _dispatch_verify(self, running, drafts, wide, arrays):
+        """ONE target dispatch over all k slots: slot 0 the pending
+        token, slots 1.. the draft proposals. Returns [B, k] target
+        choices, each sampled with the position-keyed seed the k=1
+        engine would use."""
+        _, pos, _, lens, temp, topk, _ = arrays
+        b, k = self.max_batch, self.spec_k
+        v_ids = np.zeros((b, k), np.int32)
+        v_seeds = np.zeros((b, k), np.int64)
+        for slot, req in running.items():
+            ctx = req.prompt_ids + req.output_ids
+            v_ids[slot, 0] = ctx[-1]
+            v_ids[slot, 1:1 + len(drafts[slot])] = drafts[slot]
+            for t in range(k):
+                v_seeds[slot, t] = _mr.seed_for(req.sampling.seed,
+                                                len(ctx) + t)
+        toks = _mr.verify_step(
+            self.params, self._to_device(v_ids), self._to_device(pos),
+            self.cache.k, self.cache.v, wide, self._to_device(lens), temp,
+            topk, v_seeds, **self._fwd_kwargs())
+        return toks.cpu().numpy()    # waits for the device
+
+    def _spec_round(self, running, arrays):
+        """One speculative round: k draft dispatches propose, one verify
+        dispatch checks every proposal. Returns {slot: tokens to emit}:
+        the longest agreeing prefix of the proposals plus the first
+        corrected token — 1..k tokens, all the target's own
+        position-seeded choices."""
+        wide = self._to_device(self._wide_tables(arrays[2]))
+        drafts = self._draft_propose(running, wide, arrays)
+        toks = self._dispatch_verify(running, drafts, wide, arrays)
+        rows = {}
+        for slot, req in running.items():
+            ds, row = drafts[slot], toks[slot]
+            m = 0
+            while m < len(ds) and ds[m] == int(row[m]):
+                m += 1
+            _cmon.stat_add("serve/spec/proposed", len(ds))
+            _cmon.stat_add("serve/spec/accepted", m)
+            _cmon.hist_observe("serve/hist/accept_len", m + 1)
+            # every proposal accepted: one draft K/V position was never
+            # written; the next round's realign step writes it
+            req._spec_gap = (m == len(ds))
+            rows[slot] = [int(t) for t in row[:m + 1]]
+        return rows
 
     # -- token emission / stop conditions ----------------------------
     def _emit(self, req, token, emitted):
@@ -341,6 +530,8 @@ class LLMEngine:
             "used_blocks": self.cache.allocator.used_blocks,
             "oom_streak": self._oom_streak,
             "heartbeat_age_s": round(self.heartbeat_age(), 3),
+            "spec_k": self.spec_k,
+            "prefix_cache": self.prefix_cache,
         }
 
     def check_drained(self):

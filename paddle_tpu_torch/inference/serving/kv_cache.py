@@ -18,14 +18,30 @@ sees it because every read is masked by the request's context length.
 
 The pools are torch tensors the serving code updates IN PLACE
 (`index_put_` on a layer's slice): there is no buffer donation to
-manage. The allocator is host code, unchanged from the JAX package
-(refcounts and the content-hash index included; the port's engine does
-not share blocks yet). Pool sizing comes from the `pool_bytes` or
-`num_blocks` argument or, on the card, from `torch.cuda.mem_get_info()`'s
-free memory.
+manage. The allocator is host code, unchanged from the JAX package.
+Pool sizing comes from the `pool_bytes` or `num_blocks` argument or, on
+the card, from `torch.cuda.mem_get_info()`'s free memory.
+
+Speculative decoding (`draft_layers` > 0) adds twin pools `k_draft` /
+`v_draft` for the draft model's first `draft_layers` layers. They are
+addressed through the SAME allocator and tables, so one refcount covers
+a block's target and draft K/V; they stay outside the pool budget, as
+in the JAX package.
+
+Prefix caching (`prefix_cache=True`, copy-on-write sharing): FULL
+immutable prompt blocks are published in the allocator's content-hash
+index under a chain hash (`prefix_hashes`: each block's digest folds in
+its predecessor's, so a hit at depth i proves the whole prefix matches).
+`admit()` maps a new request's cached prefix blocks into its table by
+raising their refcounts, with no data movement, and allocates only the
+uncached remainder; the engine then prefills only the tail. Sharing is
+capped below the full context, so every write lands in a private block
+(`check_cow` enforces it). A block returns to the free list, and leaves
+the index, only when its LAST reference goes.
 """
 from __future__ import annotations
 
+import hashlib
 import math
 from collections import deque
 
@@ -37,7 +53,7 @@ from ...device import resolve_device
 
 __all__ = ["BlockAllocator", "PagedKVCache", "NULL_BLOCK",
            "DEFAULT_BLOCK_SIZE", "DEFAULT_MAX_BATCH", "auto_num_blocks",
-           "bytes_per_block"]
+           "bytes_per_block", "prefix_hashes"]
 
 NULL_BLOCK = 0  # reserved garbage-dump block, never owned
 
@@ -45,6 +61,26 @@ DEFAULT_BLOCK_SIZE = 16
 DEFAULT_MAX_BATCH = 8
 # CPU fallback pool budget — big enough for the tests' tiny models
 _DEF_POOL_BYTES = 64 << 20
+
+
+def prefix_hashes(tokens, block_size, n_blocks=None):
+    """Chain hashes for the leading FULL blocks of a token sequence:
+    digest(i) = sha256(digest(i-1) || tokens of block i as int64). The
+    chain makes a depth-i hit prove the entire prefix matches and keeps
+    repeated identical chunks within one prompt distinct. The digests
+    are the JAX package's (kv_cache.py:121-137), byte for byte."""
+    if n_blocks is None:
+        n_blocks = len(tokens) // block_size
+    out = []
+    h = b"\x00" * 32
+    for i in range(n_blocks):
+        m = hashlib.sha256()
+        m.update(h)
+        m.update(np.asarray(tokens[i * block_size:(i + 1) * block_size],
+                            np.int64).tobytes())
+        h = m.digest()
+        out.append(h)
+    return out
 
 
 def bytes_per_block(num_layers, block_size, n_head, head_dim, dtype):
@@ -229,13 +265,16 @@ class PagedKVCache:
 
     def __init__(self, num_layers, num_heads, head_dim,
                  block_size=DEFAULT_BLOCK_SIZE, num_blocks=None,
-                 pool_bytes=None, dtype=None, device=None):
+                 pool_bytes=None, dtype=None, device=None, draft_layers=0,
+                 prefix_cache=False):
         self.device = resolve_device(device)
         self.block_size = int(block_size)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype or torch.float32
+        self.draft_layers = int(draft_layers)
+        self.prefix_cache = bool(prefix_cache)
         per_block = bytes_per_block(num_layers, self.block_size,
                                     num_heads, head_dim, self.dtype)
         if num_blocks is None:
@@ -246,18 +285,82 @@ class PagedKVCache:
                  self.num_heads, self.head_dim)
         self.k = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        # the draft's twin pools: same blocks, same tables
+        self.k_draft = self.v_draft = None
+        if self.draft_layers:
+            dshape = (self.draft_layers,) + shape[1:]
+            self.k_draft = torch.zeros(dshape, dtype=self.dtype,
+                                       device=self.device)
+            self.v_draft = torch.zeros(dshape, dtype=self.dtype,
+                                       device=self.device)
         self.allocator = BlockAllocator(self.num_blocks)
 
     # -- geometry ----------------------------------------------------
     def blocks_for_tokens(self, n_tokens):
         return max(1, math.ceil(n_tokens / self.block_size))
 
-    def can_admit(self, n_tokens, lookahead_blocks=1):
-        """Admission control: room for the prompt's blocks plus a
-        decode lookahead, so a request admitted now can generate at
-        least one block of tokens before pool pressure."""
-        return self.allocator.can_alloc(
-            self.blocks_for_tokens(n_tokens) + lookahead_blocks)
+    def can_admit(self, n_tokens, lookahead_blocks=1, cached_blocks=0):
+        """Admission control: room for the prompt's blocks (less any
+        already cached) plus a decode lookahead, so a request admitted
+        now can generate at least one block of tokens before pool
+        pressure. Speculative decoding passes a k-aware lookahead."""
+        need = max(0, self.blocks_for_tokens(n_tokens) - cached_blocks) \
+            + lookahead_blocks
+        return self.allocator.can_alloc(need)
+
+    # -- prefix cache ------------------------------------------------
+    def probe_prefix(self, tokens):
+        """(cached_blocks, block_ids): the longest chain of leading FULL
+        blocks already published, capped BELOW the full context so the
+        tail prefill always has >= 1 real token to run (and a row to
+        sample from)."""
+        if not self.prefix_cache or not len(tokens):
+            return 0, []
+        cap = max(0, (len(tokens) - 1) // self.block_size)
+        ids = []
+        for digest in prefix_hashes(tokens, self.block_size, cap):
+            b = self.allocator.lookup_hash(digest)
+            if b is None:
+                break
+            ids.append(b)
+        return len(ids), ids
+
+    def admit(self, owner, tokens):
+        """Give `owner` the blocks for its context at once: cached
+        prefix blocks map copy-on-write (leading the table, at their
+        token positions), only the remainder comes off the free list.
+        Returns the cached TOKEN count (0 when the cache is off or
+        cold), or None when the pool cannot cover the remainder, with
+        nothing granted."""
+        total = self.blocks_for_tokens(len(tokens))
+        n_shared, shared = self.probe_prefix(tokens)
+        fresh = total - n_shared
+        if not self.allocator.can_alloc(fresh):
+            return None
+        for b in shared:
+            self.allocator.share(owner, b)
+        if fresh:
+            self.allocator.alloc(owner, fresh)
+        if n_shared:
+            _cmon.stat_add("serve/prefix/hits", 1)
+            _cmon.stat_add("serve/prefix/blocks_shared", n_shared)
+        return n_shared * self.block_size
+
+    def register_prefix(self, owner, tokens):
+        """Publish `owner`'s full prompt blocks (written, immutable from
+        here on) in the content index, so later admissions can share
+        them. Blocks already published, and digests already claimed,
+        keep their mapping. Returns how many blocks were newly
+        published."""
+        if not self.prefix_cache:
+            return 0
+        blocks = self.allocator.owned(owner)
+        full = min(len(tokens) // self.block_size, len(blocks))
+        n = 0
+        for i, digest in enumerate(
+                prefix_hashes(tokens, self.block_size, full)):
+            n += self.allocator.register_hash(blocks[i], digest)
+        return n
 
     def block_table(self, owner, max_blocks):
         """Padded int32 table row for one request: its owned blocks in

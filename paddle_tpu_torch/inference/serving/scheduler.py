@@ -7,16 +7,22 @@ the scheduler's job is keeping its slots full — requests join and leave
 BETWEEN dispatches, never inside one:
 
   * FIFO admission: `add()` queues, `schedule()` admits while a batch
-    slot AND the KV pool's admission check (prompt blocks plus one
-    decode lookahead block) both say yes.
+    slot AND the KV pool's admission check (prompt blocks not already
+    cached, plus a decode lookahead of ceil(k / block_size) blocks for
+    a speculative width k) both say yes. With prefix caching the cache
+    maps the request's cached prefix blocks copy-on-write
+    (`PagedKVCache.admit`) and `Request.cached_tokens` tells the
+    engine how much of the context to skip.
   * Block growth: a running request crossing a block boundary asks
-    `ensure_capacity()` for its next block before the dispatch that
-    writes into it.
+    `ensure_capacity()` for its next block(s) before the dispatch that
+    writes into them (up to k tokens ahead under speculation).
   * Preemption: when the pool can't grow a running request (or the
     dispatch runs out of memory), the YOUNGEST running request is
     evicted: its blocks free immediately, its prompt + generated-so-far
     re-queues at the FRONT, and a later admission re-prefills it.
     Sampling seeds are keyed by position, so the replay is token-exact.
+    Eviction drops only the request's own references: a block it shares
+    with another request stays live for that one.
 
 The JAX scheduler's SLO ring (deadlines, priorities, queue bound and
 load shedding) and its static-batching twin are not ported yet.
@@ -27,6 +33,7 @@ queue-wait / e2e histograms.
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from collections import deque
 
@@ -118,6 +125,13 @@ class Request:
         self.output_ids = []
         self.slot = None           # decode batch slot while RUNNING
         self.evictions = 0
+        # tokens covered by shared prefix blocks at the LAST admission:
+        # the engine's prefill skips them (tail-only prefill)
+        self.cached_tokens = 0
+        # speculative-decode realign flag: True after a round accepted
+        # every proposal (one draft-KV position is then unwritten; the
+        # next round's realign step writes it)
+        self._spec_gap = False
         self.token_times = []      # perf_counter per emitted token
         # arrival on the token_times clock: TTFT, queue wait, e2e
         self.arrival_perf = time.perf_counter()
@@ -146,11 +160,17 @@ class Scheduler:
     """Admission/eviction policy over one PagedKVCache + a fixed
     decode batch width."""
 
-    def __init__(self, cache, max_batch, max_seq_len):
+    def __init__(self, cache, max_batch, max_seq_len, spec_tokens=1):
         self.cache = cache
         self.max_batch = int(max_batch)
         self.max_seq_len = int(max_seq_len)
-        self._lookahead = 1        # decode lookahead, in blocks
+        # speculative width: one verify dispatch can append up to
+        # `spec_tokens` tokens, so admission's decode lookahead and
+        # ensure_capacity's growth both cover k, or the verify dispatch
+        # right after an admission evicts what was just admitted
+        self.spec_tokens = max(1, int(spec_tokens))
+        self._lookahead = max(          # decode lookahead, in blocks
+            1, math.ceil(self.spec_tokens / cache.block_size))
         self.waiting = deque()
         self.running = {}          # slot -> Request
         self._admit_seq = itertools.count()
@@ -194,12 +214,18 @@ class Scheduler:
         slots = self._free_slots()
         while slots and self.waiting:
             req = self.waiting[0]
+            ctx_ids = req.prompt_ids + req.output_ids
+            cached_blocks, _ = self.cache.probe_prefix(ctx_ids)
             if not self.cache.can_admit(
-                    req.context_len, lookahead_blocks=self._lookahead):
+                    req.context_len, lookahead_blocks=self._lookahead,
+                    cached_blocks=cached_blocks):
                 break
             self.waiting.popleft()
-            nblocks = self.cache.blocks_for_tokens(req.context_len)
-            self.cache.allocator.alloc(req.req_id, nblocks)
+            cached = self.cache.admit(req.req_id, ctx_ids)
+            if cached is None:     # the pool cannot cover the remainder
+                self._requeue_front(req)
+                break
+            req.cached_tokens = cached
             req.state = RUNNING
             req.slot = slots.pop(0)
             self.running[req.slot] = req
@@ -218,14 +244,18 @@ class Scheduler:
         return admitted
 
     # -- block growth / preemption -----------------------------------
-    def ensure_capacity(self, request, new_tokens=1):
+    def ensure_capacity(self, request, new_tokens=None):
         """Grow the request's table to cover its next `new_tokens`
-        tokens, evicting other requests under pool pressure. False
-        when the request itself had to be evicted — or was ALREADY
-        evicted by an earlier grow in the same pass (growing a request
-        no dispatch covers would strand its new blocks)."""
+        tokens (default: the speculative width, since a verify dispatch
+        may land up to k at once), evicting other requests under pool
+        pressure. False when the request itself had to be evicted — or
+        was ALREADY evicted by an earlier grow in the same pass
+        (growing a request no dispatch covers would strand its new
+        blocks)."""
         if self.running.get(request.slot) is not request:
             return False
+        if new_tokens is None:
+            new_tokens = self.spec_tokens
         need = self.cache.blocks_for_tokens(
             request.context_len + new_tokens)
         while len(self.cache.allocator.owned(request.req_id)) < need:

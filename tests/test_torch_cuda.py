@@ -449,3 +449,125 @@ def test_optimizer_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda):
         ok.fused_sgd([p], [p.cpu()], [None], lr=0.1)
     with pytest.raises(TypeError, match="master"):
         ok.fused_sgd([p], [p], [p.clone()], lr=0.1)
+
+
+def _multi_inputs(cuda, dtype, t, head_dim, seed=0):
+    """q [4, T, H, D], pools, tables of 5 real columns plus the NULL
+    column, and contexts 1, 9, one whose deepest slot ends at the last
+    real column, and 17."""
+    rng = np.random.RandomState(seed)
+    b, h, bs, n, maxb = 4, 4, 8, 24, 5
+    q, kp, vp = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .to(cuda, dtype)
+                 for shape in ((b, t, h, head_dim), (n, bs, h, head_dim),
+                               (n, bs, h, head_dim)))
+    bt = np.concatenate([rng.randint(1, n, (b, maxb)),
+                         np.zeros((b, 1), int)], axis=1).astype(np.int32)
+    lens = np.array([1, 9, maxb * bs - t + 1, 17], np.int32)
+    return (q, kp, vp, torch.from_numpy(bt).to(cuda),
+            torch.from_numpy(lens).to(cuda))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("t", range(1, 9))
+def test_paged_attention_multi_kernel(cuda, dtype, tol, head_dim, t):
+    q, kp, vp, bt, lens = _multi_inputs(cuda, dtype, t, head_dim)
+    before = kernels.launches()["paged_attention_multi"]
+    out = pa.paged_attention_multi(q, kp, vp, bt, lens, sm_scale=0.125)
+    ref = pa.paged_attention_multi_reference(q, kp, vp, bt, lens,
+                                             sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert kernels.launches()["paged_attention_multi"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    atol = tol if dtype == torch.float32 else tol * float(ref.abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=atol)
+    # slot s reads no position at or past ctx0 + s (nor any block no
+    # table maps): NaN there leaves slot s bit-identical, and at the
+    # deepest slot the whole output
+    tb, lb = bt.cpu().numpy(), lens.cpu().numpy()
+    nan = torch.full_like(kp, float("nan"))
+    for s in range(t):
+        live = torch.zeros(kp.shape[:2], dtype=torch.bool)
+        for b in range(len(lb)):
+            for pos in range(lb[b] + s):
+                live[tb[b, pos // 8], pos % 8] = True
+        live = live.to(cuda)[:, :, None, None]
+        out2 = pa.paged_attention_multi(q, torch.where(live, kp, nan),
+                                        torch.where(live, vp, nan), bt, lens,
+                                        sm_scale=0.125)
+        assert torch.equal(out[:, s], out2[:, s]), s
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_paged_attention_multi_slot_t_is_the_decode_kernel(cuda, dtype,
+                                                           head_dim):
+    """Slot t equals the decode wrapper (the kernel's one-slot launch)
+    run at context_lens + t, bit for bit: the same warp partition,
+    update and merge order in every instantiation."""
+    t = 8
+    q, kp, vp, bt, lens = _multi_inputs(cuda, dtype, t, head_dim, seed=1)
+    out = pa.paged_attention_multi(q, kp, vp, bt, lens, sm_scale=0.125)
+    for s in range(t):
+        one = pa.paged_attention(q[:, s].contiguous(), kp, vp, bt, lens + s,
+                                 sm_scale=0.125)
+        assert torch.equal(out[:, s], one), s
+
+
+def test_paged_attention_multi_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda):
+    q, kp, vp, bt, lens = _multi_inputs(cuda, torch.float32, 9, 64)
+    with pytest.raises(ValueError, match="T=9"):
+        pa.paged_attention_multi(q, kp, vp, bt, lens)
+    q = q[:, :4].contiguous()
+    with pytest.raises(TypeError, match="one dtype"):
+        pa.paged_attention_multi(q, kp.bfloat16(), vp, bt, lens)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_attention_multi(q, kp, vp, bt.long(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention_multi(q.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), kp, vp, bt, lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attention_multi(q[..., :32].contiguous(),
+                                 kp[..., :32].contiguous(),
+                                 vp[..., :32].contiguous(), bt, lens)
+
+
+def test_speculative_prefix_engine_on_card(cuda):
+    """A 2-layer GPT (head_dim 64) served with spec_k=4 and prefix
+    caching on the card gives the k=1, cache-off engine's tokens, and
+    the verify dispatches went through the multi-query kernel."""
+    from paddle_tpu_torch.core import monitor as cmon
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=2, ffn_hidden=256, max_seq_len=128,
+                    initializer_range=0.35)
+    model = GPTForCausalLM(cfg, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    rng = np.random.RandomState(0)
+    prefix = list(rng.randint(1, 256, 32))
+    prompts = [prefix + list(rng.randint(1, 256, n)) for n in (3, 17, 40, 9)]
+    sp = SamplingParams(max_new_tokens=24)
+    want = LLMEngine(model, max_batch=4, block_size=16, num_blocks=64,
+                     device=cuda).generate(prompts, sampling=sp)
+    eng = LLMEngine(model, max_batch=4, block_size=16, num_blocks=64,
+                    device=cuda, spec_k=4, prefix_cache=True)
+    hits = cmon.stat_get("serve/prefix/hits")
+    rounds = cmon.stat_get("serve/decode_dispatches")
+    kernels.reset_launches()
+    got = eng.generate(prompts, sampling=sp)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    rounds = cmon.stat_get("serve/decode_dispatches") - rounds
+    assert got == want
+    assert cmon.stat_get("serve/prefix/hits") - hits == 3
+    assert rounds > 0
+    assert counts["paged_attention_multi"] == 2 * rounds
+    assert counts["paged_attention"] == 1 * 4 * rounds   # 1-layer draft
+    assert eng.check_drained() == {}
+    assert eng.cache.allocator.used_blocks == 0
