@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Planted faults in the bf16 flash-attention kernels, the multi-tensor
-optimizer kernel and the multi-query paged-attention kernel, and which
-of `chip_smoke.py`'s checks catch them.
+optimizer kernel, the multi-query paged-attention kernel and the int8
+quantize kernel, and which of `chip_smoke.py`'s checks catch them.
 
     python3 chip_mutants.py
 
@@ -19,7 +19,9 @@ multi-query mutants let slot t see one token too many (ctx0 + t + 1),
 make the deepest slot skip the last live group of 8 tokens, and weight
 the rows past slot t's context (which later slots read) by zero instead
 of skipping them: exact zeros on finite data, so only the per-slot NaN
-poison check can see it.
+poison check can see it. The two quantize mutants take the abs-max with
+fmaxf alone, which drops a NaN, so a NaN block gets a finite scale, and
+round the codes with truncf in place of rintf.
 
 For the unmutated library (the control) and each flash mutant, three
 checks:
@@ -42,9 +44,15 @@ For the control and each multi-query mutant, one check:
              plain version over T 1/2/4/8, two head widths, f32 and
              bf16, ragged contexts, with the per-slot NaN poison check;
              the verdict names the check that failed first
+For the control and each quantize mutant, one check:
+  compress   chip_smoke's phase 16 check: quantize_i8 and dequantize_i8
+             vs their plain versions, bit for bit, over blocks 128 / 256
+             / 1024, 1-4096 blocks, zero, half-even, subnormal, NaN and
+             Inf blocks
 Exits non-zero when the control fails a check, a flash mutant passes the
-per-row flash check, an optimizer mutant passes the optim check, or a
-multi-query mutant passes the multi check.
+per-row flash check, an optimizer mutant passes the optim check, a
+multi-query mutant passes the multi check, or a quantize mutant passes
+the compress check.
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ import torch
 FLASH = "flash_attention.cu"
 OPTIM = "optim.cu"
 PAGED = "paged_attention.cu"
+COMPRESS = "compress.cu"
 # (name, source in csrc/, [(unique text of the source, replacement)])
 MUTANTS = [
     ("fwd: KV tile 0 skipped for query rows >= 512", FLASH,
@@ -128,6 +137,13 @@ MUTANTS = [
        "        const float p = expf(__fsub_rn(s[u], m_new));\n",
        "        const float p = u < n_valid ? expf(__fsub_rn(s[u], m_new))"
        " : 0.f;\n")]),
+    ("compress: abs-max by fmaxf alone (a NaN block gets a finite scale)",
+     COMPRESS,
+     [("  const float scale = (!nan && m > 0.f) ? __fdiv_rn(m, 127.f) : 1.f;\n",
+       "  const float scale = (m > 0.f) ? __fdiv_rn(m, 127.f) : 1.f;\n")]),
+    ("compress: codes rounded by truncf, not rintf", COMPRESS,
+     [("  const float r = rintf(__fdiv_rn(x, scale));\n",
+       "  const float r = truncf(__fdiv_rn(x, scale));\n")]),
 ]
 
 
@@ -242,6 +258,16 @@ def multi_check(dev):
         return f"FAILS ({e})"
 
 
+def compress_check(dev):
+    import chip_smoke as cs
+
+    try:
+        cs.compress_checks(dev)
+        return "passes"
+    except AssertionError as e:
+        return f"FAILS ({e})"
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_mutants: no CUDA device", file=sys.stderr)
@@ -275,6 +301,8 @@ def main():
                 res["optim"] = optim_check(named, grads)
             if src in (None, PAGED):
                 res["multi"] = multi_check(dev)
+            if src in (None, COMPRESS):
+                res["compress"] = compress_check(dev)
         finally:
             K._lib = control
         for check, verdict in res.items():
@@ -286,11 +314,13 @@ def main():
             ok &= res["per-row"].startswith("FAILS")
         elif src == OPTIM:
             ok &= res["optim"].startswith("FAILS")
-        else:
+        elif src == PAGED:
             ok &= res["multi"].startswith("FAILS")
+        else:
+            ok &= res["compress"].startswith("FAILS")
     print(f"[mutant] {'every' if ok else 'NOT every'} mutant fails its "
-          "check (per-row flash, optim, multi) and the control passes every "
-          "check")
+          "check (per-row flash, optim, multi, compress) and the control "
+          "passes every check")
     return 0 if ok else 1
 
 

@@ -76,11 +76,39 @@ without them. Phases, each printing one line (or a few):
               prefill (wall vs device busy); then spec_k=4 +
               prefix caching on a pool that forces evictions: tokens
               equal k=1, zero leaks, no block left used
+ 16. compress blockwise int8 quantize / dequantize kernels vs their plain
+              versions, bit for bit (codes, scales, outputs): blocks 128,
+              256 and 1024, 1 to 4096 blocks, an all-zero block (scale 1,
+              output 0), exact k + 0.5 multiples of the scale (half to
+              even), +-absmax (code +-127), subnormals, a block whose
+              scale rounds to 0, NaN (scale 1, code 0) and +-Inf (scale
+              inf) blocks; times at GPT-2 345M's packed gradient
+              (354,871,296 f32, block 1024) against the bound, and
+              dequantize against torch.mul(codes, scales), the one
+              library call that computes it (bit-identical)
+ 17. dp       data-parallel training over torch.distributed: first
+              whether NCCL takes two ranks on one card (it refuses:
+              "Duplicate GPU detected"), then 2 ranks spawned with gloo,
+              named explicitly (gloo stages CUDA tensors through the
+              host), each GPT-2 345M at full width and depth (bf16 O2,
+              AdamW multi_precision, seed 0), global batch B 4 x S 1024,
+              through DistributedTrainStepCompiler under comm_compress
+              "int8:ef" and its "fp32" twin, 4 steps each: the loss
+              falls, every int8:ef loss within 2% of the twin's, the
+              ranks' parameters bit-identical, wire bytes <= 0.3 x the
+              twin's, exactly 2 quantize and 4 dequantize launches a
+              step a rank; step ms, tokens/s, the allreduce's share of
+              the step (host clock), peak memory a rank; one more
+              int8:ef step profiled on rank 0 (the int8 kernels'
+              device ms within the step); then
+              all_reduce(compress="int8") on 1M elements a rank, bit for
+              bit against the same call on CPU copies (the plain path)
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
-kernel's from phase 14, the other serving kernels' from phase 5), error
-and times, the nvidia-smi line, and as the LAST line
+kernel's from phase 14, the compress kernels' from rank 0 of phase 17's
+int8:ef run, the other serving kernels' from phase 5), error and times,
+the nvidia-smi line, and as the LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 fp32 matrix products run in full f32: TF32 is switched off for matmul
@@ -94,6 +122,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -995,7 +1024,8 @@ def _train_launches(n_layers):
             "fused_layer_norm": 2 * n_layers + 1,
             "fused_layer_norm_bwd": 2 * n_layers + 1,
             "paged_attention": 0, "paged_attention_multi": 0,
-            "fused_sgd": 0, "fused_momentum": 0}
+            "fused_sgd": 0, "fused_momentum": 0, "quantize_i8": 0,
+            "dequantize_i8": 0}
 
 
 def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
@@ -2121,6 +2151,426 @@ def phase_prefix(dev, model, smi, lens=SERVE_LENS,
         f"drained, 0 leaks, 0 blocks used; {t_all:.3f} s")
 
 
+# -- phase 16 ----------------------------------------------------------
+COMPRESS_ELEMS = 354871296   # GPT-2 345M's packed gradient
+COMPRESS_BLOCK = 1024
+
+
+def compress_cases(rng, block, nb):
+    """(tag, flat f32 numpy) buffers of nb blocks: randn x 3 with, where
+    nb allows, an all-zero block, a block of exact k + 0.5 multiples of
+    its scale with +-absmax (scale exactly 1), a subnormal block, a
+    block whose absmax / 127 rounds to 0, a NaN block, an Inf block and
+    a -Inf block; and each special block alone."""
+    x = (3 * rng.randn(nb, block)).astype(np.float32)
+    special = []
+    z = np.zeros(block, np.float32)
+    special.append(("zero", z))
+    h = (rng.randint(-126, 126, block) + 0.5).astype(np.float32)
+    h[:2] = [127.0, -127.0]
+    special.append(("half-even", h))
+    special.append(("subnormal", (rng.randn(block) * 1e-40).astype(
+        np.float32)))
+    tiny = np.zeros(block, np.float32)
+    tiny[3] = np.float32(1.4e-45)
+    special.append(("scale-0", tiny))
+    for tag, v in (("nan", np.nan), ("inf", np.inf), ("-inf", -np.inf)):
+        b = (3 * rng.randn(block)).astype(np.float32)
+        b[block // 3] = v
+        special.append((tag, b))
+    for i, (_, b) in enumerate(special[:max(0, nb - 1)]):
+        x[1 + i] = b
+    cases = [(f"random+specials nb={nb}", x.reshape(-1))]
+    if nb == 1:
+        cases += [(tag, b) for tag, b in special]
+    return cases
+
+
+def _bits_equal(a, b):
+    """Same NaN positions, every other value bit for bit."""
+    a, b = a.float(), b.float()
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bool(torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32)))
+
+
+def compress_checks(dev, blocks=(128, 256, 1024), sizes=(1, 3, 64, 4096)):
+    """Kernels #11 and #12 vs their plain versions, bit for bit; returns
+    the number of buffers checked."""
+    from paddle_tpu_torch.distributed.compress import kernels as K
+
+    rng = np.random.RandomState(16)
+    n = 0
+    for block in blocks:
+        for nb in sizes:
+            for tag, x in compress_cases(rng, block, nb):
+                t = f"compress block={block} {tag}"
+                xd = torch.from_numpy(x).to(dev)
+                q, s = K.quantize_blocks(xd, block, "int8")
+                q0, s0 = K.quantize_ref(xd, block, "int8")
+                if not (torch.equal(q, q0) and _bits_equal(s, s0)):
+                    raise AssertionError(
+                        f"{t}: quantize_i8 differs from its plain version "
+                        f"({int((q != q0).sum())} codes, "
+                        f"{int((s != s0).sum())} scales)")
+                d = K.dequantize_blocks(q, s, block, "int8")
+                if not _bits_equal(d, K.dequantize_ref(q, s, block, "int8")):
+                    raise AssertionError(
+                        f"{t}: dequantize_i8 differs from its plain version")
+                blocks_x = xd.view(-1, block)
+                sc, qb = s.cpu(), q.view(-1, block).cpu()
+                for i in range(blocks_x.shape[0]):
+                    row = x.reshape(-1, block)[i]
+                    if not row.any():
+                        assert sc[i] == 1 and not d.view(-1, block)[i].any()
+                    elif np.isnan(row).any():
+                        assert sc[i] == 1 and qb[i, block // 3] == 0
+                    elif np.isinf(row).any():
+                        assert torch.isinf(sc[i])
+                n += 1
+    return n
+
+
+def phase_compress(dev, smi, iters=20):
+    from paddle_tpu_torch.distributed.compress import kernels as K
+
+    n_cases = compress_checks(dev)
+    log("compress", f"quantize_i8 / dequantize_i8 vs plain, blocks 128 / 256 "
+        f"/ 1024, 1-4096 blocks, zero / half-even + +-absmax / subnormal / "
+        f"scale-0 / NaN / +-Inf blocks: {n_cases} buffers, codes, scales "
+        "and outputs bit-identical; zero block scale 1 and output 0, NaN "
+        "block scale 1 and code 0, Inf block scale inf")
+    # times at GPT-2 345M's packed gradient, block 1024. The buffers
+    # (1.4 GB in, 0.35 GB out) are far past the 50 MB L2, so every call
+    # reads cold memory without a flush.
+    n, blk = COMPRESS_ELEMS, COMPRESS_BLOCK
+    nb = n // blk
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(n, device=dev, generator=g)
+    q, s = K.quantize_blocks(x, blk, "int8")
+    q0, s0 = K.quantize_ref(x, blk, "int8")
+    err_q = 0.0 if torch.equal(q, q0) and torch.equal(s, s0) else math.inf
+    d = K.dequantize_blocks(q, s, blk, "int8")
+    err_d = max_err(d, K.dequantize_ref(q, s, blk, "int8"))
+    del q0, s0, d
+    if err_q or err_d:
+        raise AssertionError(f"compress at {n} elements: kernel vs plain "
+                             f"differs ({err_q}, {err_d})")
+    torch.cuda.empty_cache()
+    kq_ms, kq_host = time_ms(lambda: K.quantize_blocks(x, blk, "int8"), iters)
+    pq_ms, _ = time_ms(lambda: K.quantize_ref(x, blk, "int8"),
+                       max(1, iters // 4))
+    kd_ms, kd_host = time_ms(lambda: K.dequantize_blocks(q, s, blk, "int8"),
+                             iters)
+    pd_ms, _ = time_ms(lambda: K.dequantize_ref(q, s, blk, "int8"),
+                       max(1, iters // 4))
+
+    # the one PyTorch call that computes dequantize_i8: int8 x f32
+    # promotes to f32, the conversion is exact and the product rounds once
+    def library():
+        return torch.mul(q.view(-1, blk), s.view(-1, 1))
+
+    if not _bits_equal(library().view(-1),
+                       K.dequantize_ref(q, s, blk, "int8")):
+        raise AssertionError("compress: torch.mul(codes, scales) differs "
+                             "from dequantize_ref")
+    ld_ms, _ = time_ms(library, iters)
+    del x, q, s
+    torch.cuda.empty_cache()
+    nbytes = 4 * n + n + 4 * nb     # f32 in, int8 + f32 scales out (and back)
+    # quantize: |x|, max, divide, round, two clamps an element; dequantize:
+    # one multiply
+    bq_ms, bq_by = bound_ms(nbytes, 6 * n)
+    bd_ms, bd_by = bound_ms(nbytes, n)
+    for name, k_ms, p_ms, b_ms, b_by, host, lib in (
+            ("quantize_i8", kq_ms, pq_ms, bq_ms, bq_by, kq_host,
+             "no single PyTorch call computes the blockwise abs-max scale "
+             "and the codes together (library none)"),
+            ("dequantize_i8", kd_ms, pd_ms, bd_ms, bd_by, kd_host,
+             f"library torch.mul(codes, scales) {ld_ms:.5f} ms, "
+             "bit-identical")):
+        log("compress", f"[{smi}] {name}, {n} elements, block {blk}, cold "
+            f"L2: kernel {k_ms:.5f} ms | plain {p_ms:.5f} ms | bound "
+            f"{b_ms:.5f} ms ({b_by}, {nbytes / 1e9:.3f} GB) = "
+            f"{nbytes / k_ms / 1e9:.3f} TB/s, {100 * b_ms / k_ms:.1f}% of "
+            f"the bound; {lib}; host ms per call: kernel wrapper "
+            f"{host:.5f}")
+    common = {"route": "cuda", "source": "paddle_tpu_torch/csrc/compress.cu"}
+    return [dict(common, name="quantize_i8", max_abs_err=err_q,
+                 replaces="paddle_tpu/distributed/compress/kernels.py:122",
+                 ms=kq_ms, plain_ms=pq_ms, bound_ms=bq_ms, bound_by=bq_by,
+                 library_ms=None),
+            dict(common, name="dequantize_i8", max_abs_err=err_d,
+                 replaces="paddle_tpu/distributed/compress/kernels.py:142",
+                 ms=kd_ms, plain_ms=pd_ms, bound_ms=bd_ms, bound_by=bd_by,
+                 library_ms=ld_ms)]
+
+
+# -- phase 17 ----------------------------------------------------------
+DP_RANKS = 2
+DP_STEPS = 4
+DP_SPECS = ("fp32", "int8:ef")
+DP_ALLREDUCE_ELEMS = 1 << 20
+
+
+def _nccl_rank(out_dir):
+    """One NCCL all_reduce; a refusal's message goes to nccl_r<rank>.txt
+    and the rank exits 1 (without a traceback)."""
+    import torch.distributed as dist
+
+    try:
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+    except dist.DistBackendError as e:
+        with open(os.path.join(out_dir, f"nccl_r{dist.get_rank()}.txt"),
+                  "w") as f:
+            f.write(str(e))
+        sys.exit(1)
+
+
+def _profiled_step(step, ids, labels, sync):
+    """One more step under torch.profiler: its wall ms, the device ms of
+    all its device work, of the host<->device copies (gloo's staging)
+    and [launches, device ms] of each int8 kernel. The device numbers
+    are 0 when the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    by = {"quantize_i8": [0, 0.0], "dequantize_i8": [0, 0.0]}
+    busy = copies = 0.0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(ids, labels))
+        sync()
+        wall = time.perf_counter() - t0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy += ms
+        if e.name.startswith("Memcpy"):
+            copies += ms
+        for k in ("dequantize_i8", "quantize_i8"):
+            if f"{k}_kernel" in e.name:
+                by[k][0] += 1
+                by[k][1] += ms
+                break
+    return {"wall_ms": wall * 1e3, "busy_ms": busy, "copies_ms": copies,
+            "kernels": by}
+
+
+def _dp_rank(out_dir, steps, device):
+    """One rank of phase 17 (spawned: gloo, the one card; `device` "cpu"
+    only to rehearse the phase off the card). Writes dp_r<rank>.json."""
+    import hashlib
+
+    from paddle_tpu_torch.core import monitor as cmon
+    from paddle_tpu_torch.distributed import ReduceOp, all_reduce, get_rank
+    from paddle_tpu_torch.distributed import compress as C
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.jit.distributed import DistributedTrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rank = get_rank()
+    on_card = device == "cuda"
+    if on_card:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        kernels.load()           # the parent built the library
+        sync = torch.cuda.synchronize
+    else:
+        dev, sync = torch.device("cpu"), (lambda: None)
+    out = {"rank": rank}
+    keys = ("comm/all_reduce/calls", "comm/all_reduce/bytes",
+            "comm/all_reduce/wire_bytes")
+    for spec in DP_SPECS:
+        model = _train_model(dev)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01, multi_precision=True)
+        step = DistributedTrainStepCompiler(model, opt, comm_compress=spec)
+        ids, labels = _train_batch(model.config.vocab_size, dev)
+        reduce_s = []
+        inner = step._reduce_grads
+
+        def timed(loss, named, inner=inner, reduce_s=reduce_s):
+            sync()
+            t0 = time.perf_counter()
+            res = inner(loss, named)
+            sync()
+            reduce_s.append(time.perf_counter() - t0)
+            return res
+
+        step._reduce_grads = timed
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = [cmon.stat_get(k) for k in keys]
+        kernels.reset_launches()
+        losses, step_s = [], []
+        for _ in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            losses.append(float(step(ids, labels)))   # .item() synchronises
+            step_s.append(time.perf_counter() - t0)
+        launches = kernels.launches()
+        h = hashlib.sha256()
+        for p in model.parameters():
+            h.update(p.detach().float().cpu().numpy().tobytes())
+        out[spec] = {
+            "losses": losses, "step_s": step_s, "reduce_s": reduce_s,
+            "comm": [cmon.stat_get(k) - b for k, b in zip(keys, before)],
+            "launches": {k: launches[k] for k in ("quantize_i8",
+                                                  "dequantize_i8")},
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev) if on_card
+                           else 0),
+            "param_sha256": h.hexdigest(),
+            "residual": (step._comm_state["residual"].numel()
+                         if "residual" in step._comm_state else 0)}
+        if spec == "int8:ef":
+            # one more step, profiled on rank 0 (after the counts and
+            # the hash above were read)
+            step._reduce_grads = inner
+            if rank == 0 and on_card:
+                out["profile"] = _profiled_step(step, ids, labels, sync)
+            else:
+                float(step(ids, labels))
+        del model, opt, step, timed, inner
+        if on_card:
+            torch.cuda.empty_cache()
+    # all_reduce(compress="int8") on 1M elements vs its plain version: the
+    # same call on CPU copies (the wrappers' plain versions; gloo carries
+    # both), and vs the exact fp32 sum
+    g = torch.Generator().manual_seed(17 + rank)
+    v = torch.randn(DP_ALLREDUCE_ELEMS, generator=g)
+    got = all_reduce(v.to(dev, copy=True), compress="int8")
+    want = all_reduce(v.clone(), compress="int8")
+    exact = all_reduce(v.clone())
+    # each of the W phase-1 codes and the phase-2 code is off by at most
+    # half its block's scale: the bound on |got - exact|
+    blk = C.effective_block(C.parse_spec("int8"), v.numel(), DP_RANKS)
+    s1 = all_reduce(v.view(-1, blk).abs().amax(1, keepdim=True) / 127,
+                    op=ReduceOp.MAX)
+    s2 = got.cpu().view(-1, blk).abs().amax(1, keepdim=True) / 127
+    bound = 0.5 * (DP_RANKS * s1 + s2)
+    out["allreduce"] = {
+        "bit_identical": _bits_equal(got.cpu(), want),
+        "max_abs_err": float((got.cpu() - want).abs().max()),
+        "vs_exact_in_bounds": float(((got.cpu() - exact).view(-1, blk).abs()
+                                     / bound).max())}
+    with open(os.path.join(out_dir, f"dp_r{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_dp(dev, smi, steps=DP_STEPS):
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            spawn(_nccl_rank, args=(tmp,), nprocs=DP_RANKS, backend="nccl",
+                  join=False).join(timeout=120)
+            nccl = "NCCL took two ranks on one card"
+        except RuntimeError as e:
+            why = [ln.strip() for r in range(DP_RANKS)
+                   if os.path.exists(os.path.join(tmp, f"nccl_r{r}.txt"))
+                   for ln in open(os.path.join(tmp, f"nccl_r{r}.txt"))
+                   if "NCCL version" in ln or "Duplicate" in ln]
+            nccl = ("NCCL refused two ranks on one card: "
+                    + " | ".join(why[:2] or [str(e)]))
+        log("dp", f"{nccl} ({time.perf_counter() - t0:.1f} s); the ranks "
+            "below run gloo, named explicitly, on CUDA tensors")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn(_dp_rank, args=(tmp, steps, dev.type), nprocs=DP_RANKS,
+              backend="gloo", device=dev.type, join=False).join(timeout=600)
+        wall = time.perf_counter() - t0
+        runs = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"dp_r{r}.json")) as f:
+                runs.append(json.load(f))
+    fp, q8 = (runs[0][s] for s in DP_SPECS)
+    for spec in DP_SPECS:
+        a, b = runs[0][spec], runs[1][spec]
+        if a["param_sha256"] != b["param_sha256"]:
+            raise AssertionError(f"dp {spec}: the ranks' parameters differ")
+        if a["losses"] != b["losses"]:
+            raise AssertionError(f"dp {spec}: the ranks' losses differ")
+        ls = a["losses"]
+        if not (all(map(math.isfinite, ls)) and ls[-1] < ls[0]):
+            raise AssertionError(f"dp {spec}: loss did not fall {ls}")
+    for a, b in zip(fp["losses"], q8["losses"]):
+        if abs(a - b) > 2e-2 * max(1.0, abs(a)):
+            raise AssertionError(f"dp: int8:ef loss {b} not within 2% of "
+                                 f"the fp32 twin's {a}")
+    ratio = q8["comm"][2] / fp["comm"][2]
+    if not (ratio <= 0.3 and q8["comm"][1] == fp["comm"][1]
+            and fp["comm"][0] == q8["comm"][0] == steps):
+        raise AssertionError(f"dp: comm counters {fp['comm']} / "
+                             f"{q8['comm']}, wire ratio {ratio:.4f}")
+    for r in runs:
+        want = {"quantize_i8": 2 * steps, "dequantize_i8": 4 * steps}
+        if r["int8:ef"]["launches"] != want or any(r["fp32"]["launches"]
+                                                   .values()):
+            raise AssertionError(f"dp rank {r['rank']}: launches "
+                                 f"{r['int8:ef']['launches']} under int8:ef "
+                                 f"(want {want}), {r['fp32']['launches']} "
+                                 "under fp32 (want 0)")
+        ar = r["allreduce"]
+        # (1e-4: the f32 roundings of the dequantize and the sums)
+        if not ar["bit_identical"] or ar["vs_exact_in_bounds"] > 1.0 + 1e-4:
+            raise AssertionError(f"dp rank {r['rank']}: all_reduce(compress="
+                                 f"'int8') {ar}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log("dp", f"[{smi}] GPT-2 345M (24L, bf16 O2, AdamW multi_precision), "
+        f"{DP_RANKS} ranks (gloo) on one card, global B={TRAIN_BATCH} "
+        f"S={TRAIN_SEQ} ({TRAIN_BATCH // DP_RANKS} a rank), {steps} steps "
+        f"each, spawn-to-join {wall:.1f} s")
+    for spec in DP_SPECS:
+        a = runs[0][spec]
+        st = float(np.median(a["step_s"][1:]))
+        rd = float(np.median(a["reduce_s"][1:]))
+        log("dp", f"[{smi}] {spec}: loss " + " ".join(
+            f"{x:.4f}" for x in a["losses"]) + f"; step {st * 1e3:.1f} ms "
+            f"(median of steps 2-{steps}) = {tokens / st:.1f} tokens/s; "
+            f"gradient allreduce {rd * 1e3:.1f} ms = {100 * rd / st:.1f}% of "
+            "the step (host clock, synchronised; gloo through the host on "
+            "one shared card, not a wire speed of the port); wire "
+            f"{a['comm'][2] // steps} B of {a['comm'][1] // steps} B a step; "
+            "peak memory " + " / ".join(
+                f"{r[spec]['peak_bytes'] / 2 ** 30:.2f}" for r in runs)
+            + " GiB (rank 0 / 1); residual "
+            f"{a['residual']} f32; parameters bit-identical on both ranks")
+    log("dp", f"int8:ef / fp32 wire bytes {q8['comm'][2]} / "
+        f"{fp['comm'][2]} = {ratio:.4f}; launches a rank over {steps} steps: "
+        + "; ".join(f"rank {r['rank']} {r['int8:ef']['launches']}"
+                    for r in runs) + f" (2 + 4 a step); every int8:ef loss "
+        "within 2% of the fp32 twin's")
+    prof = runs[0].get("profile")
+    if prof and prof["busy_ms"]:
+        (nq, qms), (nd, dms) = (prof["kernels"][k] for k in
+                                ("quantize_i8", "dequantize_i8"))
+        log("dp", f"[{smi}] rank 0's int8:ef step {steps + 1} under "
+            f"torch.profiler: wall {prof['wall_ms']:.1f} ms, device work "
+            f"{prof['busy_ms']:.2f} ms, of it host<->device copies "
+            f"{prof['copies_ms']:.2f} ms; quantize_i8 {nq} launches "
+            f"{qms:.4f} ms, dequantize_i8 {nd} launches {dms:.4f} ms: "
+            f"{qms + dms:.4f} ms = {100 * (qms + dms) / prof['wall_ms']:.2f}%"
+            " of the step's wall")
+    else:
+        log("dp", "rank 0's profiled int8:ef step: the profiler saw no "
+            "device activity (kernel device times not measured)")
+    ar = runs[0]["allreduce"]
+    log("dp", f"all_reduce(compress='int8') on {DP_ALLREDUCE_ELEMS} elements "
+        "a rank: kernel path bit-identical to the plain path on CPU copies "
+        f"(max|err| {ar['max_abs_err']:.3e}); error vs the exact sum "
+        f"{ar['vs_exact_in_bounds']:.3f} of its bound (half a code step of "
+        "each phase-1 block and of the phase-2 block)")
+    return runs[0]["int8:ef"]["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2163,6 +2613,13 @@ def main():
     multi_entry["launches"] = counts["paged_attention_multi"]
     phase_prefix(dev, serve_model, smi)
     entries.append(multi_entry)
+    del serve_model
+    torch.cuda.empty_cache()
+    compress_entries = phase_compress(dev, smi)
+    counts = phase_dp(dev, smi)
+    for e in compress_entries:
+        e["launches"] = counts[e["name"]]
+    entries += compress_entries
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

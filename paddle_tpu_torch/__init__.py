@@ -27,6 +27,17 @@ package's, so each counterpart sits at the same path:
                                         loss, backward, update; gradient
                                         merge, the non-finite guard,
                                         loss scaling, K steps a call
+  * `jit.distributed`                   `DistributedTrainStepCompiler`:
+                                        data parallel, the gradients
+                                        reduced across ranks, optionally
+                                        through the quantized allreduce
+  * `distributed`                       `init_parallel_env`, `spawn`,
+                                        the collectives over
+                                        torch.distributed, and
+                                        `distributed.compress`: the
+                                        two-phase quantized allreduce
+                                        with error feedback and its int8
+                                        kernels
   * `inference.serving`                 `LLMEngine`: paged KV cache,
                                         continuous batching, prefill +
                                         paged decode

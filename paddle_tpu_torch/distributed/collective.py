@@ -1,0 +1,167 @@
+"""Collective communication over torch.distributed, the port of the
+eager multi-process part of `paddle_tpu/distributed/collective.py`:
+`all_reduce` (with the per-call `compress=`), `all_gather`,
+`broadcast`, `barrier`.
+
+Each call adds to `comm/<op>/{calls,bytes,wire_bytes,host_us}` in
+`core.monitor` (the JAX package's `_instrumented`, :129-215, without
+its profiler span and flight-recorder events). `bytes` is the logical
+per-rank payload (all_gather: the whole gathered list); `wire_bytes`
+is what crosses the wire at the wire's precision, equal to `bytes`
+except on the quantized all_reduce, so wire_bytes / bytes is the
+measured compression ratio; `host_us` is the host's wall time in the
+call, which includes the transfer for a blocking backend (gloo) and
+only the enqueue for NCCL.
+
+In a single process (no process group, or a group of one) every
+collective is the identity, as in the JAX package's single-controller
+regime. The collectives block until done.
+"""
+from __future__ import annotations
+
+import functools
+import time
+
+import torch
+import torch.distributed as dist
+
+from ..core import monitor as _monitor
+from .env import group_size
+
+__all__ = ["ReduceOp", "all_reduce", "all_gather", "broadcast", "barrier"]
+
+
+class ReduceOp:
+    SUM = 0
+    MAX = 1
+    MIN = 2
+    PROD = 3
+    AVG = 4
+
+
+_TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
+              ReduceOp.MAX: dist.ReduceOp.MAX,
+              ReduceOp.MIN: dist.ReduceOp.MIN,
+              ReduceOp.PROD: dist.ReduceOp.PRODUCT}
+
+def _payload_bytes(x):
+    if isinstance(x, (list, tuple)):
+        return sum(_payload_bytes(e) for e in x)
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return 0
+
+
+def _instrumented(op):
+    """Count each call of `fn` in comm/<op>/*. `fn` returns (result,
+    wire_bytes); wire_bytes None means the payload crossed the wire as
+    it is (every call but the quantized all_reduce)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            # all_gather(tensor_list, tensor, group): the only op
+            # here whose group can come third
+            group = kwargs.get("group", args[2] if op == "all_gather"
+                               and len(args) > 2 else None)
+            if op == "all_gather":
+                base = kwargs.get("tensor", args[1] if len(args) > 1
+                                  else None)
+                nbytes = _payload_bytes(base) * group_size(group)
+            else:
+                nbytes = _payload_bytes(kwargs.get("tensor", args[0] if args
+                                                   else None))
+            t0 = time.perf_counter()
+            out, wire = fn(*args, **kwargs)
+            host_us = int((time.perf_counter() - t0) * 1e6)
+            _monitor.stat_add(f"comm/{op}/calls", 1)
+            _monitor.stat_add(f"comm/{op}/host_us", host_us)
+            if nbytes:
+                _monitor.stat_add(f"comm/{op}/bytes", nbytes)
+                _monitor.stat_add(f"comm/{op}/wire_bytes",
+                                  nbytes if wire is None else wire)
+            return out
+
+        return wrapped
+
+    return deco
+
+
+def _quantized_all_reduce(tensor, op, group, cfg, nranks):
+    """The stateless quantized allreduce (no error feedback): ravel,
+    pad to the W*block multiple, two-phase reduce, slice back, in
+    place. AVG divides by W. Returns (tensor, wire bytes: codes plus
+    scale sidecars)."""
+    from . import compress as C
+
+    n = tensor.numel()
+    blk = C.effective_block(cfg, n, nranks)
+    L = C.padded_elems(cfg, n, nranks)
+    flat = torch.zeros(L, dtype=torch.float32, device=tensor.device)
+    flat[:n].copy_(tensor.reshape(-1))
+    out, _ = C.all_reduce_flat(flat, group, cfg, block=blk)
+    if op == ReduceOp.AVG:
+        out = out / torch.tensor(float(nranks), device=out.device)
+    tensor.copy_(out[:n].view(tensor.shape))
+    return tensor, C.wire_bytes_of(cfg, L, block=blk)
+
+
+@_instrumented("all_reduce")
+def all_reduce(tensor, op=ReduceOp.SUM, group=None, compress=None):
+    """Reduce `tensor` over the group, in place; returns it.
+
+    `compress`: a spec string ("int8"/"fp8"/"fp32", ":block=N"), a
+    CompressConfig, or True for $PADDLE_COMM_COMPRESS. A SUM or AVG of
+    a float tensor over 2 or more ranks then rides the quantized
+    allreduce (stateless: error feedback lives in the train step, where
+    the residual is state). Other ops and integer dtypes take the plain
+    wire, as the JAX package does when its PTA081 guard is disarmed.
+    AVG is a SUM divided by W (gloo has no AVG)."""
+    nranks = group_size(group)
+    if nranks == 1:
+        return tensor, None
+    if op not in _TORCH_OPS and op != ReduceOp.AVG:
+        raise ValueError(f"all_reduce: unsupported ReduceOp {op!r}")
+    if compress is not None:
+        from . import compress as C
+
+        cfg = C.resolve(compress)
+        if (cfg is not None and cfg.mode != "fp32"
+                and op in (ReduceOp.SUM, ReduceOp.AVG)
+                and tensor.is_floating_point()):
+            return _quantized_all_reduce(tensor, op, group, cfg, nranks)
+    if op == ReduceOp.AVG:
+        dist.all_reduce(tensor, dist.ReduceOp.SUM, group=group)
+        tensor.copy_(tensor / torch.tensor(float(nranks),
+                                           device=tensor.device))
+    else:
+        dist.all_reduce(tensor, _TORCH_OPS[op], group=group)
+    return tensor, None
+
+
+@_instrumented("all_gather")
+def all_gather(tensor_list, tensor, group=None):
+    """Append every rank's `tensor`, in rank order, to tensor_list."""
+    nranks = group_size(group)
+    if nranks == 1:
+        tensor_list.append(tensor)
+        return tensor_list, None
+    parts = [torch.empty_like(tensor) for _ in range(nranks)]
+    dist.all_gather(parts, tensor.contiguous(), group=group)
+    tensor_list.extend(parts)
+    return tensor_list, None
+
+
+@_instrumented("broadcast")
+def broadcast(tensor, src=0, group=None):
+    """Overwrite `tensor` with global rank `src`'s, in place."""
+    if group_size(group) > 1:
+        dist.broadcast(tensor, src, group=group)
+    return tensor, None
+
+
+@_instrumented("barrier")
+def barrier(group=None):
+    """Wait until every rank of the group arrives."""
+    if group_size(group) > 1:
+        dist.barrier(group=group)
+    return None, None

@@ -19,6 +19,9 @@ a build takes seconds):
 - `optim.fused_adam` / `fused_sgd` / `fused_momentum`: multi-tensor
   optimizer updates, one launch over a whole parameter list
   (`csrc/optim.cu`).
+- `paddle_tpu_torch.distributed.compress.kernels.quantize_blocks` /
+  `dequantize_blocks`: blockwise int8 quantize and dequantize, the wire
+  format of the quantized gradient allreduce (`csrc/compress.cu`).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version only for CPU tensors. There is no switch that turns the
@@ -50,7 +53,7 @@ PKG_DIR = Path(__file__).resolve().parents[3]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("layernorm.cu", "paged_attention.cu", "flash_attention.cu",
-           "optim.cu")
+           "optim.cu", "compress.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -64,7 +67,8 @@ _LAUNCHES = {"paged_attention": 0, "paged_attention_multi": 0,
              "fused_layer_norm": 0,
              "fused_layer_norm_bwd": 0, "flash_attention_fwd": 0,
              "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-             "fused_adam": 0, "fused_sgd": 0, "fused_momentum": 0}
+             "fused_adam": 0, "fused_sgd": 0, "fused_momentum": 0,
+             "quantize_i8": 0, "dequantize_i8": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -185,6 +189,11 @@ def _declare(lib):
                  "ptt_optim_chunk"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
+    q = ctypes.c_longlong
+    lib.ptt_quantize_i8.argtypes = [p, p, p, q, i, p]
+    lib.ptt_quantize_i8.restype = i
+    lib.ptt_dequantize_i8.argtypes = [p, p, p, q, i, p]
+    lib.ptt_dequantize_i8.restype = i
     lib.ptt_error_string.argtypes = [i]
     lib.ptt_error_string.restype = ctypes.c_char_p
 

@@ -135,11 +135,13 @@ class TrainStepCompiler:
                 inv = float(np.float32(1.0) / scale)
                 for _, p in named:
                     p.grad = (p.grad.float() * inv).to(p.grad.dtype)
+            loss, named = self._reduce_grads(loss, named)
             ok = True
             if self._guard_nonfinite:
                 finite = [torch.isfinite(loss)] + [
                     torch.isfinite(p.grad).all() for _, p in named]
                 ok = bool(torch.stack(finite).all())   # one host sync
+            self._commit_comm(ok)
             k = self._accum_steps
             if k == 1:
                 if ok:
@@ -164,3 +166,14 @@ class TrainStepCompiler:
                         acc.zero_()
                     opt._apply(float(lr))
         return loss.detach(), int(not ok)
+
+    def _reduce_grads(self, loss, named):
+        """Where a data-parallel subclass reduces the unscaled
+        gradients and the loss across ranks, before the guard and the
+        gradient merge read them; returns (loss, named). One process:
+        nothing to reduce."""
+        return loss, named
+
+    def _commit_comm(self, ok):
+        """Commit the communication state `_reduce_grads` computed,
+        unless the guard tripped (`ok` false)."""

@@ -26,7 +26,10 @@ order); bf16 dx within one bf16 ulp (1e-2), dw and db (f32 sums of the
 same bf16 inputs) within 1e-5 x max|ref|. The optimizer kernels: bit
 for bit, parameters and every slot, against the per-parameter rule and
 against their plain versions (the kernel rounds every operation as
-PyTorch does).
+PyTorch does). The blockwise int8 quantize and dequantize kernels: bit
+for bit, codes, scales and outputs (NaN at the same places), as is the
+quantized allreduce over 2 gloo ranks on the card against the same call
+on CPU copies.
 """
 import numpy as np
 import pytest
@@ -571,3 +574,100 @@ def test_speculative_prefix_engine_on_card(cuda):
     assert counts["paged_attention"] == 1 * 4 * rounds   # 1-layer draft
     assert eng.check_drained() == {}
     assert eng.cache.allocator.used_blocks == 0
+
+
+def _compress_buffers(rng, block):
+    """Blocks of randn x 3 with an all-zero block, exact k + 0.5
+    multiples of the scale with +-absmax (scale 1), subnormals, a block
+    whose scale rounds to 0, and NaN, Inf and -Inf blocks."""
+    x = (3 * rng.randn(9, block)).astype(np.float32)
+    x[1] = 0
+    x[2] = rng.randint(-126, 126, block) + 0.5
+    x[2, :2] = [127.0, -127.0]
+    x[3] = (rng.randn(block) * 1e-40).astype(np.float32)
+    x[4] = 0
+    x[4, 3] = np.float32(1.4e-45)
+    x[5, 7], x[6, 8], x[7, 9] = np.nan, np.inf, -np.inf
+    return [x.reshape(-1), (3 * rng.randn(4096 * block)).astype(np.float32),
+            x[2], x[5]]
+
+
+def _same_bits(a, b):
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32))
+
+
+@pytest.mark.parametrize("block", [128, 256, 1024, 2048])
+def test_compress_kernels_match_plain_versions_bit_for_bit(cuda, block):
+    """#11 quantize_i8 and #12 dequantize_i8: codes, scales and outputs
+    bit for bit (2048: a block read twice, past the registers)."""
+    from paddle_tpu_torch.distributed.compress import kernels as K
+
+    rng = np.random.RandomState(block)
+    for x in _compress_buffers(rng, block):
+        xd = torch.from_numpy(x).to(cuda)
+        before = kernels.launches()
+        q, s = K.quantize_blocks(xd, block, "int8")
+        d = K.dequantize_blocks(q, s, block, "int8")
+        after = kernels.launches()
+        assert after["quantize_i8"] == before["quantize_i8"] + 1
+        assert after["dequantize_i8"] == before["dequantize_i8"] + 1
+        q0, s0 = K.quantize_ref(xd, block, "int8")
+        torch.cuda.synchronize()
+        assert torch.equal(q, q0) and _same_bits(s, s0)
+        assert _same_bits(d, K.dequantize_ref(q, s, block, "int8"))
+    s = K.quantize_blocks(torch.from_numpy(_compress_buffers(
+        np.random.RandomState(0), block)[0]).to(cuda), block, "int8")[1]
+    assert s[1] == 1 and s[4] == 0 and s[5] == 1 and torch.isinf(s[6:8]).all()
+
+
+def test_compress_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from paddle_tpu_torch.distributed.compress import kernels as K
+
+    x = torch.randn(1024, device=cuda)
+    for bad, match in ((x[1:257], "aligned"), (x.double(), "float32"),
+                       (x[:300], "multiple"), (x.view(8, 128).t(),
+                                               "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            K.quantize_blocks(bad, 128, "int8")
+    q, s = K.quantize_blocks(x, 128, "int8")
+    with pytest.raises(ValueError, match="scales"):
+        K.dequantize_blocks(q, s[:-1], 128, "int8")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        K.quantize_blocks(x, 96, "int8")
+
+
+def _card_allreduce_rank(out_dir):
+    import os
+
+    from paddle_tpu_torch.distributed import compress as C
+    from paddle_tpu_torch.distributed import get_rank
+
+    r = get_rank()
+    x = torch.from_numpy(np.random.RandomState(r).randn(8192).astype(
+        np.float32))
+    cfg = C.parse_spec("int8:ef:block=256")
+    before = kernels.launches()
+    got, res = C.all_reduce_flat(x.cuda(), None, cfg,
+                                 residual=torch.zeros(8192, device="cuda"))
+    after = kernels.launches()
+    want, res0 = C.all_reduce_flat(x, None, cfg, residual=torch.zeros(8192))
+    ok = (_same_bits(got.cpu(), want) and _same_bits(res.cpu(), res0)
+          and after["quantize_i8"] - before["quantize_i8"] == 2
+          and after["dequantize_i8"] - before["dequantize_i8"] == 4)
+    with open(os.path.join(out_dir, f"r{r}"), "w") as f:
+        f.write("ok" if ok else "differs")
+
+
+def test_all_reduce_flat_two_ranks_on_the_card_via_gloo(cuda, tmp_path):
+    """2 gloo ranks on the one card: the kernel path of all_reduce_flat
+    (int8:ef) bit-identical to the same call on CPU copies (the plain
+    path), with 2 quantize and 4 dequantize launches a rank."""
+    from paddle_tpu_torch.distributed import spawn
+
+    kernels.load()          # built once, before the ranks load it
+    spawn(_card_allreduce_rank, args=(str(tmp_path),), nprocs=2,
+          backend="gloo", join=False).join(timeout=300)
+    assert [(tmp_path / f"r{r}").read_text() for r in range(2)] == ["ok"] * 2

@@ -147,6 +147,10 @@ def _foreign(name):
 def test_port_sources_import_no_jax_or_paddle_tpu():
     files = _port_sources()
     assert len(files) > 10
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"paddle_tpu_torch/distributed/collective.py",
+            "paddle_tpu_torch/distributed/compress/allreduce.py",
+            "paddle_tpu_torch/jit/distributed.py"} <= rel
     bad = {os.path.relpath(f, REPO): [n for n in _imports(f) if _foreign(n)]
            for f in files}
     assert not {f: n for f, n in bad.items() if n}
