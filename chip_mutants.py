@@ -12,7 +12,11 @@ mutant is one source of `csrc/` with one edit, written and compiled
 into a library of its own. The wrappers then run on that library in
 turn. Every flash mutant breaks only late causal rows or keys (query
 rows or keys >= 512 of 1024), or one tile: the faults a limit set by a
-tensor's first rows would miss. The two optimizer mutants divide the
+tensor's first rows would miss. Of the eight, four target the forward
+kernel (KV tile 0 skipped, the diagonal masked, the diagonal tile run
+without its mask, the last KV tile's V read from the other ring
+stage), two the dq kernel and two the dk/dv kernel (the diagonal
+masked, the last q tile skipped). The two optimizer mutants divide the
 bias corrections by multiplying with an f32 reciprocal, and skip the
 last chunk of one tensor (the first of the table, GPT-2's wte). The three
 multi-query mutants let slot t see one token too many (ctx0 + t + 1),
@@ -70,18 +74,29 @@ COMPRESS = "compress.cu"
 # (name, source in csrc/, [(unique text of the source, replacement)])
 MUTANTS = [
     ("fwd: KV tile 0 skipped for query rows >= 512", FLASH,
-     [("    __syncthreads();  // the previous tile's readers are done\n"
-       "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n",
-       "    __syncthreads();  // the previous tile's readers are done\n"
-       "    if (k0 == 0 && q0 >= 512) continue;\n"
-       "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n"
-       )]),
+     [("      mbar_wait(&k_full[s], parity);\n"
+       "      wgmma_fence();\n",
+       "      mbar_wait(&k_full[s], parity);\n"
+       "      if (t == 0 && item.q0 >= 512) {\n"
+       "        mbar_wait(&v_full[s], parity);\n"
+       "        if (lane0) mbar_arrive(&empty[s]);\n"
+       "        continue;\n"
+       "      }\n"
+       "      wgmma_fence();\n")]),
     ("fwd: causal diagonal masked for query rows >= 512", FLASH,
-     [("        const bool ok = kp < sk && (!kCausal || qp >= kp);\n"
-       "        s[nt][i] = ok",
-       "        const bool ok = kp < sk && (!kCausal || qp > kp ||\n"
-       "                                    (qp == kp && qp < 512));\n"
-       "        s[nt][i] = ok")]),
+     [("        if (!(kp < sk && (!kCausal || qp >= kp))) s[nt][i] = kNegInf;\n",
+       "        if (!(kp < sk && (!kCausal || qp > kp ||\n"
+       "                          (qp == kp && qp < 512))))\n"
+       "          s[nt][i] = kNegInf;\n")]),
+    ("fwd: the diagonal tile's mask skipped for query rows >= 512", FLASH,
+     [("      if ((kCausal && k0 + kFwdKeys - 1 > row0) || k0 + kFwdKeys > sk)"
+       "\n",
+       "      if ((kCausal && k0 + kFwdKeys - 1 > row0 && row0 < 512) ||\n"
+       "          k0 + kFwdKeys > sk)\n")]),
+    ("fwd: the last KV tile's V read from the other ring stage", FLASH,
+     [("desc_b128(sV + s * kStage + h * kFwdKeys * 64 +",
+       "desc_b128(sV + (t == item.n_kv - 1 && t > 0 ? (s + 1) % kStages"
+       " : s) * kStage + h * kFwdKeys * 64 +")]),
     ("dq: KV tile 0 skipped for query rows >= 512", FLASH,
      [("    __syncthreads();\n"
        "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n",
@@ -98,19 +113,17 @@ MUTANTS = [
        "        const float p =\n"
        "            expf((ok ? s[nt][i]")]),
     ("dk/dv: causal diagonal masked for keys >= 512", FLASH,
-     [("const bool ok = kp < sk && qp < sq && (!kCausal || qp >= kp);\n"
-       "        const float p =\n"
-       "            expf((ok ? st[nt][i]",
-       "const bool ok = kp < sk && qp < sq && (!kCausal || qp > kp ||\n"
-       "                                    (qp == kp && kp < 512));\n"
-       "        const float p =\n"
-       "            expf((ok ? st[nt][i]")]),
+     [("        if (!(qp < sq && (!kCausal || qp >= kp))) p = 0.f;\n",
+       "        if (!(qp < sq && (!kCausal || qp > kp ||\n"
+       "                          (qp == kp && kp < 512))))\n"
+       "          p = 0.f;\n")]),
     ("dk/dv: last q tile skipped for keys < 512", FLASH,
-     [("  for (int q0 = kCausal ? k0 : 0; q0 < sq; q0 += kTcRows) {\n"
-       "    __syncthreads();\n",
-       "  for (int q0 = kCausal ? k0 : 0; q0 < sq; q0 += kTcRows) {\n"
-       "    __syncthreads();\n"
-       "    if (q0 + kTcRows >= sq && k0 < 512) continue;\n")]),
+     [("      mbar_wait(&full[s], ((j + t) / kStages) & 1);\n",
+       "      mbar_wait(&full[s], ((j + t) / kStages) & 1);\n"
+       "      if (q0 + kDkvRows >= sq && item.k0 < 512) {\n"
+       "        if (lane0) mbar_arrive(&empty[s]);\n"
+       "        continue;\n"
+       "      }\n")]),
     ("optim: bias corrections multiplied by an f32 reciprocal", OPTIM,
      [("    const float mhat = __fdiv_rn(m, d1);\n"
        "    const float vhat = __fdiv_rn(v, d2);\n",
@@ -168,8 +181,10 @@ def build_mutants():
                                    f"{text.count(old)} times")
             text = text.replace(old, new)
         (root / f"m{i}.cu").write_text(text)
-        jobs.append((name, [nvcc, *K.NVCC_FLAGS, "-c", str(root / f"m{i}.cu"),
-                            "-o", str(root / f"m{i}.o")]))
+        # -I: the copy includes csrc/'s headers (hopper.cuh)
+        jobs.append((name, [nvcc, *K.NVCC_FLAGS, "-I", str(K.CSRC_DIR), "-c",
+                            str(root / f"m{i}.cu"), "-o",
+                            str(root / f"m{i}.o")]))
     procs = [(n, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True))
              for n, cmd in jobs]

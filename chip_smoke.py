@@ -24,7 +24,7 @@ without them. Phases, each printing one line (or a few):
   7. flash    flash-attention forward, dq and dk/dv kernels vs their
               plain versions: the training shape (B 4, H 16, S 1024,
               D 64, bf16, causal), f32, ragged S, D 128, non-causal;
-              times against the bound and SDPA
+              times against the bound, SDPA forward and SDPA backward
   8. lnbwd    LayerNorm backward kernel vs its plain version at the
               training shape (4096 x 1024), f32 and bf16, with and
               without residual, no / tanh / erf GeLU; times
@@ -348,7 +348,36 @@ def phase_build():
         f"{len(regs)} kernel instantiations, registers "
         f"{min(regs, default=0)}..{max(regs, default=0)}; non-zero spills:"
         f" {spills or 'none'}")
+    log("build", "bf16 flash kernels, registers (at launch; setmaxnreg "
+        "moves the wgmma kernels' producer to 40, consumers to 232) and "
+        "spills: " + "; ".join(
+            f"{k}: {r} registers, {s}" for k, (r, s) in
+            flash_registers(info["log"]).items()))
     return info
+
+
+def flash_registers(log_text):
+    """{"fa_fwd_wgmma<64, causal>": (registers, "N bytes spill stores, N
+    bytes spill loads")} of the bf16 flash kernels, from nvcc's
+    `-Xptxas=-v` output."""
+    out, fn, spill = {}, None, ""
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn, spill = m.group(1), ""
+            continue
+        if fn and "spill stores" in ln:
+            spill = ln.strip().split(", ", 1)[1]
+        m = re.search(r"Used (\d+) registers", ln)
+        if fn and m:
+            k = re.search(r"(fa_(?:fwd_wgmma|bwd_dkv_wgmma|bwd_dq_tc))"
+                          r"ILi(\d+)ELb([01])E", fn)
+            if k:
+                name = (f"{k.group(1)}<{k.group(2)}, "
+                        f"{'causal' if k.group(3) == '1' else 'full'}>")
+                out[name] = (int(m.group(1)), spill)
+            fn = None
+    return dict(sorted(out.items()))
 
 
 # -- phase 3 -----------------------------------------------------------
@@ -847,17 +876,16 @@ def phase_flash(dev, shape=(TRAIN_BATCH, 16, TRAIN_SEQ, 64), iters=50):
         "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
             q, k, v, do, lse, delta, True, scale), pit, flush)[0],
     }
-    # library yardstick, timed only: SDPA forward, and forward+backward
+    # library yardstick, timed only: SDPA forward, and SDPA backward
+    # alone (dq, dk and dv together) from one forward kept for it
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_fwd = time_ms(lambda: sdpa(q, k, v, is_causal=True, scale=scale),
                       iters, flush)[0]
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        out = sdpa(qg, kg, vg, is_causal=True, scale=scale)
-        return torch.autograd.grad(out, (qg, kg, vg), do)
-
-    lib_fb = time_ms(sdpa_fwd_bwd, iters, flush)[0]
+    out = sdpa(qg, kg, vg, is_causal=True, scale=scale)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters, flush)[0]
+    del out
     # bounds: causal work is the lower triangle, diagonal included
     bh = b * h
     mm = 2.0 * bh * d * s * (s + 1) / 2      # one causal S x S x D product
@@ -875,15 +903,17 @@ def phase_flash(dev, shape=(TRAIN_BATCH, 16, TRAIN_SEQ, 64), iters=50):
             f" GFLOP, {work[n][0] / 1e6:.1f} MB) | "
             f"{work[n][1] / ms[n] / 1e9:.1f} TFLOP/s")
     log("flash", f"backward wrapper (delta + dq + dk/dv) {ms['bwd']:.5f} ms;"
-        f" SDPA forward {lib_fwd:.5f} ms, forward+backward {lib_fb:.5f} "
-        f"ms (backward alone ~{lib_fb - lib_fwd:.5f} ms); kernels "
-        f"forward+backward {ms['fwd'] + ms['bwd']:.5f} ms")
+        f" SDPA forward {lib_fwd:.5f} ms, backward {lib_bwd:.5f} ms (dq, dk"
+        f" and dv in one call; both backward rows' library_ms); kernels "
+        f"forward+backward {ms['fwd'] + ms['bwd']:.5f} ms, SDPA "
+        f"{lib_fwd + lib_bwd:.5f} ms")
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     rep = "paddle_tpu/incubate/nn/attention_pallas.py:"
     rows = [("flash_attention_fwd", "fwd", "97", slice_err["o"], lib_fwd),
-            ("flash_attention_bwd_dq", "dq", "215", slice_err["dq"], None),
+            ("flash_attention_bwd_dq", "dq", "215", slice_err["dq"],
+             lib_bwd),
             ("flash_attention_bwd_dkv", "dkv", "257",
-             max(slice_err["dk"], slice_err["dv"]), None)]
+             max(slice_err["dk"], slice_err["dv"]), lib_bwd)]
     return [{"name": name, "route": "cuda", "source": src,
              "replaces": rep + line, "max_abs_err": err, "ms": ms[key],
              "plain_ms": plain[key], "bound_ms": bounds[key][0],
@@ -1102,6 +1132,12 @@ def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
         log("train", f"[{smi}] optimizer (fused_adam: beta-power kernel + "
             f"multi-tensor kernel) {opt_ms:.3f} ms of the step's "
             f"{busy:.3f} ms device busy ({100 * opt_ms / busy:.2f}%)")
+        flash = {k: sum(ms for name, ms in by.items() if k in name)
+                 for k in ("fa_fwd_wgmma", "fa_bwd_dq_tc",
+                           "fa_bwd_dkv_wgmma")}
+        log("train", f"[{smi}] flash kernels in the step: " + ", ".join(
+            f"{k} {ms:.3f} ms" for k, ms in flash.items()) + f" = "
+            f"{sum(flash.values()):.3f} ms of {busy:.3f} ms device busy")
     return model, counts
 
 

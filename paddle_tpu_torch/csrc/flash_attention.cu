@@ -3,41 +3,67 @@
 // 128, over [B*H, S, D] row-major tensors.
 //
 // Replaces: paddle_tpu/incubate/nn/attention_pallas.py
-//   `_fa_fwd_kernel` (:97), launched by `_flash_fwd_impl` (:159);
-//   `_fa_bwd_dq_kernel` (:215) and `_fa_bwd_dkv_kernel` (:257), launched
-//   by `_flash_bwd_impl` (:307 -> :345 and :365).
+//   `_fa_fwd_kernel` (:97), launched by `_flash_fwd_impl` (:159):
+//     `fa_fwd_wgmma` (bf16), `fa_fwd_f32`;
+//   `_fa_bwd_dq_kernel` (:215), launched by `_flash_bwd_impl` (:345):
+//     `fa_bwd_dq_tc` (bf16), `fa_bwd_dq_f32`;
+//   `_fa_bwd_dkv_kernel` (:257), launched by `_flash_bwd_impl` (:365):
+//     `fa_bwd_dkv_wgmma` (bf16), `fa_bwd_dkv_f32`.
 //
-// What bounds it on an H100: at the training shape (B 4, H 16, S 1024,
-// D 64, causal, bf16) the forward does 8.6 GFLOP against 34 MB of
-// q/k/v/o, about 256 operations per byte, just under the ~295 where
-// the bf16 tensor cores take over from memory; the backward kernels
-// recompute the scores and do 3 and 4 products, and are bound by the
-// tensor cores. The [S, S] score matrix never reaches device memory.
+// What bounds them on an H100 at the training shape (B 4, H 16, S 1024,
+// D 64, causal, bf16): the forward does 8.6 GFLOP against 33.8 MB of
+// q/k/v/o and lse, about 254 operations per byte, just under the ~295
+// where the bf16 tensor cores take over from memory: its bound is the
+// bytes, 0.01009 ms. The backward kernels recompute the scores and do 3
+// (dq) and 4 (dk/dv) products: dk/dv is bound by the tensor cores,
+// 17.2 GFLOP in 0.01739 ms. The [S, S] score matrix never reaches
+// device memory.
 //
 // Design. The TPU walks KV tiles as a sequential grid axis and carries
 // the online-softmax state in VMEM scratch between grid steps. CTAs on
 // the card run in parallel with nothing carried between them, so that
-// axis is a loop inside one CTA: the forward and the dq kernel own one
-// (batch*head, 64-row q tile) and loop over KV tiles; the dk/dv kernel
-// owns one (batch*head, 64-key tile) and loops over q tiles. Nothing is
-// accumulated across CTAs, so there are no atomics and the gradients
-// are deterministic.
+// axis is a loop inside one work item: the forward and the dq kernel
+// own a (batch*head, q tile) and loop over KV tiles; the dk/dv kernel
+// owns a (batch*head, key tile) and loops over q tiles. Nothing is
+// accumulated across work items, so there are no atomics and the
+// gradients are deterministic.
 //
-// bf16, the training path: 4 warps, each owning 16 rows of the CTA's
-// tile. Q/K/V/dO tiles are staged in shared memory (16 bytes of padding
-// per row, so `ldmatrix` reads are free of bank conflicts) and read
-// into `mma.sync.m16n8k16` fragments; the scores, p, ds, the running
-// max and sum, and the accumulators (o; dq; dk and dv) stay in
-// registers, f32. An m16n8 accumulator pair has the layout of an
-// m16n8k16 A fragment, so p and ds go from the score product into the
-// next product without leaving registers.
+// bf16 forward and dk/dv (`fa_fwd_wgmma`, `fa_bwd_dkv_wgmma`): three
+// warpgroups a CTA. The first is the producer: it gives up registers
+// (setmaxnreg) and one thread issues TMA loads (hopper.cuh). The other
+// two are consumers with 64 rows each (the forward's 128 q rows; dk/dv's
+// 128 keys), so every streamed tile is staged once for 128 rows. The
+// kernels are persistent: one CTA an SM walks the work items (`fwd_item`,
+// `dkv_item`), the causal heavy ones first and in a snake, so one CTA's
+// next item is loading while it finishes the last. The stationary tile
+// (forward: Q; dk/dv: K and V) is loaded once an item into one of two
+// slots. The streamed tiles (forward: K and V, 128 keys; dk/dv: Q and
+// dO, 64 rows, with the rows' lse and delta) go through a ring of
+// shared-memory stages, each with a full and an empty mbarrier, so the
+// loads of the next tiles are in flight while the consumers compute.
+// TMA reads a 3-D map [B*H, S, D], so rows past a ragged end arrive as
+// zeros and never as the next head's. Every product is a `wgmma`: the
+// scores (S = Q.K^T; dk/dv: S^T = K.Q^T and dP^T = V.dO^T) with both
+// operands in shared memory, and the accumulations (O += P.V; dV +=
+// P^T.dO, dK += dS^T.Q) with P or dS^T from registers and the second
+// operand read MN-major. The wgmma m64 accumulator gives each warp the
+// layout of an m16n8 accumulator, which is also the register-A layout,
+// so p and ds go from one product into the next without leaving
+// registers (`to_a`).
+// The softmax works in base 2: scale * log2(e) is folded into one FFMA
+// before exp2f, and the forward writes the natural-log lse. Only tiles
+// that cross the causal diagonal or a ragged end run the mask.
+//
+// bf16 dq (`fa_bwd_dq_tc`): 4 warps, each owning 16 rows of a 64-row q
+// tile, `mma.sync.m16n8k16` fed by `ldmatrix` from tiles staged by all
+// threads.
 //
 // f32, the comparison dtype: no tensor-core route keeps f32 exact, so
 // 8 warps share shared-memory tiles of 32 rows and compute the products
 // on SIMT cores; scores and accumulators are f32 in shared memory.
 //
-// Both follow the TPU kernel's casts: the un-normalised p = exp(s - m)
-// is rounded to v's dtype before P.V (:137-139), ds to k's dtype before
+// All follow the TPU kernel's casts: the un-normalised p = exp(s - m) is
+// rounded to v's dtype before P.V (:137-139), ds to k's dtype before
 // ds.K and ds^T.Q (:247, :295), p to dO's dtype before p^T.dO (:288).
 // Causal tiles strictly above the diagonal are skipped as `run` does
 // (:112). Ragged lengths need no padded copies: rows past the end load
@@ -52,11 +78,16 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
 constexpr float kNegInf = -1e30f;  // `_NEG_INF`: exp underflows to 0
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -88,8 +119,552 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
   }
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // RNE
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Element i of n8 tile nt of a warp's 16-row accumulator (mma.sync
+// m16n8, or the warp's quarter of a wgmma m64 one) sits at row
+// (lane / 4) + 8 * (i / 2), column 8 * nt + 2 * (lane % 4) + i % 2; two
+// neighbouring tiles form one A fragment of the next product.
+__device__ __forceinline__ int frag_row(int i) {
+  return ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
+}
+__device__ __forceinline__ int frag_col(int nt, int i) {
+  return 8 * nt + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// a 16 x 8NT f32 accumulator, rounded to bf16, as NT / 2 A fragments
+template <int NT>
+__device__ __forceinline__ void to_a(uint32_t (&a)[NT / 2][4],
+                                     const float (&x)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    a[nt >> 1][(nt & 1) * 2] = pack_bf16(x[nt][0], x[nt][1]);
+    a[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x[nt][2], x[nt][3]);
+  }
+}
+
+// rows [row0, row0 + 16) of the warp's f32 accumulator, divided by
+// the row's divisor (l0 for rows g, l1 for rows g + 8) and rounded to
+// bf16, into a [rows, D] row-major matrix
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst,
+                                           const float (&x)[D / 8][4],
+                                           int row0, int rows, float l0,
+                                           float l1) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + frag_row(2 * half);
+    if (r >= rows) continue;
+    const float l = half ? l1 : l0;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r) * D +
+                                   frag_col(nt, 0)) =
+          pack_bf16(x[nt][2 * half] / l, x[nt][2 * half + 1] / l);
+  }
+}
+
 // ---------------------------------------------------------------------
-// bf16: tensor cores, register-resident fragments
+// bf16 forward and dk/dv: TMA ring, wgmma, warp specialisation
+// ---------------------------------------------------------------------
+
+constexpr int kWsThreads = 384;  // producer warpgroup + 2 consumers
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;  // 128 x 40 + 256 x 232 <= 65536
+constexpr int kWgRows = 64;         // rows of a consumer warpgroup
+constexpr int kStages = 2;          // depth of the ring
+constexpr int kBox = 64 * 64;       // bf16 elements of a 64-row half box
+
+// the 1024-byte-aligned start of dynamic shared memory (the swizzle's
+// period); every layout below reserves 1024 bytes for it
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + (((a + 1023u) & ~1023u) - a);
+}
+
+// a 64-row slab of a [D/64 halves][rows][64] tile: `half` picks the
+// 64-column half, `part` the 64 rows
+__device__ __forceinline__ const bf16* slab(const bf16* tile, int rows,
+                                            int half, int part) {
+  return tile + (half * rows + part * 64) * 64;
+}
+
+// forward: 128 q rows a work item, KV tiles of 128 keys
+constexpr int kFwdRows = 2 * kWgRows;
+constexpr int kFwdKeys = 128;
+
+template <int D>
+struct FwdLayout {
+  static constexpr int q_bytes = kFwdRows * D * 2;  // [D/64][128][64]
+  static constexpr int kv_bytes = kFwdKeys * D * 2;
+  static constexpr int q = 0;  // q + i * q_bytes: slot i of 2
+  static constexpr int k = q + 2 * q_bytes;  // k + s * kv_bytes: stage s
+  static constexpr int v = k + kStages * kv_bytes;
+  // q_full[2], q_empty[2], k_full[kStages], v_full[kStages],
+  // empty[kStages]
+  static constexpr int bar = v + kStages * kv_bytes;
+  static constexpr size_t bytes = bar + 8 * (4 + 3 * kStages) + 1024;
+};
+
+// The persistent walk: a CTA on every SM takes the work items (a
+// batch*head and a 128-row q tile; heads fastest, the causal q tiles
+// from the last, which has the most KV tiles) in rounds of gridDim.x,
+// running the rounds in a snake, forward then backward, so the heavy
+// and light causal items even out. One CTA carries on from item to
+// item: the producer loads the next item's Q and first KV tiles while
+// the consumers finish the last one.
+struct FwdItem {
+  int bh, q0, n_kv;
+};
+
+template <bool kCausal>
+__device__ __forceinline__ bool fwd_item(int round, int n_bh, int n_qt,
+                                         int sk, FwdItem& it) {
+  const int g = gridDim.x, c = blockIdx.x;
+  const int w = round * g + ((round & 1) ? g - 1 - c : c);
+  if (w >= n_bh * n_qt) return false;
+  it.bh = w % n_bh;
+  const int t = w / n_bh;
+  it.q0 = (kCausal ? n_qt - 1 - t : t) * kFwdRows;
+  // causal: KV tiles past the q tile's last row are all masked
+  it.n_kv = (sk + kFwdKeys - 1) / kFwdKeys;
+  if (kCausal) it.n_kv = min(it.n_kv, it.q0 / kFwdKeys + 1);
+  return true;
+}
+
+// online softmax over one 64 x 128 score tile of a consumer warpgroup
+// (:130-141) in base 2: m is the running max of s * scale * log2(e);
+// leaves p = exp2(s * sl2 - m) in s, and the rescale of the running
+// sums in alpha. kMask: the tile crosses the causal diagonal or the end
+// of k, so masked scores become -1e30 first.
+template <bool kMask, bool kCausal>
+__device__ __forceinline__ void softmax_tile(float (&s)[16][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int row0,
+                                             int k0, int sk, float sl2) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (kMask) {
+        const int qp = row0 + frag_row(i), kp = k0 + frag_col(nt, i);
+        if (!(kp < sk && (!kCausal || qp >= kp))) s[nt][i] = kNegInf;
+      }
+      mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    // a row's 128 scores are spread over the 4 lanes of a quad
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * sl2);
+    alpha[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nt][i] = exp2f(fmaf(s[nt][i], sl2, -m[i >> 1]));
+      l[i >> 1] += s[nt][i];  // this lane's part of the row sum
+    }
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ o, float* __restrict__ lse, int n_bh,
+                 int sq, int sk, float sl2) {
+  using L = FwdLayout<D>;
+  constexpr int kHalves = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+  const int n_qt = (sq + kFwdRows - 1) / kFwdRows;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      FwdItem item;
+      int j = 0;  // KV tiles loaded, over all items: the ring's position
+      for (int n = 0; fwd_item<kCausal>(n, n_bh, n_qt, sk, item); ++n) {
+        // a fresh barrier passes a wait on parity 1: slots start empty
+        mbar_wait(&q_empty[n & 1], ((n >> 1) & 1) ^ 1);
+        bf16* sQ = reinterpret_cast<bf16*>(smem + L::q +
+                                           (n & 1) * L::q_bytes);
+        mbar_arrive_expect_tx(&q_full[n & 1], L::q_bytes);
+        for (int h = 0; h < kHalves; ++h)
+          tma_load_3d(sQ + h * kFwdRows * 64, &tq, &q_full[n & 1], h * 64,
+                      item.q0, item.bh);
+        for (int t = 0; t < item.n_kv; ++t, ++j) {
+          const int s = j % kStages;
+          mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+          bf16* sK = reinterpret_cast<bf16*>(smem + L::k + s * L::kv_bytes);
+          bf16* sV = reinterpret_cast<bf16*>(smem + L::v + s * L::kv_bytes);
+          mbar_arrive_expect_tx(&k_full[s], L::kv_bytes);
+          for (int h = 0; h < kHalves; ++h)
+            tma_load_3d(sK + h * kFwdKeys * 64, &tk, &k_full[s], h * 64,
+                        t * kFwdKeys, item.bh);
+          mbar_arrive_expect_tx(&v_full[s], L::kv_bytes);
+          for (int h = 0; h < kHalves; ++h)
+            tma_load_3d(sV + h * kFwdKeys * 64, &tv, &v_full[s], h * 64,
+                        t * kFwdKeys, item.bh);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // consumer 0 or 1: rows [64 cw, 64 cw + 64)
+  const int wr = ((threadIdx.x >> 5) & 3) * 16;  // the warp's 16 rows
+  const bool lane0 = (threadIdx.x & 31) == 0;
+  FwdItem item;
+  int j = 0;  // the ring position of the item's first KV tile
+  for (int n = 0; fwd_item<kCausal>(n, n_bh, n_qt, sk, item);
+       ++n, j += item.n_kv) {
+    const int row0 = item.q0 + cw * kWgRows;  // the warpgroup's rows
+    const int wrow0 = row0 + wr;
+    const bf16* sQ = reinterpret_cast<const bf16*>(smem + L::q +
+                                                   (n & 1) * L::q_bytes);
+    const bf16* sK = reinterpret_cast<const bf16*>(smem + L::k);
+    const bf16* sV = reinterpret_cast<const bf16*>(smem + L::v);
+    constexpr int kStage = L::kv_bytes / 2;  // bf16 elements a stage
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g, g + 8
+    mbar_wait(&q_full[n & 1], (n >> 1) & 1);
+    for (int t = 0; t < item.n_kv; ++t) {
+      const int s = (j + t) % kStages;
+      const uint32_t parity = ((j + t) / kStages) & 1;
+      const int k0 = t * kFwdKeys;
+      // S = Q K^T: 64 rows x 128 keys, k16 steps along D
+      float sc[16][4];
+      mbar_wait(&k_full[s], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n128(sc, desc_b128(slab(sQ, kFwdRows, h, cw) + kk * 16),
+                        desc_b128(sK + s * kStage + h * kFwdKeys * 64 +
+                                  kk * 16),
+                        h > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(sc);
+      float alpha[2];
+      if ((kCausal && k0 + kFwdKeys - 1 > row0) || k0 + kFwdKeys > sk)
+        softmax_tile<true, kCausal>(sc, m, l, alpha, wrow0, k0, sk, sl2);
+      else
+        softmax_tile<false, kCausal>(sc, m, l, alpha, wrow0, k0, sk, sl2);
+      uint32_t p[8][4];
+      to_a<16>(p, sc);  // p in v's dtype
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] *= alpha[i >> 1];
+      // O += P V: k16 steps along the 128 keys, one n64 product a half
+      mbar_wait(&v_full[s], parity);
+      fence_operand(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h)
+          wgmma_rs_n64(*reinterpret_cast<float(*)[8][4]>(&acc[8 * h]),
+                       p[kk],
+                       desc_b128(sV + s * kStage + h * kFwdKeys * 64 +
+                                 kk * 16 * 64),
+                       1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (lane0) mbar_arrive(&empty[s]);  // the stage may be refilled
+    }
+    if (lane0) mbar_arrive(&q_empty[n & 1]);  // and the Q slot
+    // acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)) (:143-149),
+    // m back from base 2
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      l[h] = fmaxf(l[h], 1e-30f);
+      const int qp = wrow0 + frag_row(2 * h);
+      if ((threadIdx.x & 3) == 0 && qp < sq)
+        lse[static_cast<size_t>(item.bh) * sq + qp] =
+            m[h] * kLn2 + logf(l[h]);
+    }
+    store_rows<D>(o + static_cast<size_t>(item.bh) * sq * D, acc, wrow0, sq,
+                  l[0], l[1]);
+  }
+}
+
+// dk/dv: 128 keys a work item, q tiles of 64 rows
+constexpr int kDkvKeys = 2 * kWgRows;
+constexpr int kDkvRows = 64;
+
+template <int D>
+struct DkvLayout {
+  static constexpr int kv_bytes = kDkvKeys * D * 2;  // [D/64][128][64]
+  static constexpr int t_bytes = kDkvRows * D * 2;   // [D/64][64][64]
+  static constexpr int k = 0;  // k + 2 i * kv_bytes: slot i of 2
+  static constexpr int v = k + kv_bytes;  // v + 2 i * kv_bytes
+  static constexpr int q = k + 4 * kv_bytes;  // q + s * t_bytes: stage s
+  static constexpr int dO = q + kStages * t_bytes;
+  // lse * log2(e) and delta of the stage's rows, f32 [kStages][64] each
+  static constexpr int lse = dO + kStages * t_bytes;
+  static constexpr int delta = lse + kStages * kDkvRows * 4;
+  // kv_full[2], kv_empty[2], full[kStages], empty[kStages]
+  static constexpr int bar = delta + kStages * kDkvRows * 4;
+  static constexpr size_t bytes = bar + 8 * (4 + 2 * kStages) + 1024;
+};
+
+// The dk/dv kernel's persistent walk, as the forward's (`fwd_item`):
+// items are a batch*head and a 128-key tile, heads fastest, key tiles
+// ascending (the causal first key tiles see the most q tiles).
+struct DkvItem {
+  int bh, k0, t0, n_t;  // q tiles [t0, t0 + n_t)
+};
+
+template <bool kCausal>
+__device__ __forceinline__ bool dkv_item(int round, int n_bh, int n_kt,
+                                         int sq, DkvItem& it) {
+  const int g = gridDim.x, c = blockIdx.x;
+  const int w = round * g + ((round & 1) ? g - 1 - c : c);
+  if (w >= n_bh * n_kt) return false;
+  it.bh = w % n_bh;
+  it.k0 = w / n_bh * kDkvKeys;
+  // causal: q tiles that end at or before this key tile are all masked
+  it.t0 = kCausal ? it.k0 / kDkvRows : 0;
+  it.n_t = (sq + kDkvRows - 1) / kDkvRows - it.t0;
+  return true;
+}
+
+// p^T = exp2(s^T * sl2 - lse2) and ds^T = p^T * (dp^T - delta) * scale
+// over one 64-key x 64-row tile (:283-295), columns the q rows. kMask:
+// the tile crosses the causal diagonal or the end of q; masked p is 0
+// (the -1e30 score's weight), so rows past the end of q add exactly 0.
+template <bool kMask, bool kCausal>
+__device__ __forceinline__ void dkv_tile(float (&st)[8][4],
+                                         float (&dpt)[8][4],
+                                         const float* s_lse2,
+                                         const float* s_delta, int key0,
+                                         int q0, int sq, float sl2,
+                                         float scale) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = frag_col(nt, i);
+      float p = exp2f(fmaf(st[nt][i], sl2, -s_lse2[c]));
+      if (kMask) {
+        const int kp = key0 + frag_row(i), qp = q0 + c;
+        if (!(qp < sq && (!kCausal || qp >= kp))) p = 0.f;
+      }
+      st[nt][i] = p;
+      dpt[nt][i] = p * (dpt[nt][i] - s_delta[c]) * scale;
+    }
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fa_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int n_bh,
+                     int sq, int sk, float sl2, float scale) {
+  using L = DkvLayout<D>;
+  constexpr int kHalves = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  float* sLse2 = reinterpret_cast<float*>(smem + L::lse);
+  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* full = kv_empty + 2;
+  uint64_t* empty = full + kStages;
+  const int n_kt = (sk + kDkvKeys - 1) / kDkvKeys;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_empty[i], 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one warp
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      DkvItem item;
+      int j = 0;  // q tiles loaded, over all items: the ring's position
+      for (int n = 0; dkv_item<kCausal>(n, n_bh, n_kt, sq, item); ++n) {
+        if (lane == 0) {
+          // a fresh barrier passes a wait on parity 1: slots start empty
+          mbar_wait(&kv_empty[n & 1], ((n >> 1) & 1) ^ 1);
+          bf16* sK = reinterpret_cast<bf16*>(smem + L::k +
+                                             (n & 1) * 2 * L::kv_bytes);
+          bf16* sV = reinterpret_cast<bf16*>(smem + L::v +
+                                             (n & 1) * 2 * L::kv_bytes);
+          mbar_arrive_expect_tx(&kv_full[n & 1], 2 * L::kv_bytes);
+          for (int h = 0; h < kHalves; ++h) {
+            tma_load_3d(sK + h * kDkvKeys * 64, &tk, &kv_full[n & 1], h * 64,
+                        item.k0, item.bh);
+            tma_load_3d(sV + h * kDkvKeys * 64, &tv, &kv_full[n & 1], h * 64,
+                        item.k0, item.bh);
+          }
+        }
+        const float* lse_bh = lse + static_cast<size_t>(item.bh) * sq;
+        const float* delta_bh = delta + static_cast<size_t>(item.bh) * sq;
+        for (int t = item.t0; t < item.t0 + item.n_t; ++t, ++j) {
+          const int s = j % kStages;
+          const int q0 = t * kDkvRows;
+          mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+          // the rows' lse (in base 2) and delta; rows past the end get 0
+          for (int r = lane; r < kDkvRows; r += 32) {
+            const bool ok = q0 + r < sq;
+            sLse2[s * kDkvRows + r] = ok ? lse_bh[q0 + r] * kLog2e : 0.f;
+            sDelta[s * kDkvRows + r] = ok ? delta_bh[q0 + r] : 0.f;
+          }
+          if (lane == 0) {
+            bf16* sQ = reinterpret_cast<bf16*>(smem + L::q + s * L::t_bytes);
+            bf16* sDO =
+                reinterpret_cast<bf16*>(smem + L::dO + s * L::t_bytes);
+            mbar_arrive_expect_tx(&full[s], 2 * L::t_bytes);
+            for (int h = 0; h < kHalves; ++h) {
+              tma_load_3d(sQ + h * kBox, &tq, &full[s], h * 64, q0, item.bh);
+              tma_load_3d(sDO + h * kBox, &tdo, &full[s], h * 64, q0,
+                          item.bh);
+            }
+          } else {
+            mbar_arrive(&full[s]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // consumer 0 or 1: keys [64 cw, 64 cw + 64)
+  const int wr = ((threadIdx.x >> 5) & 3) * 16;  // the warp's 16 keys
+  const bool lane0 = (threadIdx.x & 31) == 0;
+  DkvItem item;
+  int j = 0;  // the ring position of the item's first q tile
+  for (int n = 0; dkv_item<kCausal>(n, n_bh, n_kt, sq, item);
+       ++n, j += item.n_t) {
+    const int key0 = item.k0 + cw * kWgRows;  // the warpgroup's keys
+    const int wkey0 = key0 + wr;
+    const bf16* sK = reinterpret_cast<const bf16*>(smem + L::k +
+                                                   (n & 1) * 2 * L::kv_bytes);
+    const bf16* sV = reinterpret_cast<const bf16*>(smem + L::v +
+                                                   (n & 1) * 2 * L::kv_bytes);
+    float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dk_acc[nt][i] = dv_acc[nt][i] = 0.f;
+    mbar_wait(&kv_full[n & 1], (n >> 1) & 1);
+    for (int t = 0; t < item.n_t; ++t) {
+      const int s = (j + t) % kStages;
+      const int q0 = (item.t0 + t) * kDkvRows;
+      const bf16* sQ =
+          reinterpret_cast<const bf16*>(smem + L::q + s * L::t_bytes);
+      const bf16* sDO =
+          reinterpret_cast<const bf16*>(smem + L::dO + s * L::t_bytes);
+      mbar_wait(&full[s], ((j + t) / kStages) & 1);
+      // transposed scores: rows this warpgroup's keys, columns the q tile
+      float st[8][4], dpt[8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss_n64(st, desc_b128(slab(sK, kDkvKeys, h, cw) + kk * 16),
+                       desc_b128(sQ + h * kBox + kk * 16), h > 0 || kk > 0);
+          wgmma_ss_n64(dpt, desc_b128(slab(sV, kDkvKeys, h, cw) + kk * 16),
+                       desc_b128(sDO + h * kBox + kk * 16), h > 0 || kk > 0);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(st);
+      fence_operand(dpt);
+      const float* l2 = sLse2 + s * kDkvRows;
+      const float* dl = sDelta + s * kDkvRows;
+      if ((kCausal && q0 < key0 + kWgRows) || q0 + kDkvRows > sq)
+        dkv_tile<true, kCausal>(st, dpt, l2, dl, wkey0, q0, sq, sl2, scale);
+      else
+        dkv_tile<false, kCausal>(st, dpt, l2, dl, wkey0, q0, sq, sl2, scale);
+      uint32_t pa[4][4], dsa[4][4];
+      to_a<8>(pa, st);    // p in dO's dtype
+      to_a<8>(dsa, dpt);  // ds in q's dtype
+      fence_operand(dk_acc);
+      fence_operand(dv_acc);
+      wgmma_fence();
+      // dv += p^T dO (:290), dk += ds^T q (:297): k16 steps along the q
+      // rows, one n64 product a half
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h) {
+          wgmma_rs_n64(*reinterpret_cast<float(*)[8][4]>(&dv_acc[8 * h]),
+                       pa[kk], desc_b128(sDO + h * kBox + kk * 16 * 64), 1);
+          wgmma_rs_n64(*reinterpret_cast<float(*)[8][4]>(&dk_acc[8 * h]),
+                       dsa[kk], desc_b128(sQ + h * kBox + kk * 16 * 64), 1);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(dk_acc);
+      fence_operand(dv_acc);
+      if (lane0) mbar_arrive(&empty[s]);  // the stage may be refilled
+    }
+    if (lane0) mbar_arrive(&kv_empty[n & 1]);  // and the K/V slot
+    const size_t base = static_cast<size_t>(item.bh) * sk * D;
+    store_rows<D>(dk + base, dk_acc, wkey0, sk, 1.f, 1.f);
+    store_rows<D>(dv + base, dv_acc, wkey0, sk, 1.f, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------
+// bf16 dq: mma.sync, register-resident fragments
 // ---------------------------------------------------------------------
 
 constexpr int kTcThreads = 128;  // 4 warps x 16 rows
@@ -118,8 +693,7 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 template <bool kTrans>
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             const bf16* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  const uint32_t addr = smem_u32(p);
   if (kTrans)
     asm volatile(
         "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
@@ -132,11 +706,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
         "{%0, %1, %2, %3}, [%4];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
         : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // RNE
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The A fragment (16 rows x 16 k) of rows [r0, r0 + 16) and columns
@@ -174,10 +743,10 @@ __device__ __forceinline__ void load_b_cols(uint32_t (&b)[4],
                                   LD + n0 + (lane >> 4) * 8);
 }
 
-// acc[NT][4] = A . T^T over D, A the warp's 16 rows of `a_tile` and T
-// the 64 rows of `t_tile` (8 n8 tiles); `acc2` the same with `a2_tile`
-// and `t2_tile`, sharing the loop
-template <int D, bool kTwo>
+// acc[NT][4] = A . T^T and acc2 = A2 . T2^T over D, A and A2 the
+// warp's 16 rows of `a_tile` and `a2_tile`, T and T2 the 64 rows of
+// `t_tile` and `t2_tile` (8 n8 tiles), sharing the loop
+template <int D>
 __device__ __forceinline__ void scores(float (&acc)[8][4],
                                        float (&acc2)[8][4],
                                        const bf16* a_tile,
@@ -193,17 +762,15 @@ __device__ __forceinline__ void scores(float (&acc)[8][4],
   for (int c0 = 0; c0 < D; c0 += 16) {
     uint32_t a[4], a2[4], b[4];
     load_a<LD>(a, a_tile, r0, c0);
-    if (kTwo) load_a<LD>(a2, a2_tile, r0, c0);
+    load_a<LD>(a2, a2_tile, r0, c0);
 #pragma unroll
     for (int n0 = 0; n0 < kTcRows; n0 += 16) {
       load_b_rows<LD>(b, t_tile, n0, c0);
       mma(acc[n0 / 8], a, b[0], b[1]);
       mma(acc[n0 / 8 + 1], a, b[2], b[3]);
-      if (kTwo) {
-        load_b_rows<LD>(b, t2_tile, n0, c0);
-        mma(acc2[n0 / 8], a2, b[0], b[1]);
-        mma(acc2[n0 / 8 + 1], a2, b[2], b[3]);
-      }
+      load_b_rows<LD>(b, t2_tile, n0, c0);
+      mma(acc2[n0 / 8], a2, b[0], b[1]);
+      mma(acc2[n0 / 8 + 1], a2, b[2], b[3]);
     }
   }
 }
@@ -224,130 +791,6 @@ __device__ __forceinline__ void accumulate(float (&out)[D / 8][4],
       mma(out[n0 / 8], p[c], b[0], b[1]);
       mma(out[n0 / 8 + 1], p[c], b[2], b[3]);
     }
-}
-
-// Element i of n8 tile nt of a warp's 16 x 64 accumulator sits at row
-// (lane / 4) + 8 * (i / 2), column 8 * nt + 2 * (lane % 4) + i % 2; two
-// neighbouring tiles form one A fragment of the next product.
-__device__ __forceinline__ int frag_row(int i) {
-  return ((threadIdx.x & 31) >> 2) + 8 * (i >> 1);
-}
-__device__ __forceinline__ int frag_col(int nt, int i) {
-  return 8 * nt + 2 * (threadIdx.x & 3) + (i & 1);
-}
-
-// a 16 x 64 f32 accumulator, rounded to bf16, as 4 A fragments
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
-                                     const float (&x)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    a[nt >> 1][(nt & 1) * 2] = pack_bf16(x[nt][0], x[nt][1]);
-    a[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(x[nt][2], x[nt][3]);
-  }
-}
-
-// rows [row0, row0 + 16) of the warp's f32 accumulator, divided by
-// the row's divisor (l0 for rows g, l1 for rows g + 8) and rounded to
-// bf16, into a [rows, D] row-major matrix
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst,
-                                           const float (&x)[D / 8][4],
-                                           int row0, int rows, float l0,
-                                           float l1) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + frag_row(2 * half);
-    if (r >= rows) continue;
-    const float l = half ? l1 : l0;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r) * D +
-                                   frag_col(nt, 0)) =
-          pack_bf16(x[nt][2 * half] / l, x[nt][2 * half + 1] / l);
-  }
-}
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-    fa_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o,
-              float* __restrict__ lse, int sq, int sk, float scale) {
-  using L = TcTile<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::bytes);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * L::bytes);
-
-  const int q0 = blockIdx.x * kTcRows;
-  const size_t bh = blockIdx.y;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's rows in the tile
-  const bf16* kb = k + bh * sk * D;
-  const bf16* vb = v + bh * sk * D;
-  load_tile<kTcThreads, bf16, kTcRows, D>(sQ, L::LD, q + bh * sq * D, q0,
-                                          sq);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g, g + 8
-  // causal: KV tiles at or past the q tile's end are all masked
-  const int kv_end = kCausal ? min(sk, q0 + kTcRows) : sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kTcRows) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);
-    load_tile<kTcThreads, bf16, kTcRows, D>(sV, L::LD, vb, k0, sk);
-    __syncthreads();
-    float s[8][4], unused[8][4];
-    scores<D, false>(s, unused, sQ, sK, nullptr, nullptr, r0);
-    // online softmax over this tile (:130-141); a row's 64 scores are
-    // spread over the 4 lanes of a quad
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qp = q0 + r0 + frag_row(i), kp = k0 + frag_col(nt, i);
-        const bool ok = kp < sk && (!kCausal || qp >= kp);
-        s[nt][i] = ok ? s[nt][i] * scale : kNegInf;
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nt][i] = expf(s[nt][i] - m[i >> 1]);
-        l[i >> 1] += s[nt][i];  // this lane's part of the row sum
-      }
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] *= alpha[i >> 1];
-    uint32_t p[4][4];
-    to_a(p, s);  // p in v's dtype
-    accumulate<D>(acc, p, sV);
-  }
-  // acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)) (:143-149)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    l[h] = fmaxf(l[h], 1e-30f);
-    const int qp = q0 + r0 + frag_row(2 * h);
-    if ((threadIdx.x & 3) == 0 && qp < sq)
-      lse[bh * sq + qp] = m[h] + logf(l[h]);
-  }
-  store_rows<D>(o + bh * sq * D, acc, q0 + r0, sq, l[0], l[1]);
 }
 
 template <int D, bool kCausal>
@@ -392,7 +835,7 @@ __global__ void __launch_bounds__(kTcThreads)
     load_tile<kTcThreads, bf16, kTcRows, D>(sV, L::LD, vb, k0, sk);
     __syncthreads();
     float s[8][4], dp[8][4];
-    scores<D, true>(s, dp, sQ, sK, sDO, sV, r0);  // s = Q K^T, dp = dO V^T
+    scores<D>(s, dp, sQ, sK, sDO, sV, r0);  // s = Q K^T, dp = dO V^T
     // p = exp(s - lse); ds = p * (dp - delta) * scale (:243-247)
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -409,73 +852,6 @@ __global__ void __launch_bounds__(kTcThreads)
     accumulate<D>(acc, ds, sK);
   }
   store_rows<D>(dq + bh * sq * D, acc, q0 + r0, sq, 1.f, 1.f);
-}
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-    fa_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int sq, int sk, float scale) {
-  using L = TcTile<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::bytes);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + 2 * L::bytes);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + 3 * L::bytes);
-  float* sLse = reinterpret_cast<float*>(smem + 4 * L::bytes);
-  float* sDelta = sLse + kTcRows;
-
-  const int k0 = blockIdx.x * kTcRows;
-  const size_t bh = blockIdx.y;
-  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's keys in the tile
-  const bf16* qb = q + bh * sq * D;
-  const bf16* dob = dout + bh * sq * D;
-  load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, k + bh * sk * D, k0,
-                                          sk);
-  load_tile<kTcThreads, bf16, kTcRows, D>(sV, L::LD, v + bh * sk * D, k0,
-                                          sk);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[nt][i] = dv_acc[nt][i] = 0.f;
-  // causal: q tiles that end at or before this KV tile are all masked
-  for (int q0 = kCausal ? k0 : 0; q0 < sq; q0 += kTcRows) {
-    __syncthreads();
-    load_tile<kTcThreads, bf16, kTcRows, D>(sQ, L::LD, qb, q0, sq);
-    load_tile<kTcThreads, bf16, kTcRows, D>(sDO, L::LD, dob, q0, sq);
-    for (int r = threadIdx.x; r < kTcRows; r += kTcThreads) {
-      const bool ok = q0 + r < sq;
-      sLse[r] = ok ? lse[bh * sq + q0 + r] : 0.f;
-      sDelta[r] = ok ? delta[bh * sq + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    // transposed scores: rows are this warp's keys, columns the q tile
-    float st[8][4], dpt[8][4];
-    scores<D, true>(st, dpt, sK, sQ, sV, sDO, r0);  // K Q^T, V dO^T
-    // rows past the end of q score -1e30 too, so they add exactly 0
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = frag_col(nt, i);
-        const int kp = k0 + r0 + frag_row(i), qp = q0 + c;
-        const bool ok = kp < sk && qp < sq && (!kCausal || qp >= kp);
-        const float p =
-            expf((ok ? st[nt][i] * scale : kNegInf) - sLse[c]);
-        st[nt][i] = p;
-        dpt[nt][i] = p * (dpt[nt][i] - sDelta[c]) * scale;
-      }
-    uint32_t pa[4][4], dsa[4][4];
-    to_a(pa, st);    // p in dO's dtype
-    to_a(dsa, dpt);  // ds in q's dtype
-    accumulate<D>(dv_acc, pa, sDO);  // dv += p^T dO (:290)
-    accumulate<D>(dk_acc, dsa, sQ);  // dk += ds^T q (:297)
-  }
-  store_rows<D>(dk + bh * sk * D, dk_acc, k0 + r0, sk, 1.f, 1.f);
-  store_rows<D>(dv + bh * sk * D, dv_acc, k0 + r0, sk, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------
@@ -757,35 +1133,61 @@ __global__ void __launch_bounds__(kThreads)
 // launches
 // ---------------------------------------------------------------------
 
-template <typename Kern, typename... Args>
-cudaError_t launch(Kern kern, dim3 grid, int threads, size_t smem,
-                   cudaStream_t st, Args... args) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// the kernel's dynamic shared memory limit, set once per instantiation
+template <auto Kern>
+cudaError_t smem_limit(size_t bytes) {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      Kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  return e;
+}
+
+template <auto Kern, typename... Args>
+cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t st,
+                   Args... args) {
+  const cudaError_t e = smem_limit<Kern>(smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, threads, smem, st>>>(args...);
+  Kern<<<grid, threads, smem, st>>>(args...);
   return cudaGetLastError();
 }
 
-dim3 tiles(int rows, int tile, int bh) {
-  return dim3((rows + tile - 1) / tile, bh);
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// SMs of the current device (read once): the persistent kernels' grid
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  return n;
 }
+
+// (row tile, batch*head): the dq and f32 kernels
+dim3 tiles(int rows, int tile, int bh) { return dim3(cdiv(rows, tile), bh); }
 
 template <int D, bool kCausal>
 cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
                 void* o, void* lse, int bh, int sq, int sk, float scale,
                 cudaStream_t st) {
   float* l = static_cast<float*>(lse);
-  if (dtype == 1)
-    return launch(fa_fwd_tc<D, kCausal>, tiles(sq, kTcRows, bh), kTcThreads,
-                  3 * TcTile<D>::bytes, st, static_cast<const bf16*>(q),
-                  static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<bf16*>(o), l, sq, sk, scale);
-  return launch(fa_fwd_f32<D, kCausal>, tiles(sq, kRows, bh), kThreads,
-                FwdSmem<D>::bytes, st, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<float*>(o), l, sq, sk, scale);
+  if (dtype == 1) {
+    CUtensorMap tq, tk, tv;
+    cudaError_t e = make_map(&tq, q, D, sq, bh, kFwdRows);
+    if (e == cudaSuccess) e = make_map(&tk, k, D, sk, bh, kFwdKeys);
+    if (e == cudaSuccess) e = make_map(&tv, v, D, sk, bh, kFwdKeys);
+    if (e != cudaSuccess) return e;
+    return launch<fa_fwd_wgmma<D, kCausal>>(
+        dim3(min(bh * cdiv(sq, kFwdRows), sm_count())), kWsThreads,
+        FwdLayout<D>::bytes, st, tq, tk, tv, static_cast<bf16*>(o), l, bh,
+        sq, sk, scale * kLog2e);
+  }
+  return launch<fa_fwd_f32<D, kCausal>>(
+      tiles(sq, kRows, bh), kThreads, FwdSmem<D>::bytes, st,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), l, sq, sk,
+      scale);
 }
 
 template <int D, bool kCausal>
@@ -796,17 +1198,16 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 1)
-    return launch(fa_bwd_dq_tc<D, kCausal>, tiles(sq, kTcRows, bh),
-                  kTcThreads, 4 * TcTile<D>::bytes, st,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(dout), l, dl,
-                  static_cast<bf16*>(dq), sq, sk, scale);
-  return launch(fa_bwd_dq_f32<D, kCausal>, tiles(sq, kRows, bh), kThreads,
-                BwdSmem<D>::dq_bytes, st, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<const float*>(dout), l, dl,
-                static_cast<float*>(dq), sq, sk, scale);
+    return launch<fa_bwd_dq_tc<D, kCausal>>(
+        tiles(sq, kTcRows, bh), kTcThreads, 4 * TcTile<D>::bytes, st,
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
+        static_cast<bf16*>(dq), sq, sk, scale);
+  return launch<fa_bwd_dq_f32<D, kCausal>>(
+      tiles(sq, kRows, bh), kThreads, BwdSmem<D>::dq_bytes, st,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
+      static_cast<float*>(dq), sq, sk, scale);
 }
 
 template <int D, bool kCausal>
@@ -816,21 +1217,24 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                     cudaStream_t st) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (dtype == 1)
-    return launch(fa_bwd_dkv_tc<D, kCausal>, tiles(sk, kTcRows, bh),
-                  kTcThreads,
-                  4 * TcTile<D>::bytes + 2 * kTcRows * sizeof(float), st,
-                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v),
-                  static_cast<const bf16*>(dout), l, dl,
-                  static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk,
-                  scale);
-  return launch(fa_bwd_dkv_f32<D, kCausal>, tiles(sk, kRows, bh), kThreads,
-                BwdSmem<D>::dkv_bytes, st, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<const float*>(dout), l, dl,
-                static_cast<float*>(dk), static_cast<float*>(dv), sq, sk,
-                scale);
+  if (dtype == 1) {
+    CUtensorMap tq, tk, tv, tdo;
+    cudaError_t e = make_map(&tq, q, D, sq, bh, kDkvRows);
+    if (e == cudaSuccess) e = make_map(&tdo, dout, D, sq, bh, kDkvRows);
+    if (e == cudaSuccess) e = make_map(&tk, k, D, sk, bh, kDkvKeys);
+    if (e == cudaSuccess) e = make_map(&tv, v, D, sk, bh, kDkvKeys);
+    if (e != cudaSuccess) return e;
+    return launch<fa_bwd_dkv_wgmma<D, kCausal>>(
+        dim3(min(bh * cdiv(sk, kDkvKeys), sm_count())), kWsThreads,
+        DkvLayout<D>::bytes, st, tq, tk, tv, tdo, l, dl,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, sq, sk,
+        scale * kLog2e, scale);
+  }
+  return launch<fa_bwd_dkv_f32<D, kCausal>>(
+      tiles(sk, kRows, bh), kThreads, BwdSmem<D>::dkv_bytes, st,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
+      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, scale);
 }
 
 // one call of F<D, kCausal> for the run-time head_dim (64, 128) and

@@ -128,8 +128,15 @@ class TrainStepCompiler:
             (loss * float(scale)).backward()
         else:
             loss.backward()
-        named = [(n, p) for n, p in opt._named
-                 if p.grad is not None and p.requires_grad]
+        # a trainable parameter the loss does not reach gets a zero
+        # gradient, as under `value_and_grad` over every trainable
+        # parameter (:1629-1660): the update still moves it (decoupled
+        # decay, decaying moments) and its merge buffer exists from the
+        # first microstep. Frozen parameters stay out.
+        named = [(n, p) for n, p in opt._named if p.requires_grad]
+        for _, p in named:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         with torch.no_grad():
             if self._grad_scaler is not None:
                 inv = float(np.float32(1.0) / scale)

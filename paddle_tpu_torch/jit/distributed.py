@@ -148,8 +148,7 @@ class DistributedTrainStepCompiler(TrainStepCompiler):
         if W == 1:
             return loss, named
         params = self._params()
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in params}
+        grads = {n: p.grad for n, p in params}
         dev = loss.device
         div = torch.tensor(float(W), device=dev)   # a true division
         cfg = self._compress
