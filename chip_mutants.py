@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Planted faults in the bf16 flash-attention kernels, the multi-tensor
-optimizer kernel, the multi-query paged-attention kernel and the int8
-quantize kernel, and which of `chip_smoke.py`'s checks catch them.
+"""Planted faults in the bf16 flash-attention kernels, the LayerNorm
+backward kernel, the multi-tensor optimizer kernel, the multi-query
+paged-attention kernel and the int8 quantize kernel, and which of
+`chip_smoke.py`'s checks catch them.
 
     python3 chip_mutants.py
 
@@ -15,8 +16,12 @@ rows or keys >= 512 of 1024), or one tile: the faults a limit set by a
 tensor's first rows would miss. Of the eight, four target the forward
 kernel (KV tile 0 skipped, the diagonal masked, the diagonal tile run
 without its mask, the last KV tile's V read from the other ring
-stage), two the dq kernel and two the dk/dv kernel (the diagonal
-masked, the last q tile skipped). The two optimizer mutants divide the
+stage), two the dq kernel (KV tile 0 skipped, the diagonal masked) and
+two the dk/dv kernel (the diagonal masked, the last q tile skipped).
+The three LayerNorm-backward mutants drop the m2 term of dx for rows
+>= 2048 of 4096, leave the CTA's last row group (two warps at H 1024
+in bf16) out of its dw/db partial, and drop ds from the last of each
+lane's vectors of dx. The two optimizer mutants divide the
 bias corrections by multiplying with an f32 reciprocal, and skip the
 last chunk of one tensor (the first of the table, GPT-2's wte). The three
 multi-query mutants let slot t see one token too many (ctx0 + t + 1),
@@ -53,10 +58,16 @@ For the control and each quantize mutant, one check:
              vs their plain versions, bit for bit, over blocks 128 / 256
              / 1024, 1-4096 blocks, zero, half-even, subnormal, NaN and
              Inf blocks
+For the control and each LayerNorm-backward mutant, one check:
+  lnbwd      chip_smoke's phase 8 check: the backward kernel vs its
+             plain version at 4096 x 1024, f32 and bf16, with and without
+             the residual, no / tanh / erf GeLU (dx within 1e-5 / 1e-2 x
+             max|ref|, dw and db within 1e-5 x max|ref|), and a second
+             call bit-identical
 Exits non-zero when the control fails a check, a flash mutant passes the
-per-row flash check, an optimizer mutant passes the optim check, a
-multi-query mutant passes the multi check, or a quantize mutant passes
-the compress check.
+per-row flash check, a LayerNorm-backward mutant passes the lnbwd check,
+an optimizer mutant passes the optim check, a multi-query mutant passes
+the multi check, or a quantize mutant passes the compress check.
 """
 from __future__ import annotations
 
@@ -71,6 +82,7 @@ FLASH = "flash_attention.cu"
 OPTIM = "optim.cu"
 PAGED = "paged_attention.cu"
 COMPRESS = "compress.cu"
+LN = "layernorm.cu"
 # (name, source in csrc/, [(unique text of the source, replacement)])
 MUTANTS = [
     ("fwd: KV tile 0 skipped for query rows >= 512", FLASH,
@@ -98,20 +110,18 @@ MUTANTS = [
        "desc_b128(sV + (t == item.n_kv - 1 && t > 0 ? (s + 1) % kStages"
        " : s) * kStage + h * kFwdKeys * 64 +")]),
     ("dq: KV tile 0 skipped for query rows >= 512", FLASH,
-     [("    __syncthreads();\n"
-       "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n",
-       "    __syncthreads();\n"
-       "    if (k0 == 0 && q0 >= 512) continue;\n"
-       "    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);\n"
-       )]),
+     [("      mbar_wait(&k_full[s], par);\n",
+       "      mbar_wait(&k_full[s], par);\n"
+       "      if (t == 0 && item.q0 >= 512) {\n"
+       "        mbar_wait(&v_full[s], par);\n"
+       "        if (lane0) mbar_arrive(&empty[s]);\n"
+       "        continue;\n"
+       "      }\n")]),
     ("dq: causal diagonal masked for query rows >= 512", FLASH,
-     [("        const bool ok = kp < sk && (!kCausal || qp >= kp);\n"
-       "        const float p =\n"
-       "            expf((ok ? s[nt][i]",
-       "        const bool ok = kp < sk && (!kCausal || qp > kp ||\n"
-       "                                    (qp == kp && qp < 512));\n"
-       "        const float p =\n"
-       "            expf((ok ? s[nt][i]")]),
+     [("        if (!(kp < sk && (!kCausal || qp >= kp))) p = 0.f;\n",
+       "        if (!(kp < sk && (!kCausal || qp > kp ||\n"
+       "                          (qp == kp && qp < 512))))\n"
+       "          p = 0.f;\n")]),
     ("dk/dv: causal diagonal masked for keys >= 512", FLASH,
      [("        if (!(qp < sq && (!kCausal || qp >= kp))) p = 0.f;\n",
        "        if (!(qp < sq && (!kCausal || qp > kp ||\n"
@@ -124,6 +134,16 @@ MUTANTS = [
        "        if (lane0) mbar_arrive(&empty[s]);\n"
        "        continue;\n"
        "      }\n")]),
+    ("lnbwd: the m2 term of dx dropped for rows >= 2048", LN,
+     [("        float v = rs * (g * wv[e] - m1 - xh * m2);\n",
+       "        float v = rs * (g * wv[e] - m1 -\n"
+       "                        (row >= 2048 ? 0.f : xh * m2));\n")]),
+    ("lnbwd: the CTA's last row group left out of its dw/db partial", LN,
+     [("    for (int g = 0; g < groups; ++g) v += sums",
+       "    for (int g = 0; g < groups - 1; ++g) v += sums")]),
+    ("lnbwd: ds dropped from each lane's last vector of dx", LN,
+     [("        if (kResidual) v += rv[e];\n",
+       "        if (kResidual && j < kV - 1) v += rv[e];\n")]),
     ("optim: bias corrections multiplied by an f32 reciprocal", OPTIM,
      [("    const float mhat = __fdiv_rn(m, d1);\n"
        "    const float vhat = __fdiv_rn(v, d2);\n",
@@ -273,6 +293,16 @@ def multi_check(dev):
         return f"FAILS ({e})"
 
 
+def lnbwd_check(dev):
+    import chip_smoke as cs
+
+    try:
+        cs.ln_bwd_checks(dev)
+        return "passes"
+    except AssertionError as e:
+        return f"FAILS ({e})"
+
+
 def compress_check(dev):
     import chip_smoke as cs
 
@@ -318,6 +348,8 @@ def main():
                 res["multi"] = multi_check(dev)
             if src in (None, COMPRESS):
                 res["compress"] = compress_check(dev)
+            if src in (None, LN):
+                res["lnbwd"] = lnbwd_check(dev)
         finally:
             K._lib = control
         for check, verdict in res.items():
@@ -331,11 +363,13 @@ def main():
             ok &= res["optim"].startswith("FAILS")
         elif src == PAGED:
             ok &= res["multi"].startswith("FAILS")
+        elif src == LN:
+            ok &= res["lnbwd"].startswith("FAILS")
         else:
             ok &= res["compress"].startswith("FAILS")
     print(f"[mutant] {'every' if ok else 'NOT every'} mutant fails its "
-          "check (per-row flash, optim, multi, compress) and the control "
-          "passes every check")
+          "check (per-row flash, optim, multi, compress, lnbwd) and the "
+          "control passes every check")
     return 0 if ok else 1
 
 

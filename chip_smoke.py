@@ -27,7 +27,8 @@ without them. Phases, each printing one line (or a few):
               times against the bound, SDPA forward and SDPA backward
   8. lnbwd    LayerNorm backward kernel vs its plain version at the
               training shape (4096 x 1024), f32 and bf16, with and
-              without residual, no / tanh / erf GeLU; times
+              without residual, no / tanh / erf GeLU, and a second call
+              bit-identical; times with and without the residual
   9. train    GPT-2 345M training at full width, bench_gpt2's on-chip
               config (bf16 O2, AdamW with f32 master weights, B 4 x S
               1024, random weights from seed 0) through
@@ -349,11 +350,40 @@ def phase_build():
         f"{min(regs, default=0)}..{max(regs, default=0)}; non-zero spills:"
         f" {spills or 'none'}")
     log("build", "bf16 flash kernels, registers (at launch; setmaxnreg "
-        "moves the wgmma kernels' producer to 40, consumers to 232) and "
+        "moves the producer warpgroup to 40, consumers to 232) and "
         "spills: " + "; ".join(
             f"{k}: {r} registers, {s}" for k, (r, s) in
             flash_registers(info["log"]).items()))
+    ln = ln_bwd_registers(info["log"])
+    log("build", f"LayerNorm backward, {len(ln)} instantiations, registers"
+        " (spill bytes stored): " + ", ".join(
+            f"{k} {r} ({s})" for k, (r, s) in ln.items()))
     return info
+
+
+def ln_bwd_registers(log_text):
+    """{"<dtype> res<0|1> act<n> vw<n> kv<n>": (registers, spill bytes
+    stored)} of the LayerNorm backward kernel's instantiations, from
+    nvcc's `-Xptxas=-v` output."""
+    out, fn, spill = {}, None, 0
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if fn and m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if fn and m:
+            k = re.search(r"ln_bwd_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d)"
+                          r"ELi(\d+)ELi(\d+)E", fn)
+            if k:
+                out[f"{'f32' if k.group(1) == 'f' else 'bf16'} res"
+                    f"{k.group(2)} act{k.group(3)} vw{k.group(4)} "
+                    f"kv{k.group(5)}"] = (int(m.group(1)), spill)
+            fn = None
+    return dict(sorted(out.items()))
 
 
 def flash_registers(log_text):
@@ -370,7 +400,7 @@ def flash_registers(log_text):
             spill = ln.strip().split(", ", 1)[1]
         m = re.search(r"Used (\d+) registers", ln)
         if fn and m:
-            k = re.search(r"(fa_(?:fwd_wgmma|bwd_dkv_wgmma|bwd_dq_tc))"
+            k = re.search(r"(fa_(?:fwd|bwd_dq|bwd_dkv)_wgmma)"
                           r"ILi(\d+)ELb([01])E", fn)
             if k:
                 name = (f"{k.group(1)}<{k.group(2)}, "
@@ -922,7 +952,13 @@ def phase_flash(dev, shape=(TRAIN_BATCH, 16, TRAIN_SEQ, 64), iters=50):
 
 
 # -- phase 8 -----------------------------------------------------------
-def phase_ln_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100):
+def ln_bwd_checks(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024):
+    """Phase 8's check: the LayerNorm forward kernel (phase 4's limits)
+    and then the backward kernel against their plain versions on the
+    forward's outputs, f32 and bf16, with and without the residual, no /
+    tanh / erf GeLU; a second backward call on the same inputs gives
+    bit-identical dx, dw and db. Returns ({dtype: forward max|err|},
+    {dtype: backward max|err|})."""
     from paddle_tpu_torch.incubate.nn.kernels.layernorm import (
         layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
         layer_norm_fwd_reference)
@@ -978,6 +1014,20 @@ def phase_ln_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100):
                         f"{tag} {name}", g_, w_,
                         1e-5 * float(w_.abs().max()), 1e-5))
                 err[dtype] = max(err[dtype], e)
+                again = layer_norm_bwd(dy, dsr, s, w, b, mu, rs, act, approx)
+                for name, g_, g2 in zip(("dx", "dw", "db"), got, again):
+                    if not torch.equal(g_, g2):
+                        raise AssertionError(
+                            f"{tag} {name}: two calls on the same inputs "
+                            "differ")
+    return fwd_err, err
+
+
+def phase_ln_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100):
+    from paddle_tpu_torch.incubate.nn.kernels.layernorm import (
+        layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd)
+
+    fwd_err, err = ln_bwd_checks(dev, rows, hidden)
     log("lnbwd", f"forward kernel vs plain, N={rows} H={hidden}: max|err| "
         f"f32 {fwd_err[torch.float32]:.3e} (tol 1e-5 abs + 1e-5 rel), bf16 "
         f"{fwd_err[torch.bfloat16]:.3e} (y tol 1e-2 abs + 1e-2 rel; "
@@ -985,32 +1035,47 @@ def phase_ln_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100):
     log("lnbwd", f"kernel vs plain, N={rows} H={hidden}: max|err| f32 "
         f"{err[torch.float32]:.3e} (dx 1e-5 x max|ref| + 1e-5 rel), bf16 "
         f"{err[torch.bfloat16]:.3e} (dx 1e-2 x max|ref| + 1e-2 rel); dw, db"
-        " 1e-5 x max|ref|")
+        " 1e-5 x max|ref|; a second call bit-identical (dx, dw, db)")
 
-    # times at the training shape: bf16 with residual (ln2), warm L2
-    # (the backward's inputs were just written by the op before it)
+    # times at the training shape, bf16, warm L2 (the backward's inputs
+    # were just written by the op before it): with the residual (ln2,
+    # 24 calls a step) and without (ln1 and lnf, 25)
+    rng = np.random.RandomState(5)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+
+    w = 1 + 0.1 * t(hidden)
+    b = 0.1 * t(hidden)
     x, r, dy, ds = (t(rows, hidden, dtype=torch.bfloat16) for _ in range(4))
-    _, s, mu, rs = layer_norm_fwd(x, r, w, b, eps)
-    k_ms, k_host = time_ms(
-        lambda: layer_norm_bwd(dy, ds, s, w, b, mu, rs), iters)
-    p_ms, _ = time_ms(
-        lambda: layer_norm_bwd_reference(dy, ds, s, w, b, mu, rs),
-        max(1, iters // 4))
+    _, s, mu, rs = layer_norm_fwd(x, r, w, b, 1e-5)
     # library yardstick, timed only: F.layer_norm's backward, without
     # the residual's add; weight and bias in bf16, since F.layer_norm on
     # the card takes one dtype
     xl = s.detach().requires_grad_()
     wl, bl = (t_.detach().bfloat16().requires_grad_() for t_ in (w, b))
-    yl = torch.nn.functional.layer_norm(xl, (hidden,), wl, bl, eps)
+    yl = torch.nn.functional.layer_norm(xl, (hidden,), wl, bl, 1e-5)
     l_ms, _ = time_ms(lambda: torch.autograd.grad(
         yl, (xl, wl, bl), dy, retain_graph=True), iters)
     elems = rows * hidden
-    nbytes = 4 * elems * 2 + 4 * hidden * 4 + 2 * rows * 4
-    b_ms, b_by = bound_ms(nbytes, 12 * elems)
-    log("lnbwd", f"N={rows} H={hidden} bf16 residual, warm L2, device ms: "
-        f"kernel {k_ms:.5f} | plain {p_ms:.5f} | F.layer_norm backward "
-        f"{l_ms:.5f} | bound {b_ms:.5f} ({b_by}, {nbytes} B); host ms per "
-        f"call: kernel wrapper {k_host:.5f}")
+    out = {}
+    for tag, dsr in (("residual", ds), ("no residual", None)):
+        k_ms, k_host = time_ms(
+            lambda: layer_norm_bwd(dy, dsr, s, w, b, mu, rs), iters)
+        p_ms, _ = time_ms(
+            lambda: layer_norm_bwd_reference(dy, dsr, s, w, b, mu, rs),
+            max(1, iters // 4))
+        # dy, s (, ds) read and dx written once; w, b, dw, db; mean, rstd
+        nbytes = (3 + (dsr is not None)) * elems * 2 + 4 * hidden * 4 \
+            + 2 * rows * 4
+        b_ms, b_by = bound_ms(nbytes, 12 * elems)
+        log("lnbwd", f"N={rows} H={hidden} bf16 {tag}, warm L2, device ms: "
+            f"kernel {k_ms:.5f} | plain {p_ms:.5f} | F.layer_norm backward "
+            f"{l_ms:.5f} | bound {b_ms:.5f} ({b_by}, {nbytes} B); host ms "
+            f"per call: kernel wrapper {k_host:.5f}")
+        out[tag] = (k_ms, p_ms, b_ms, b_by)
+    k_ms, p_ms, b_ms, b_by = out["residual"]
     return {"name": "fused_layer_norm_bwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/layernorm.cu",
             "replaces": "paddle_tpu/incubate/nn/pallas/layernorm.py:156",
@@ -1133,11 +1198,17 @@ def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
             f"multi-tensor kernel) {opt_ms:.3f} ms of the step's "
             f"{busy:.3f} ms device busy ({100 * opt_ms / busy:.2f}%)")
         flash = {k: sum(ms for name, ms in by.items() if k in name)
-                 for k in ("fa_fwd_wgmma", "fa_bwd_dq_tc",
+                 for k in ("fa_fwd_wgmma", "fa_bwd_dq_wgmma",
                            "fa_bwd_dkv_wgmma")}
         log("train", f"[{smi}] flash kernels in the step: " + ", ".join(
             f"{k} {ms:.3f} ms" for k, ms in flash.items()) + f" = "
             f"{sum(flash.values()):.3f} ms of {busy:.3f} ms device busy")
+        lnb = {k: sum(ms for name, ms in by.items() if k in name)
+               for k in ("ln_bwd_kernel", "ln_bwd_sum")}
+        log("train", f"[{smi}] LayerNorm backward in the step "
+            f"({per_step['fused_layer_norm_bwd']} wrapper calls): "
+            + ", ".join(f"{k} {ms:.3f} ms" for k, ms in lnb.items())
+            + f" = {sum(lnb.values()):.3f} ms of {busy:.3f} ms device busy")
     return model, counts
 
 

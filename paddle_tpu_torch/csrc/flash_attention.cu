@@ -6,7 +6,7 @@
 //   `_fa_fwd_kernel` (:97), launched by `_flash_fwd_impl` (:159):
 //     `fa_fwd_wgmma` (bf16), `fa_fwd_f32`;
 //   `_fa_bwd_dq_kernel` (:215), launched by `_flash_bwd_impl` (:345):
-//     `fa_bwd_dq_tc` (bf16), `fa_bwd_dq_f32`;
+//     `fa_bwd_dq_wgmma` (bf16), `fa_bwd_dq_f32`;
 //   `_fa_bwd_dkv_kernel` (:257), launched by `_flash_bwd_impl` (:365):
 //     `fa_bwd_dkv_wgmma` (bf16), `fa_bwd_dkv_f32`.
 //
@@ -15,9 +15,9 @@
 // q/k/v/o and lse, about 254 operations per byte, just under the ~295
 // where the bf16 tensor cores take over from memory: its bound is the
 // bytes, 0.01009 ms. The backward kernels recompute the scores and do 3
-// (dq) and 4 (dk/dv) products: dk/dv is bound by the tensor cores,
-// 17.2 GFLOP in 0.01739 ms. The [S, S] score matrix never reaches
-// device memory.
+// (dq) and 4 (dk/dv) products: both are bound by the tensor cores, dq
+// 12.9 GFLOP in 0.01304 ms, dk/dv 17.2 GFLOP in 0.01739 ms. The [S, S]
+// score matrix never reaches device memory.
 //
 // Design. The TPU walks KV tiles as a sequential grid axis and carries
 // the online-softmax state in VMEM scratch between grid steps. CTAs on
@@ -28,35 +28,31 @@
 // accumulated across work items, so there are no atomics and the
 // gradients are deterministic.
 //
-// bf16 forward and dk/dv (`fa_fwd_wgmma`, `fa_bwd_dkv_wgmma`): three
-// warpgroups a CTA. The first is the producer: it gives up registers
-// (setmaxnreg) and one thread issues TMA loads (hopper.cuh). The other
-// two are consumers with 64 rows each (the forward's 128 q rows; dk/dv's
-// 128 keys), so every streamed tile is staged once for 128 rows. The
-// kernels are persistent: one CTA an SM walks the work items (`fwd_item`,
-// `dkv_item`), the causal heavy ones first and in a snake, so one CTA's
-// next item is loading while it finishes the last. The stationary tile
-// (forward: Q; dk/dv: K and V) is loaded once an item into one of two
-// slots. The streamed tiles (forward: K and V, 128 keys; dk/dv: Q and
-// dO, 64 rows, with the rows' lse and delta) go through a ring of
-// shared-memory stages, each with a full and an empty mbarrier, so the
-// loads of the next tiles are in flight while the consumers compute.
-// TMA reads a 3-D map [B*H, S, D], so rows past a ragged end arrive as
-// zeros and never as the next head's. Every product is a `wgmma`: the
-// scores (S = Q.K^T; dk/dv: S^T = K.Q^T and dP^T = V.dO^T) with both
-// operands in shared memory, and the accumulations (O += P.V; dV +=
-// P^T.dO, dK += dS^T.Q) with P or dS^T from registers and the second
-// operand read MN-major. The wgmma m64 accumulator gives each warp the
-// layout of an m16n8 accumulator, which is also the register-A layout,
-// so p and ds go from one product into the next without leaving
-// registers (`to_a`).
+// bf16 forward, dq and dk/dv (`fa_fwd_wgmma`, `fa_bwd_dq_wgmma`,
+// `fa_bwd_dkv_wgmma`): three warpgroups a CTA. The first is the producer: it
+// gives up registers (setmaxnreg) and one thread issues TMA loads (hopper.cuh).
+// The other two are consumers with 64 rows each (the forward's and dq's 128 q
+// rows; dk/dv's 128 keys), so every streamed tile is staged once for 128 rows.
+// The kernels are persistent: one CTA an SM walks the work items (`fwd_item`,
+// `dkv_item`), the causal heavy ones first and in a snake, so one CTA's next
+// item is loading while it finishes the last. The stationary tiles (forward: Q;
+// dq: Q and dO, each consumer row's lse and delta in registers; dk/dv: K and V)
+// are loaded once an item into one of two slots. The streamed tiles (forward: K
+// and V, 128 keys; dq: K and V, 128 keys at D 64, 64 at D 128; dk/dv: Q and dO,
+// 64 rows, with the rows' lse and delta) go through a ring of shared-memory
+// stages, each with a full and an empty mbarrier, so the loads of the next
+// tiles are in flight while the consumers compute. TMA reads a 3-D map [B*H, S,
+// D], so rows past a ragged end arrive as zeros and never as the next head's.
+// Every product is a `wgmma`: the scores (S = Q.K^T; dq: also dP = dO.V^T;
+// dk/dv: S^T = K.Q^T and dP^T = V.dO^T) with both operands in shared memory,
+// and the accumulations (O += P.V; dQ += dS.K; dV += P^T.dO, dK += dS^T.Q) with
+// P or dS from registers and the second operand read MN-major. The wgmma m64
+// accumulator gives each warp the layout of an m16n8 accumulator, which is also
+// the register-A layout, so p and ds go from one product into the next without
+// leaving registers (`to_a`).
 // The softmax works in base 2: scale * log2(e) is folded into one FFMA
 // before exp2f, and the forward writes the natural-log lse. Only tiles
 // that cross the causal diagonal or a ragged end run the mask.
-//
-// bf16 dq (`fa_bwd_dq_tc`): 4 warps, each owning 16 rows of a 64-row q
-// tile, `mma.sync.m16n8k16` fed by `ldmatrix` from tiles staged by all
-// threads.
 //
 // f32, the comparison dtype: no tensor-core route keeps f32 exact, so
 // 8 warps share shared-memory tiles of 32 rows and compute the products
@@ -220,7 +216,7 @@ struct FwdItem {
   int bh, q0, n_kv;
 };
 
-template <bool kCausal>
+template <bool kCausal, int kKeys = kFwdKeys>
 __device__ __forceinline__ bool fwd_item(int round, int n_bh, int n_qt,
                                          int sk, FwdItem& it) {
   const int g = gridDim.x, c = blockIdx.x;
@@ -230,8 +226,8 @@ __device__ __forceinline__ bool fwd_item(int round, int n_bh, int n_qt,
   const int t = w / n_bh;
   it.q0 = (kCausal ? n_qt - 1 - t : t) * kFwdRows;
   // causal: KV tiles past the q tile's last row are all masked
-  it.n_kv = (sk + kFwdKeys - 1) / kFwdKeys;
-  if (kCausal) it.n_kv = min(it.n_kv, it.q0 / kFwdKeys + 1);
+  it.n_kv = (sk + kKeys - 1) / kKeys;
+  if (kCausal) it.n_kv = min(it.n_kv, (it.q0 + kFwdRows - 1) / kKeys + 1);
   return true;
 }
 
@@ -664,194 +660,236 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ---------------------------------------------------------------------
-// bf16 dq: mma.sync, register-resident fragments
+// bf16 dq: TMA ring, wgmma, warp specialisation
 // ---------------------------------------------------------------------
 
-constexpr int kTcThreads = 128;  // 4 warps x 16 rows
-constexpr int kTcRows = 64;      // rows of every tile
-
+// dq: 128 q rows a work item (the forward's items, `fwd_item`), K and V
+// tiles of 128 keys at D 64 and of 64 keys at D 128, where two slots of
+// Q and dO (128 KB) and a ring of 128-key tiles (128 KB) would not fit
+// in shared memory, nor 128-key scores beside a D-128 accumulator in
+// registers
 template <int D>
-struct TcTile {
-  static constexpr int LD = D + 8;  // row pitch in bf16: 16 bytes of pad
-  static constexpr size_t bytes = sizeof(bf16) * kTcRows * LD;
+struct DqLayout {
+  static constexpr int keys = D == 64 ? 128 : 64;
+  static constexpr int q_bytes = kFwdRows * D * 2;  // [D/64][128][64]
+  static constexpr int kv_bytes = keys * D * 2;
+  static constexpr int q = 0;  // q + 2 i * q_bytes: slot i of 2
+  static constexpr int dO = q + q_bytes;  // dO + 2 i * q_bytes
+  static constexpr int k = q + 4 * q_bytes;  // k + s * kv_bytes: stage s
+  static constexpr int v = k + kStages * kv_bytes;
+  // q_full[2], q_empty[2], k_full[kStages], v_full[kStages],
+  // empty[kStages]
+  static constexpr int bar = v + kStages * kv_bytes;
+  static constexpr size_t bytes = bar + 8 * (4 + 3 * kStages) + 1024;
 };
 
-// d += a . b for one m16n8k16 bf16 product with f32 accumulation
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices from shared memory; lane l gives the address
-// of row (l % 8) of matrix (l / 8). `kTrans` hands each lane a column
-// pair instead of a row pair.
-template <bool kTrans>
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const bf16* p) {
-  const uint32_t addr = smem_u32(p);
-  if (kTrans)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
+// d (+)= A . B^T for one m64 x N x k16 step, both K-major in shared
+// memory, N 128 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_ss_n(float (&d)[N / 8][4], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, a, b, accumulate);
   else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(addr));
+    wgmma_ss_n64(d, a, b, accumulate);
 }
 
-// The A fragment (16 rows x 16 k) of rows [r0, r0 + 16) and columns
-// [c0, c0 + 16) of a row-major shared tile.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int r0, int c0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4<false>(a, tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-
-// B fragments of two n8 tiles for S = A . T^T, T a row-major shared
-// tile whose rows are the n index: rows [n0, n0 + 16), columns (the k
-// index) [c0, c0 + 16). b[0], b[1] for rows n0..n0+7; b[2], b[3] for
-// n0+8..n0+15.
-template <int LD>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4],
-                                            const bf16* tile, int n0,
-                                            int c0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4<false>(b, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                            c0 + ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of two n8 tiles for O = P . T, T a row-major shared tile
-// whose rows are the k index: rows [k0, k0 + 16), columns (the n index)
-// [n0, n0 + 16). b[0], b[1] for columns n0..n0+7; b[2], b[3] for
-// n0+8..n0+15.
-template <int LD>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4],
-                                            const bf16* tile, int k0,
-                                            int n0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4<true>(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  LD + n0 + (lane >> 4) * 8);
-}
-
-// acc[NT][4] = A . T^T and acc2 = A2 . T2^T over D, A and A2 the
-// warp's 16 rows of `a_tile` and `a2_tile`, T and T2 the 64 rows of
-// `t_tile` and `t2_tile` (8 n8 tiles), sharing the loop
-template <int D>
-__device__ __forceinline__ void scores(float (&acc)[8][4],
-                                       float (&acc2)[8][4],
-                                       const bf16* a_tile,
-                                       const bf16* t_tile,
-                                       const bf16* a2_tile,
-                                       const bf16* t2_tile, int r0) {
-  constexpr int LD = TcTile<D>::LD;
+// p = exp2(s * sl2 - lse2) and ds = p * (dp - delta) * scale over one
+// 64-row x 8NT-key tile (:243-247), ds left in dp. kMask: the tile
+// crosses the causal diagonal or the end of k; masked p is 0 (the -1e30
+// score's weight), so keys past the end add exactly 0.
+template <bool kMask, bool kCausal, int NT>
+__device__ __forceinline__ void dq_tile(const float (&sc)[NT][4],
+                                        float (&dp)[NT][4],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], int row0,
+                                        int k0, int sk, float sl2,
+                                        float scale) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = acc2[nt][i] = 0.f;
-#pragma unroll
-  for (int c0 = 0; c0 < D; c0 += 16) {
-    uint32_t a[4], a2[4], b[4];
-    load_a<LD>(a, a_tile, r0, c0);
-    load_a<LD>(a2, a2_tile, r0, c0);
-#pragma unroll
-    for (int n0 = 0; n0 < kTcRows; n0 += 16) {
-      load_b_rows<LD>(b, t_tile, n0, c0);
-      mma(acc[n0 / 8], a, b[0], b[1]);
-      mma(acc[n0 / 8 + 1], a, b[2], b[3]);
-      load_b_rows<LD>(b, t2_tile, n0, c0);
-      mma(acc2[n0 / 8], a2, b[0], b[1]);
-      mma(acc2[n0 / 8 + 1], a2, b[2], b[3]);
-    }
-  }
-}
-
-// out[D/8][4] += P . T, P the A fragments of a 16 x 64 product
-// (p[c] for k columns [16c, 16c + 16)), T a row-major [64, D] tile
-template <int D>
-__device__ __forceinline__ void accumulate(float (&out)[D / 8][4],
-                                           const uint32_t (&p)[4][4],
-                                           const bf16* tile) {
-  constexpr int LD = TcTile<D>::LD;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int n0 = 0; n0 < D; n0 += 16) {
-      uint32_t b[4];
-      load_b_cols<LD>(b, tile, c * 16, n0);
-      mma(out[n0 / 8], p[c], b[0], b[1]);
-      mma(out[n0 / 8 + 1], p[c], b[2], b[3]);
+    for (int i = 0; i < 4; ++i) {
+      float p = exp2f(fmaf(sc[nt][i], sl2, -lse2[i >> 1]));
+      if (kMask) {
+        const int qp = row0 + frag_row(i), kp = k0 + frag_col(nt, i);
+        if (!(kp < sk && (!kCausal || qp >= kp))) p = 0.f;
+      }
+      dp[nt][i] = p * (dp[nt][i] - dl[i >> 1]) * scale;
     }
 }
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTcThreads)
-    fa_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                 int sq, int sk, float scale) {
-  using L = TcTile<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::bytes);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * L::bytes);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 3 * L::bytes);
+__global__ void __launch_bounds__(kWsThreads, 1)
+    fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int n_bh, int sq, int sk, float sl2, float scale) {
+  using L = DqLayout<D>;
+  constexpr int kHalves = D / 64;
+  constexpr int kKeys = L::keys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+  const int n_qt = (sq + kFwdRows - 1) / kFwdRows;
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  const int q0 = blockIdx.x * kTcRows;
-  const size_t bh = blockIdx.y;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const bf16* kb = k + bh * sk * D;
-  const bf16* vb = v + bh * sk * D;
-  load_tile<kTcThreads, bf16, kTcRows, D>(sQ, L::LD, q + bh * sq * D, q0,
-                                          sq);
-  load_tile<kTcThreads, bf16, kTcRows, D>(sDO, L::LD, dout + bh * sq * D,
-                                          q0, sq);
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qp = q0 + r0 + frag_row(2 * h);
-    row_lse[h] = qp < sq ? lse[bh * sq + qp] : 0.f;
-    row_delta[h] = qp < sq ? delta[bh * sq + qp] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-  const int kv_end = kCausal ? min(sk, q0 + kTcRows) : sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kTcRows) {
-    __syncthreads();
-    load_tile<kTcThreads, bf16, kTcRows, D>(sK, L::LD, kb, k0, sk);
-    load_tile<kTcThreads, bf16, kTcRows, D>(sV, L::LD, vb, k0, sk);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    scores<D>(s, dp, sQ, sK, sDO, sV, r0);  // s = Q K^T, dp = dO V^T
-    // p = exp(s - lse); ds = p * (dp - delta) * scale (:243-247)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qp = q0 + r0 + frag_row(i), kp = k0 + frag_col(nt, i);
-        const bool ok = kp < sk && (!kCausal || qp >= kp);
-        const float p =
-            expf((ok ? s[nt][i] * scale : kNegInf) - row_lse[i >> 1]);
-        s[nt][i] = p * (dp[nt][i] - row_delta[i >> 1]) * scale;
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      FwdItem item;
+      int j = 0;  // KV tiles loaded, over all items: the ring's position
+      for (int n = 0; fwd_item<kCausal, kKeys>(n, n_bh, n_qt, sk, item);
+           ++n) {
+        // a fresh barrier passes a wait on parity 1: slots start empty
+        mbar_wait(&q_empty[n & 1], ((n >> 1) & 1) ^ 1);
+        bf16* sQ = reinterpret_cast<bf16*>(smem + L::q +
+                                           (n & 1) * 2 * L::q_bytes);
+        bf16* sDO = reinterpret_cast<bf16*>(smem + L::dO +
+                                            (n & 1) * 2 * L::q_bytes);
+        mbar_arrive_expect_tx(&q_full[n & 1], 2 * L::q_bytes);
+        for (int h = 0; h < kHalves; ++h) {
+          tma_load_3d(sQ + h * kFwdRows * 64, &tq, &q_full[n & 1], h * 64,
+                      item.q0, item.bh);
+          tma_load_3d(sDO + h * kFwdRows * 64, &tdo, &q_full[n & 1], h * 64,
+                      item.q0, item.bh);
+        }
+        for (int t = 0; t < item.n_kv; ++t, ++j) {
+          const int s = j % kStages;
+          mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+          bf16* sK = reinterpret_cast<bf16*>(smem + L::k + s * L::kv_bytes);
+          bf16* sV = reinterpret_cast<bf16*>(smem + L::v + s * L::kv_bytes);
+          mbar_arrive_expect_tx(&k_full[s], L::kv_bytes);
+          for (int h = 0; h < kHalves; ++h)
+            tma_load_3d(sK + h * kKeys * 64, &tk, &k_full[s], h * 64,
+                        t * kKeys, item.bh);
+          mbar_arrive_expect_tx(&v_full[s], L::kv_bytes);
+          for (int h = 0; h < kHalves; ++h)
+            tma_load_3d(sV + h * kKeys * 64, &tv, &v_full[s], h * 64,
+                        t * kKeys, item.bh);
+        }
       }
-    uint32_t ds[4][4];
-    to_a(ds, s);  // ds in k's dtype
-    accumulate<D>(acc, ds, sK);
+    }
+    return;
   }
-  store_rows<D>(dq + bh * sq * D, acc, q0 + r0, sq, 1.f, 1.f);
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;  // consumer 0 or 1: rows [64 cw, 64 cw + 64)
+  const int wr = ((threadIdx.x >> 5) & 3) * 16;  // the warp's 16 rows
+  const bool lane0 = (threadIdx.x & 31) == 0;
+  FwdItem item;
+  int j = 0;  // the ring position of the item's first KV tile
+  for (int n = 0; fwd_item<kCausal, kKeys>(n, n_bh, n_qt, sk, item);
+       ++n, j += item.n_kv) {
+    const int row0 = item.q0 + cw * kWgRows;  // the warpgroup's rows
+    const int wrow0 = row0 + wr;
+    const bf16* sQ = reinterpret_cast<const bf16*>(smem + L::q +
+                                                   (n & 1) * 2 * L::q_bytes);
+    const bf16* sDO = reinterpret_cast<const bf16*>(
+        smem + L::dO + (n & 1) * 2 * L::q_bytes);
+    const bf16* sK = reinterpret_cast<const bf16*>(smem + L::k);
+    const bf16* sV = reinterpret_cast<const bf16*>(smem + L::v);
+    constexpr int kStage = L::kv_bytes / 2;  // bf16 elements a stage
+    // the rows' lse (in base 2) and delta, held over the item; rows past
+    // the end get 0
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qp = wrow0 + frag_row(2 * h);
+      const size_t at = static_cast<size_t>(item.bh) * sq + qp;
+      lse2[h] = qp < sq ? lse[at] * kLog2e : 0.f;
+      dl[h] = qp < sq ? delta[at] : 0.f;
+    }
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    mbar_wait(&q_full[n & 1], (n >> 1) & 1);
+    for (int t = 0; t < item.n_kv; ++t) {
+      const int s = (j + t) % kStages;
+      const uint32_t par = ((j + t) / kStages) & 1;
+      const int k0 = t * kKeys;
+      mbar_wait(&k_full[s], par);
+      if (kCausal && k0 >= row0 + kWgRows) {  // every key past these rows
+        mbar_wait(&v_full[s], par);
+        if (lane0) mbar_arrive(&empty[s]);
+        continue;
+      }
+      // S = Q K^T and dP = dO V^T: 64 rows x kKeys keys, k16 steps
+      // along D
+      float sc[kKeys / 8][4], dp[kKeys / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n<kKeys>(sc,
+                            desc_b128(slab(sQ, kFwdRows, h, cw) + kk * 16),
+                            desc_b128(sK + s * kStage + h * kKeys * 64 +
+                                      kk * 16),
+                            h > 0 || kk > 0);
+      mbar_wait(&v_full[s], par);
+#pragma unroll
+      for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n<kKeys>(dp,
+                            desc_b128(slab(sDO, kFwdRows, h, cw) + kk * 16),
+                            desc_b128(sV + s * kStage + h * kKeys * 64 +
+                                      kk * 16),
+                            h > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(sc);
+      fence_operand(dp);
+      if ((kCausal && k0 + kKeys - 1 > row0) || k0 + kKeys > sk)
+        dq_tile<true, kCausal>(sc, dp, lse2, dl, wrow0, k0, sk, sl2, scale);
+      else
+        dq_tile<false, kCausal>(sc, dp, lse2, dl, wrow0, k0, sk, sl2, scale);
+      uint32_t dsa[kKeys / 16][4];
+      to_a<kKeys / 8>(dsa, dp);  // ds in k's dtype
+      // dQ += dS K: k16 steps along the keys, K read MN-major, one n64
+      // product a half (the forward's O += P V with K for V)
+      fence_operand(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h)
+          wgmma_rs_n64(*reinterpret_cast<float(*)[8][4]>(&acc[8 * h]),
+                       dsa[kk],
+                       desc_b128(sK + s * kStage + h * kKeys * 64 +
+                                 kk * 16 * 64),
+                       1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (lane0) mbar_arrive(&empty[s]);  // the stage may be refilled
+    }
+    if (lane0) mbar_arrive(&q_empty[n & 1]);  // and the Q/dO slot
+    store_rows<D>(dq + static_cast<size_t>(item.bh) * sq * D, acc, wrow0, sq,
+                  1.f, 1.f);
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -1164,7 +1202,7 @@ int sm_count() {
   return n;
 }
 
-// (row tile, batch*head): the dq and f32 kernels
+// (row tile, batch*head): the f32 kernels
 dim3 tiles(int rows, int tile, int bh) { return dim3(cdiv(rows, tile), bh); }
 
 template <int D, bool kCausal>
@@ -1197,12 +1235,19 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
                    cudaStream_t st) {
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  if (dtype == 1)
-    return launch<fa_bwd_dq_tc<D, kCausal>>(
-        tiles(sq, kTcRows, bh), kTcThreads, 4 * TcTile<D>::bytes, st,
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, dl,
-        static_cast<bf16*>(dq), sq, sk, scale);
+  if (dtype == 1) {
+    constexpr int kKeys = DqLayout<D>::keys;
+    CUtensorMap tq, tk, tv, tdo;
+    cudaError_t e = make_map(&tq, q, D, sq, bh, kFwdRows);
+    if (e == cudaSuccess) e = make_map(&tdo, dout, D, sq, bh, kFwdRows);
+    if (e == cudaSuccess) e = make_map(&tk, k, D, sk, bh, kKeys);
+    if (e == cudaSuccess) e = make_map(&tv, v, D, sk, bh, kKeys);
+    if (e != cudaSuccess) return e;
+    return launch<fa_bwd_dq_wgmma<D, kCausal>>(
+        dim3(min(bh * cdiv(sq, kFwdRows), sm_count())), kWsThreads,
+        DqLayout<D>::bytes, st, tq, tk, tv, tdo, l, dl,
+        static_cast<bf16*>(dq), bh, sq, sk, scale * kLog2e, scale);
+  }
   return launch<fa_bwd_dq_f32<D, kCausal>>(
       tiles(sq, kRows, bh), kThreads, BwdSmem<D>::dq_bytes, st,
       static_cast<const float*>(q), static_cast<const float*>(k),

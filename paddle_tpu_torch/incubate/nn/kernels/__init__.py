@@ -170,8 +170,11 @@ def _declare(lib):
                                        i, i, p]
     lib.ptt_layer_norm_fwd.restype = i
     lib.ptt_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i,
-                                       i, i, i, p]
+                                       i, i, i, i, p]
     lib.ptt_layer_norm_bwd.restype = i
+    ip = ctypes.POINTER(i)
+    lib.ptt_layer_norm_bwd_plan.argtypes = [i, i, i, i, i, ip, ip]
+    lib.ptt_layer_norm_bwd_plan.restype = i
     lib.ptt_paged_attention_multi.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                               i, i, f, i, p]
     lib.ptt_paged_attention_multi.restype = i

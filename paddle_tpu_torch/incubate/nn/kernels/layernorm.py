@@ -28,6 +28,7 @@ path.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -43,11 +44,10 @@ __all__ = ["fused_layer_norm", "fused_residual_layer_norm",
            "FusedResidualLayerNormFn", "MAX_HIDDEN"]
 
 MAX_HIDDEN = 4096  # kMaxHidden in csrc/layernorm.cu
-# CTAs of the backward kernel (fewer when there are fewer rows); each
-# writes one partial row of dw and db. Fixed, so the partial sums are
-# taken in the same order on every run.
-BWD_CTAS = 256
 _DTYPES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
+# (library, h, act, dtype code, residual, vec) -> (rows a CTA, CTAs
+# resident at once): the backward kernel's persistent grid
+_BWD_PLANS = {}
 
 
 def _act_code(activation, approximate):
@@ -211,19 +211,39 @@ def layer_norm_bwd(dy, ds, s, weight, bias, mean, rstd, activation=None,
     if n == 0:                     # no rows: nothing to launch
         zeros = torch.zeros(h, dtype=torch.float32, device=s.device)
         return dx, zeros, zeros.clone()
-    grid = min(n, BWD_CTAS)
-    dw_part = torch.empty(grid, h, dtype=torch.float32, device=s.device)
-    db_part = torch.empty(grid, h, dtype=torch.float32, device=s.device)
     lib = load()
+    # the 16-byte path: whole vectors in every row, aligned row tensors
+    rows = [t for t in (dy, ds, s, dx) if t is not None]
+    vec = int(h % (16 // s.element_size()) == 0
+              and all(t.data_ptr() % 16 == 0 for t in rows))
+    groups, ctas = _bwd_plan(lib, h, act, _DTYPES[s.dtype], ds is not None,
+                             vec)
+    grid = min(-(-n // groups), ctas)
+    part = torch.empty(grid, 2 * h, dtype=torch.float32, device=s.device)
+    dwdb = torch.empty(2 * h, dtype=torch.float32, device=s.device)
     rc = lib.ptt_layer_norm_bwd(
         dy.data_ptr(), None if ds is None else ds.data_ptr(), s.data_ptr(),
         weight.data_ptr(), bias.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), dx.data_ptr(), dw_part.data_ptr(),
-        db_part.data_ptr(), n, h, grid, act, _DTYPES[s.dtype],
+        rstd.data_ptr(), dx.data_ptr(), part.data_ptr(), dwdb.data_ptr(), n,
+        h, grid, act, _DTYPES[s.dtype], vec,
         torch.cuda.current_stream(s.device).cuda_stream)
     check(rc, "fused_layer_norm_bwd")
     count("fused_layer_norm_bwd")
-    return dx, dw_part.sum(dim=0), db_part.sum(dim=0)
+    return dx, dwdb[:h], dwdb[h:]
+
+
+def _bwd_plan(lib, h, act, dtype, residual, vec):
+    """(rows a CTA works on at once, CTAs resident on the card at once)
+    of the backward kernel's instantiation for these arguments."""
+    key = (id(lib), h, act, dtype, residual, vec)
+    if key not in _BWD_PLANS:
+        groups, ctas = ctypes.c_int(), ctypes.c_int()
+        rc = lib.ptt_layer_norm_bwd_plan(h, act, dtype, int(residual), vec,
+                                         ctypes.byref(groups),
+                                         ctypes.byref(ctas))
+        check(rc, "fused_layer_norm_bwd plan")
+        _BWD_PLANS[key] = (groups.value, ctas.value)
+    return _BWD_PLANS[key]
 
 
 def _fwd_bwd(use_kernel):

@@ -131,8 +131,11 @@ def _assert_rows_close(got, want, name, row_tol=1e-2, floor=1e-3):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("seq", [256, 129])
+@pytest.mark.parametrize("seq", [256, 129, 1000])
 def test_flash_attention_kernels(cuda, dtype, head_dim, causal, seq):
+    """All three kernels vs their plain versions; S 1000 leaves a ragged
+    last 128-row q tile (dq, forward) and, at head_dim 128, dq's 64-key
+    tiles with a diagonal tile past the first consumer's rows."""
     rng = np.random.RandomState(seq + head_dim)
     q, k, v, do = (torch.from_numpy(
         (0.5 * rng.randn(2, 3, seq, head_dim)).astype(np.float32))
@@ -196,32 +199,52 @@ def test_flash_attention_function_grads(cuda):
 @pytest.mark.parametrize("act,approx", [(None, True), ("gelu", True),
                                         ("gelu", False)])
 @pytest.mark.parametrize("res", [False, True])
-def test_layer_norm_bwd_kernel(cuda, dtype, act, approx, res):
+@pytest.mark.parametrize("hidden", [64, 100, 768, 1024, 2050, 4096])
+def test_layer_norm_bwd_kernel(cuda, dtype, act, approx, res, hidden):
+    """Every shape the backward kernel branches on: one 16-byte vector a
+    lane and a warp a row (64; 100 in f32), two vectors a lane and 2 to
+    16 warps a row sharing their sums (768, whose last vector slot is
+    idle; 1024; 4096), one element at a time (100 in bf16, no multiple
+    of the 8-value vector; 2050, 16 warps a row); 1, 7 and 300 rows, and
+    more rows than the persistent grid works on at once, so groups walk
+    more than one row; a second call on the same inputs gives
+    bit-identical dx, dw and db."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    n, h = 300, 1024               # more rows than the kernel's CTAs
-    x = torch.randn(n, h, device=cuda, generator=g).to(dtype)
-    r = torch.randn(n, h, device=cuda, generator=g).to(dtype)
-    w = 1 + 0.1 * torch.randn(h, device=cuda, generator=g)
-    b = 0.1 * torch.randn(h, device=cuda, generator=g)
-    dy = torch.randn(n, h, device=cuda, generator=g).to(dtype)
-    ds = torch.randn(n, h, device=cuda, generator=g).to(dtype) if res \
-        else None
-    _, s, mean, rstd = ln.layer_norm_fwd(x, r if res else None, w, b, 1e-5,
-                                         act, approx)
-    s = s if res else x
-    before = kernels.launches()["fused_layer_norm_bwd"]
-    got = ln.layer_norm_bwd(dy, ds, s, w, b, mean, rstd, act, approx)
-    want = ln.layer_norm_bwd_reference(dy, ds, s, w, b, mean, rstd, act,
-                                       approx)
-    torch.cuda.synchronize()
-    assert kernels.launches()["fused_layer_norm_bwd"] == before + 1
-    assert got[0].dtype == dtype and got[1].dtype == torch.float32
-    dx_tol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=dx_tol,
-                               atol=dx_tol * float(want[0].abs().max()))
-    for a, b_ in zip(got[1:], want[1:]):
-        torch.testing.assert_close(a, b_, rtol=1e-5,
-                                   atol=1e-5 * float(b_.abs().max()))
+    w = 1 + 0.1 * torch.randn(hidden, device=cuda, generator=g)
+    b = 0.1 * torch.randn(hidden, device=cuda, generator=g)
+    vw = 16 // torch.empty(0, dtype=dtype).element_size()
+    groups, ctas = ln._bwd_plan(kernels.load(), hidden,
+                                ln._act_code(act, approx), ln._DTYPES[dtype],
+                                res, int(hidden % vw == 0))
+    for n in (1, 7, 300, groups * ctas + 5):
+        x = torch.randn(n, hidden, device=cuda, generator=g).to(dtype)
+        r = torch.randn(n, hidden, device=cuda, generator=g).to(dtype)
+        dy = torch.randn(n, hidden, device=cuda, generator=g).to(dtype)
+        ds = torch.randn(n, hidden, device=cuda, generator=g).to(dtype) \
+            if res else None
+        _, s, mean, rstd = ln.layer_norm_fwd(x, r if res else None, w, b,
+                                             1e-5, act, approx)
+        s = s if res else x
+        before = kernels.launches()["fused_layer_norm_bwd"]
+        got = ln.layer_norm_bwd(dy, ds, s, w, b, mean, rstd, act, approx)
+        again = ln.layer_norm_bwd(dy, ds, s, w, b, mean, rstd, act, approx)
+        want = ln.layer_norm_bwd_reference(dy, ds, s, w, b, mean, rstd, act,
+                                           approx)
+        torch.cuda.synchronize()
+        assert kernels.launches()["fused_layer_norm_bwd"] == before + 2
+        assert got[0].dtype == dtype and got[1].dtype == torch.float32
+        assert got[1].shape == got[2].shape == (hidden,)
+        dx_tol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=dx_tol,
+                                   atol=dx_tol * float(want[0].abs().max()),
+                                   msg=f"dx, {n} rows")
+        for name, a, b_ in zip(("dw", "db"), got[1:], want[1:]):
+            torch.testing.assert_close(a, b_, rtol=1e-5,
+                                       atol=1e-5 * float(b_.abs().max()),
+                                       msg=f"{name}, {n} rows")
+        for a, a2 in zip(got, again):
+            assert torch.equal(a, a2), f"{n} rows: two calls differ"
 
 
 def test_layer_norm_function_grads(cuda):

@@ -334,13 +334,24 @@ def test_layer_norm_grads_match_jax(act, approx, res):
         assert torch.equal(got[0], got[1])
 
 
-def test_layer_norm_bwd_matches_jax_kernel():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("h", [64, 100, 1024])
+def test_layer_norm_bwd_matches_jax_kernel(h, res, dtype):
     """The plain backward against `_ln_bwd_impl` (interpret mode) on
-    the same saved statistics, bf16 dy and s with a residual."""
+    the same saved statistics, tanh GeLU, at the widths the CUDA kernel
+    branches on (100: no multiple of its 8-value bf16 vector; 1024: the
+    training width), with and without the residual, f32 and bf16: the
+    oracle the kernel is held to on the card is held to JAX here. dx in
+    f32 within 1e-5 (summation order), in bf16 within one ulp (1e-2); dw
+    and db within 1e-5 x max|ref|."""
     rng = np.random.RandomState(8)
-    n, h = 20, 64
-    s = jnp.asarray(rng.randn(n, h), jnp.bfloat16)
-    dy, ds = (jnp.asarray(rng.randn(n, h), jnp.bfloat16) for _ in range(2))
+    n = 20
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    s = jnp.asarray(rng.randn(n, h), jdt)
+    dy, ds = (jnp.asarray(rng.randn(n, h), jdt) for _ in range(2))
+    ds = ds if res else None
     w = jnp.asarray(1 + 0.1 * rng.randn(h), jnp.float32)
     b = jnp.asarray(0.1 * rng.randn(h), jnp.float32)
     _, _, mu, rs = jax_ln._ln_fwd_impl(s, None, w, b, 1e-5, "gelu", True,
@@ -352,11 +363,13 @@ def test_layer_norm_bwd_matches_jax_kernel():
         return torch.from_numpy(np.array(a, np.float32))
 
     dx, dw, db = ln.layer_norm_bwd(
-        t(dy).bfloat16(), t(ds).bfloat16(), t(s).bfloat16(), t(w), t(b),
-        t(mu)[:, 0].contiguous(), t(rs)[:, 0].contiguous(), "gelu", True)
-    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+        t(dy).to(tdt), None if ds is None else t(ds).to(tdt), t(s).to(tdt),
+        t(w), t(b), t(mu)[:, 0].contiguous(), t(rs)[:, 0].contiguous(),
+        "gelu", True)
+    assert dx.dtype == tdt and dw.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 1e-2
     np.testing.assert_allclose(dx.float().numpy(), np.asarray(jdx, np.float32),
-                               rtol=1e-2, atol=1e-2)
+                               rtol=tol, atol=tol)
     for got, want in ((dw, jdw), (db, jdb)):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=0,
