@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Planted faults in the bf16 flash-attention kernels, the LayerNorm
-backward kernel, the multi-tensor optimizer kernel, the multi-query
+forward and backward kernels, the multi-tensor optimizer kernel, the
 paged-attention kernel and the int8 quantize kernel, and which of
 `chip_smoke.py`'s checks catch them.
 
@@ -21,14 +21,20 @@ two the dk/dv kernel (the diagonal masked, the last q tile skipped).
 The three LayerNorm-backward mutants drop the m2 term of dx for rows
 >= 2048 of 4096, leave the CTA's last row group (two warps at H 1024
 in bf16) out of its dw/db partial, and drop ds from the last of each
-lane's vectors of dx. The two optimizer mutants divide the
+lane's vectors of dx. The three LayerNorm-forward mutants take the
+statistics of rows >= N/2 from the unrounded x + residual (s still
+written rounded), leave a row's last vector out of the variance, and
+read w and b of a row's last vector from the vector before it. The two optimizer mutants divide the
 bias corrections by multiplying with an f32 reciprocal, and skip the
-last chunk of one tensor (the first of the table, GPT-2's wte). The three
-multi-query mutants let slot t see one token too many (ctx0 + t + 1),
-make the deepest slot skip the last live group of 8 tokens, and weight
-the rows past slot t's context (which later slots read) by zero instead
-of skipping them: exact zeros on finite data, so only the per-slot NaN
-poison check can see it. The two quantize mutants take the abs-max with
+last chunk of one tensor (the first of the table, GPT-2's wte). The five
+paged-attention mutants let slot t see one token too many (ctx0 + t +
+1), make the deepest slot's merge skip its last live chunk of 64
+tokens, weight the rows past slot t's context (which later slots read)
+by zero instead of skipping them (exact zeros on finite data, so only
+the per-slot NaN poison check can see it), leave chunk 1 out of every
+merge of three or more chunks, and read the second page of a chunk
+through the block id of its first page (a table-column fault only
+chunks that span pages show). The two quantize mutants take the abs-max with
 fmaxf alone, which drops a NaN, so a NaN block gets a finite scale, and
 round the codes with truncf in place of rintf.
 
@@ -58,14 +64,17 @@ For the control and each quantize mutant, one check:
              vs their plain versions, bit for bit, over blocks 128 / 256
              / 1024, 1-4096 blocks, zero, half-even, subnormal, NaN and
              Inf blocks
-For the control and each LayerNorm-backward mutant, one check:
-  lnbwd      chip_smoke's phase 8 check: the backward kernel vs its
-             plain version at 4096 x 1024, f32 and bf16, with and without
-             the residual, no / tanh / erf GeLU (dx within 1e-5 / 1e-2 x
-             max|ref|, dw and db within 1e-5 x max|ref|), and a second
-             call bit-identical
+For the control and each LayerNorm mutant, forward or backward, one
+check:
+  lnbwd      chip_smoke's phase 8 check: the forward kernel vs its plain
+             version (y within 1e-5 / 1e-2, mean and rstd within 1e-5, s
+             bit-identical), then the backward kernel vs its plain
+             version on the forward's outputs, at 4096 x 1024, f32 and
+             bf16, with and without the residual, no / tanh / erf GeLU
+             (dx within 1e-5 / 1e-2 x max|ref|, dw and db within 1e-5 x
+             max|ref|), and a second call bit-identical
 Exits non-zero when the control fails a check, a flash mutant passes the
-per-row flash check, a LayerNorm-backward mutant passes the lnbwd check,
+per-row flash check, a LayerNorm mutant passes the lnbwd check,
 an optimizer mutant passes the optim check, a multi-query mutant passes
 the multi check, or a quantize mutant passes the compress check.
 """
@@ -156,20 +165,46 @@ MUTANTS = [
        "e.n;\n"
        "  if (e.chunk0 == 0 && end == e.n && start > 0) return;\n")]),
     ("multi: slot t sees one token too many (ctx0 + t + 1)", PAGED,
-     [("  for (int t = 0; t < NQ; ++t) ctx[t] = ctx0 + t < cap ? ctx0 + t : "
-       "cap;\n",
-       "  for (int t = 0; t < NQ; ++t)\n"
-       "    ctx[t] = ctx0 + t + 1 < cap ? ctx0 + t + 1 : cap;\n")]),
-    ("multi: the deepest slot skips the last live group", PAGED,
-     [("      if (n_valid <= 0) continue;\n",
-       "      if (n_valid <= 0) continue;\n"
-       "      if (t == NQ - 1 && g == n_groups - 1) continue;\n")]),
+     [("    const int c = ctx0 + t < cap ? ctx0 + t : cap;\n",
+       "    const int c = ctx0 + t + 1 < cap ? ctx0 + t + 1 : cap;\n")]),
+    ("multi: the deepest slot skips its last live chunk", PAGED,
+     [("    return ctx > kChunk ? (ctx + kChunk - 1) / kChunk : 1;\n",
+       "    const int nc = ctx > kChunk ? (ctx + kChunk - 1) / kChunk : 1;\n"
+       "    return nc - (t == NQ - 1 && nc > 1 ? 1 : 0);\n")]),
     ("multi: rows past slot t's context weighted by zero, not skipped",
      PAGED,
-     [("        if (u >= n_valid) continue;  // skipped, not weighted by zero\n"
-       "        const float p = expf(__fsub_rn(s[u], m_new));\n",
-       "        const float p = u < n_valid ? expf(__fsub_rn(s[u], m_new))"
-       " : 0.f;\n")]),
+     [("        if (r >= nv[t]) continue;  // skipped, not weighted by zero\n",
+       "")]),
+    ("multi: chunk 1 left out of the merge of 3 or more chunks", PAGED,
+     [("      if (c >= nc) break;\n",
+       "      if (c >= nc) break;\n"
+       "      if (nc >= 3 && c == 1) continue;\n")]),
+    ("multi: a chunk's second page read through its first page's block id",
+     PAGED,
+     [("        const int blk = tables[seq * max_blocks + pos / block_size];\n",
+       "        const int pg = pos / block_size, pg0 = t0 / block_size;\n"
+       "        const int blk =\n"
+       "            tables[seq * max_blocks + (pg == pg0 + 1 ? pg0 : pg)];\n")]),
+    ("lnfwd: statistics from the unrounded x + residual for rows >= N/2",
+     LN,
+     [("        for (int e = 0; e < VW; ++e)\n"
+       "          v[j][e] = to_f32(from_f32<T>(__fadd_rn(v[j][e], rv[e])));\n"
+       "        store_vec<T, VW>(s_out + base + c, v[j]);\n",
+       "        float sr[VW];\n"
+       "        for (int e = 0; e < VW; ++e) {\n"
+       "          sr[e] = to_f32(from_f32<T>(__fadd_rn(v[j][e], rv[e])));\n"
+       "          v[j][e] = row >= n / 2 ? __fadd_rn(v[j][e], rv[e]) : sr[e];\n"
+       "        }\n"
+       "        store_vec<T, VW>(s_out + base + c, sr);\n")]),
+    ("lnfwd: a row's last vector left out of the variance", LN,
+     [("      if (col(j) >= h) continue;\n",
+       "      if (col(j) >= h || col(j) == h - VW) continue;\n")]),
+    ("lnfwd: w and b of the last vector read from the vector before", LN,
+     [("      load_f32<VW>(wv, sW + c);\n"
+       "      load_f32<VW>(bv, sB + c);\n",
+       "      const int cw = c == h - VW ? c - VW : c;\n"
+       "      load_f32<VW>(wv, sW + cw);\n"
+       "      load_f32<VW>(bv, sB + cw);\n")]),
     ("compress: abs-max by fmaxf alone (a NaN block gets a finite scale)",
      COMPRESS,
      [("  const float scale = (!nan && m > 0.f) ? __fdiv_rn(m, 127.f) : 1.f;\n",
@@ -333,7 +368,7 @@ def main():
     batch = cs._train_batch(model.config.vocab_size, dev)
     named = list(cs._train_model(dev).named_parameters())
     grads = cs._optim_grads(named, dev)
-    ok = True
+    ok, caught = True, 0
     runs = [("control (unmutated)", None, control)] + [
         (n, src, lib) for (n, src, _), lib in zip(MUTANTS, libs)]
     for name, src, lib in runs:
@@ -357,19 +392,15 @@ def main():
         if lib is control:
             ok &= not any(r.lower().startswith("fails")
                           for r in res.values())
-        elif src == FLASH:
-            ok &= res["per-row"].startswith("FAILS")
-        elif src == OPTIM:
-            ok &= res["optim"].startswith("FAILS")
-        elif src == PAGED:
-            ok &= res["multi"].startswith("FAILS")
-        elif src == LN:
-            ok &= res["lnbwd"].startswith("FAILS")
-        else:
-            ok &= res["compress"].startswith("FAILS")
-    print(f"[mutant] {'every' if ok else 'NOT every'} mutant fails its "
-          "check (per-row flash, optim, multi, compress, lnbwd) and the "
-          "control passes every check")
+            continue
+        check = {FLASH: "per-row", OPTIM: "optim", PAGED: "multi",
+                 LN: "lnbwd", COMPRESS: "compress"}[src]
+        caught += res[check].startswith("FAILS")
+        ok &= res[check].startswith("FAILS")
+    print(f"[mutant] {caught}/{len(MUTANTS)} mutants caught; "
+          f"{'every' if ok else 'NOT every'} mutant fails its check "
+          "(per-row flash, optim, multi, compress, lnbwd) and the control "
+          "passes every check")
     return 0 if ok else 1
 
 

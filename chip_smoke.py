@@ -2,12 +2,21 @@
 """On-card smoke test of the PyTorch / CUDA port (`paddle_tpu_torch`).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --measure [--kernels] [--tree DIR]
 
 Needs one CUDA card and `nvcc`; exits non-zero, printing no result,
-without them. Phases, each printing one line (or a few):
+without them. `--measure` runs phases 1-2 and then only the times the
+paged-attention and LayerNorm-forward kernels are judged by and the
+decode-step, speculative-round and training-step profiles (`measure`;
+`--kernels`: the kernel times alone), with `paddle_tpu_torch` imported
+from DIR when given: a comparison of
+two source trees runs it on each in turns in one call. Phases, each printing one line (or a few):
 
   1. device   card name and power limit (nvidia-smi), torch's name
-  2. build    the port's CUDA kernels compiled from paddle_tpu_torch/csrc
+  2. build    the port's CUDA kernels compiled from paddle_tpu_torch/csrc;
+              registers, spills and stack frames of the bf16 flash, the
+              LayerNorm forward and backward and the paged-attention
+              kernels' instantiations
   3. paged    paged-attention decode (the kernel's one-slot launch) vs
               its plain version on the card:
               ragged lengths, f32 and bf16 pools, head_dim 64 and 128,
@@ -25,16 +34,18 @@ without them. Phases, each printing one line (or a few):
               plain versions: the training shape (B 4, H 16, S 1024,
               D 64, bf16, causal), f32, ragged S, D 128, non-causal;
               times against the bound, SDPA forward and SDPA backward
-  8. lnbwd    LayerNorm backward kernel vs its plain version at the
-              training shape (4096 x 1024), f32 and bf16, with and
-              without residual, no / tanh / erf GeLU, and a second call
-              bit-identical; times with and without the residual
+  8. lnbwd    LayerNorm forward, then backward kernel vs its plain
+              version at the training shape (4096 x 1024), f32 and bf16,
+              with and without residual, no / tanh / erf GeLU, and a
+              second backward call bit-identical; forward and backward
+              times with and without the residual
   9. train    GPT-2 345M training at full width, bench_gpt2's on-chip
               config (bf16 O2, AdamW with f32 master weights, B 4 x S
               1024, random weights from seed 0) through
               TrainStepCompiler: loss decreases, launch counters per
               step, step ms, tokens/s, MFU, peak memory, where a step's
-              time goes
+              time goes (the flash kernels' and the LayerNorm forward's
+              and backward's ms within it)
  10. grads    one step's loss and every gradient, kernel path vs plain
               path from the same state: full width in bf16, and 2
               layers at full width in f32
@@ -354,36 +365,60 @@ def phase_build():
         "spills: " + "; ".join(
             f"{k}: {r} registers, {s}" for k, (r, s) in
             flash_registers(info["log"]).items()))
-    ln = ln_bwd_registers(info["log"])
-    log("build", f"LayerNorm backward, {len(ln)} instantiations, registers"
-        " (spill bytes stored): " + ", ".join(
-            f"{k} {r} ({s})" for k, (r, s) in ln.items()))
+    for kind in ("fwd", "bwd"):
+        ln = ln_registers(info["log"], kind)
+        log("build", f"LayerNorm {'forward' if kind == 'fwd' else 'backward'}"
+            f", {len(ln)} instantiations, registers (spill bytes stored, "
+            "stack frame bytes): " + ", ".join(
+                f"{k} {r} ({s}, {f})" for k, (r, s, f) in ln.items()))
+    pg = paged_registers(info["log"])
+    log("build", f"paged attention, {len(pg)} instantiations, registers "
+        "(spill bytes stored, stack frame bytes): " + ", ".join(
+            f"{k} {r} ({s}, {f})" for k, (r, s, f) in pg.items()))
     return info
 
 
-def ln_bwd_registers(log_text):
-    """{"<dtype> res<0|1> act<n> vw<n> kv<n>": (registers, spill bytes
-    stored)} of the LayerNorm backward kernel's instantiations, from
-    nvcc's `-Xptxas=-v` output."""
-    out, fn, spill = {}, None, 0
+def _entry_registers(log_text, pattern, name):
+    """{name(match): (registers, spill bytes stored, stack frame bytes)}
+    of the kernels whose mangled names match `pattern`, from nvcc's
+    `-Xptxas=-v` output."""
+    out, fn, spill, frame = {}, None, 0, 0
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            fn, spill = m.group(1), 0
+            fn, spill, frame = m.group(1), 0, 0
             continue
-        m = re.search(r"(\d+) bytes spill stores", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      ln)
         if fn and m:
-            spill = int(m.group(1))
+            frame, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", ln)
         if fn and m:
-            k = re.search(r"ln_bwd_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d)"
-                          r"ELi(\d+)ELi(\d+)E", fn)
+            k = re.search(pattern, fn)
             if k:
-                out[f"{'f32' if k.group(1) == 'f' else 'bf16'} res"
-                    f"{k.group(2)} act{k.group(3)} vw{k.group(4)} "
-                    f"kv{k.group(5)}"] = (int(m.group(1)), spill)
+                out[name(k)] = (int(m.group(1)), spill, frame)
             fn = None
     return dict(sorted(out.items()))
+
+
+def ln_registers(log_text, kind="bwd"):
+    """{"<dtype> res<0|1> act<n> vw<n> kv<n>": (registers, spill bytes
+    stored, stack frame bytes)} of the LayerNorm forward (`kind` "fwd")
+    or backward kernel's instantiations."""
+    return _entry_registers(
+        log_text, rf"ln_{kind}_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d)"
+        r"ELi(\d+)ELi(\d+)E",
+        lambda k: f"{'f32' if k.group(1) == 'f' else 'bf16'} res{k.group(2)}"
+        f" act{k.group(3)} vw{k.group(4)} kv{k.group(5)}")
+
+
+def paged_registers(log_text):
+    """{"<dtype> D<n> T<n>": (registers, spill bytes stored, stack frame
+    bytes)} of the paged-attention kernel's instantiations."""
+    return _entry_registers(
+        log_text, r"paged_multi_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E",
+        lambda k: f"{'f32' if k.group(1) == 'f' else 'bf16'} D{k.group(2)} "
+        f"T{k.group(3)}")
 
 
 def flash_registers(log_text):
@@ -499,9 +534,30 @@ def phase_paged(dev, h=16, d=64, bs=16, maxb=64, iters=100):
     log("paged", f"kernel vs plain: max|err| f32 {err[torch.float32]:.3e} "
         f"(tol 1e-5 abs + 1e-5 rel), bf16 {err[torch.bfloat16]:.3e} "
         "(tol 1e-2 x max|ref| abs + 1e-2 rel); poison check bit-identical")
+    k_ms, p_ms, l_ms, b_ms, b_by = paged_times(dev, h, d, bs, maxb, iters,
+                                               rng)
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/incubate/nn/pallas/paged_attention.py:76",
+            "max_abs_err": err[torch.float32], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms}
 
-    # times at the serving shapes: f32 pools, contexts = prompts + 32
-    # generated tokens, one inactive slot; L2 flushed before each launch
+
+def paged_times(dev, h=16, d=64, bs=16, maxb=64, iters=100, rng=None,
+                tag="paged"):
+    """Phase 3's times: the decode wrapper at the serving shapes (f32
+    pools, contexts = prompts + 32 generated tokens, one inactive slot;
+    L2 flushed before each launch), its plain version, SDPA on K/V
+    gathered beforehand, and the bound. Logs them; returns (kernel,
+    plain, SDPA, bound ms, bound_by)."""
+    from paddle_tpu_torch.incubate.nn.kernels.paged_attention import (
+        paged_attention, paged_attention_reference)
+
+    rng = rng if rng is not None else np.random.RandomState(3)
+    scale = d ** -0.5
+    serve_ctx = tuple(min(maxb * bs, n + SERVE_NEW_TOKENS // 2)
+                      for n in SERVE_LENS)
     q, kp, vp, bt, cl = _paged_inputs(rng, serve_ctx, h, d, bs, maxb,
                                       torch.float32, dev, (7,))
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
@@ -527,16 +583,11 @@ def phase_paged(dev, h=16, d=64, bs=16, maxb=64, iters=100):
     nbytes = (2 * q.numel() * 4 + 2 * live * h * d * 4 + bt.numel() * 4
               + cl.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, 4 * live * h * d)
-    log("paged", f"B={len(serve_ctx)} H={h} D={d} BS={bs} ctx={serve_ctx}"
+    log(tag, f"B={len(serve_ctx)} H={h} D={d} BS={bs} ctx={serve_ctx}"
         f" f32, cold L2, device ms: kernel {k_ms:.5f} | plain {p_ms:.5f} |"
         f" sdpa {l_ms:.5f} | bound {b_ms:.5f} ({b_by}, {nbytes} B); host "
         f"ms per call: kernel wrapper {k_host:.5f}, plain {p_host:.5f}")
-    return {"name": "paged_attention", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/incubate/nn/pallas/paged_attention.py:76",
-            "max_abs_err": err[torch.float32], "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms}
+    return k_ms, p_ms, l_ms, b_ms, b_by
 
 
 # -- phase 4 -----------------------------------------------------------
@@ -702,9 +753,11 @@ def phase_serve(dev, model, smi, lens=SERVE_LENS,
 
 
 # -- phase 6 -----------------------------------------------------------
-def phase_logits(dev, model, num_blocks=512, lens=SERVE_LENS):
+def _decode_setup(dev, model, num_blocks=512, lens=SERVE_LENS):
+    """An engine with phase 5's 8 prompts admitted and prefilled and one
+    position each reserved, and the next decode step's arguments:
+    (engine, ids, positions, tables, lens, args, tail, kw)."""
     from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
-    from paddle_tpu_torch.inference.serving import model_runner as mr
 
     cfg = model.config
     eng = LLMEngine(model, max_batch=SERVE_MAX_BATCH, num_blocks=num_blocks,
@@ -720,6 +773,15 @@ def phase_logits(dev, model, num_blocks=512, lens=SERVE_LENS):
     tail = [torch.from_numpy(a).to(dev) for a in (tables, lens_a)]
     kw = dict(n_head=cfg.num_heads, eps=cfg.layer_norm_eps,
               block_size=eng.block_size)
+    return eng, ids, pos, tables, lens_a, args, tail, kw
+
+
+def phase_logits(dev, model, num_blocks=512, lens=SERVE_LENS):
+    from paddle_tpu_torch.inference.serving import model_runner as mr
+
+    cfg = model.config
+    eng, ids, pos, tables, lens_a, args, tail, kw = _decode_setup(
+        dev, model, num_blocks, lens)
     k_plain, v_plain = eng.cache.k.clone(), eng.cache.v.clone()
     got = mr.decode_logits(eng.params, *args, eng.cache.k, eng.cache.v,
                            *tail, use_kernel=True, **kw)
@@ -1037,6 +1099,8 @@ def phase_ln_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100):
         f"{err[torch.bfloat16]:.3e} (dx 1e-2 x max|ref| + 1e-2 rel); dw, db"
         " 1e-5 x max|ref|; a second call bit-identical (dx, dw, db)")
 
+    ln_fwd_times(dev, rows, hidden, iters)
+
     # times at the training shape, bf16, warm L2 (the backward's inputs
     # were just written by the op before it): with the residual (ln2,
     # 24 calls a step) and without (ln1 and lnf, 25)
@@ -1082,6 +1146,51 @@ def phase_ln_bwd(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100):
             "max_abs_err": err[torch.bfloat16], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms}
+
+
+def ln_fwd_times(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100,
+                 tag="lnbwd"):
+    """The LayerNorm forward's times at the training shape, bf16, warm
+    L2 (its input was just written by the op before it): with the
+    residual (ln2, 24 calls a step) and without (ln1 and lnf, 25);
+    kernel, plain version, F.layer_norm (without the residual's add;
+    weight and bias in bf16, since F.layer_norm on the card takes one
+    dtype) and the bound. Logs them; returns {tag: (kernel, plain,
+    F.layer_norm, bound ms, bound_by)}."""
+    from paddle_tpu_torch.incubate.nn.kernels.layernorm import (
+        layer_norm_fwd, layer_norm_fwd_reference)
+
+    rng = np.random.RandomState(6)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+
+    w = 1 + 0.1 * t(hidden)
+    b = 0.1 * t(hidden)
+    x, r = (t(rows, hidden, dtype=torch.bfloat16) for _ in range(2))
+    wl, bl = w.bfloat16(), b.bfloat16()
+    l_ms, _ = time_ms(lambda: torch.nn.functional.layer_norm(
+        x, (hidden,), wl, bl, 1e-5), iters)
+    elems = rows * hidden
+    out = {}
+    for name, res in (("residual", r), ("no residual", None)):
+        k_ms, k_host = time_ms(
+            lambda: layer_norm_fwd(x, res, w, b, 1e-5), iters)
+        p_ms, _ = time_ms(
+            lambda: layer_norm_fwd_reference(x, res, w, b, 1e-5),
+            max(1, iters // 4))
+        # x (, res) read and y (, s) written once; w, b; mean, rstd
+        nbytes = (2 + 2 * (res is not None)) * elems * 2 + 2 * hidden * 4 \
+            + 2 * rows * 4
+        b_ms, b_by = bound_ms(nbytes, 8 * elems)
+        lib = f"{l_ms:.5f}" if res is None else "n/a (no residual add)"
+        log(tag, f"forward N={rows} H={hidden} bf16 {name}, warm L2, device "
+            f"ms: kernel {k_ms:.5f} | plain {p_ms:.5f} | F.layer_norm {lib} "
+            f"| bound {b_ms:.5f} ({b_by}, {nbytes} B); host ms per call: "
+            f"kernel wrapper {k_host:.5f}")
+        out[name] = (k_ms, p_ms, l_ms if res is None else None, b_ms, b_by)
+    return out
 
 
 # -- phase 9 -----------------------------------------------------------
@@ -1209,6 +1318,10 @@ def phase_train(dev, smi, model=None, windows=TRAIN_WINDOWS,
             f"({per_step['fused_layer_norm_bwd']} wrapper calls): "
             + ", ".join(f"{k} {ms:.3f} ms" for k, ms in lnb.items())
             + f" = {sum(lnb.values()):.3f} ms of {busy:.3f} ms device busy")
+        lnf = sum(ms for name, ms in by.items() if "ln_fwd_kernel" in name)
+        log("train", f"[{smi}] LayerNorm forward in the step "
+            f"({per_step['fused_layer_norm']} wrapper calls): ln_fwd_kernel "
+            f"{lnf:.3f} ms of {busy:.3f} ms device busy")
     return model, counts
 
 
@@ -1773,9 +1886,6 @@ def multi_checks(dev, h=16, d=64, bs=16, maxb=64):
 
 
 def phase_multi(dev, h=16, d=64, bs=16, maxb=64, iters=100):
-    from paddle_tpu_torch.incubate.nn.kernels.paged_attention import (
-        paged_attention_multi, paged_attention_multi_reference)
-
     err, slots, n_cases = multi_checks(dev, h, d, bs, maxb)
     log("multi", f"kernel vs plain over {n_cases} cases (T 1/2/4/8; H16 D64 "
         f"and H8 D128; f32 and bf16; 6 context sets; NULL column "
@@ -1788,8 +1898,25 @@ def phase_multi(dev, h=16, d=64, bs=16, maxb=64, iters=100):
             f"{dt}: {n_eq}/{n} slots bit-identical, max|diff| {e:.3e}"
             for dt, (e, n_eq, n) in slots.items()))
 
-    # times at the serving verify shape: B 8, T 4, f32, serve contexts,
-    # one inactive slot, tables 65 columns wide; L2 flushed before each
+    k_ms, p_ms, l_ms, b_ms, b_by = multi_times(dev, h, d, bs, maxb, iters)
+    return {"name": "paged_attention_multi", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/incubate/nn/pallas/paged_attention.py:187",
+            "max_abs_err": err[torch.float32], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms}
+
+
+def multi_times(dev, h=16, d=64, bs=16, maxb=64, iters=100, tag="multi"):
+    """Phase 13's times at the serving verify shape: B 8, T 4, f32,
+    serve contexts, one inactive slot (context 1), tables 65 columns
+    wide, L2 flushed before each launch: the kernel, its plain version,
+    SDPA with a per-slot mask on K/V gathered beforehand, and the
+    bound. Logs them; returns (kernel, plain, SDPA, bound ms,
+    bound_by)."""
+    from paddle_tpu_torch.incubate.nn.kernels.paged_attention import (
+        paged_attention_multi, paged_attention_multi_reference)
+
     rng = np.random.RandomState(14)
     serve_ctx = tuple(min(maxb * bs, n + SERVE_NEW_TOKENS // 2)
                       for n in SERVE_LENS)
@@ -1822,17 +1949,12 @@ def phase_multi(dev, h=16, d=64, bs=16, maxb=64, iters=100):
     nbytes = (2 * q.numel() * 4 + 2 * rows * h * d * 4 + wt.numel() * 4
               + cl.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, 4 * h * d * scores)
-    log("multi", f"B={b} T={t} H={h} D={d} BS={bs} ctx0={tuple(cl.tolist())}"
+    log(tag, f"B={b} T={t} H={h} D={d} BS={bs} ctx0={tuple(cl.tolist())}"
         f" f32, tables {tuple(wt.shape)}, cold L2, device ms: kernel "
         f"{k_ms:.5f} | plain {p_ms:.5f} | sdpa {l_ms:.5f} | bound {b_ms:.5f} "
         f"({b_by}, {nbytes} B, {4 * h * d * scores} FLOP); host ms per call:"
         f" kernel wrapper {k_host:.5f}, plain {p_host:.5f}")
-    return {"name": "paged_attention_multi", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/incubate/nn/pallas/paged_attention.py:187",
-            "max_abs_err": err[torch.float32], "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms}
+    return k_ms, p_ms, l_ms, b_ms, b_by
 
 
 # -- phase 14 ----------------------------------------------------------
@@ -2107,13 +2229,7 @@ def phase_spec(dev, model, smi, want, base_stats, lens=SERVE_LENS,
             log("spec", f"one round, {tag}: wall {wall:.3f} ms; device time "
                 "not measured (the profiler saw no device activity)")
             continue
-        # one kernel, told apart by its slot count: T = 1 is the decode
-        nq = {name: re.search(r"paged_multi_kernel<[^,]+, *\d+, *(\d+)>",
-                              name) for name in by}
-        multi = sum(ms for name, ms in by.items()
-                    if nq[name] and nq[name].group(1) != "1")
-        decode = sum(ms for name, ms in by.items()
-                     if nq[name] and nq[name].group(1) == "1")
+        decode, multi = _paged_ms(by)
         tops = "; ".join(f"{name} x{n:.0f} {ms:.4f} ms" for name, n, ms in top)
         log("spec", f"[{smi}] where one round goes (B=8, k={k}, {tag}): wall "
             f"{wall:.3f} ms, device busy {busy:.3f} ms "
@@ -2678,11 +2794,95 @@ def phase_dp(dev, smi, steps=DP_STEPS):
     return runs[0]["int8:ef"]["launches"]
 
 
+def _paged_ms(by):
+    """(T = 1 launches' ms, T > 1 launches' ms) of the paged kernel in a
+    profile's {kernel name: ms}: one kernel, told apart by its slot
+    count."""
+    nq = {name: re.search(r"paged_multi_kernel<[^,]+, *\d+, *(\d+)>", name)
+          for name in by}
+    one = sum(ms for name, ms in by.items()
+              if nq[name] and nq[name].group(1) == "1")
+    many = sum(ms for name, ms in by.items()
+               if nq[name] and nq[name].group(1) != "1")
+    return one, many
+
+
+def measure(dev, smi, kernels_only=False):
+    """`--measure`: the times the redesigned kernels are judged by, and
+    (unless `kernels_only`, `--kernels`) where the decode step, the
+    speculative round and the training step spend their device time, on
+    whichever `paddle_tpu_torch` is imported (`--tree`). A
+    parent-vs-change comparison runs this on each tree in turns (parent,
+    change, change, parent) in one call."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.incubate.nn.kernels.layernorm import layer_norm_fwd
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tree = os.path.dirname(os.path.dirname(paddle_tpu_torch.__file__))
+    log("measure", f"[{smi}] paddle_tpu_torch from {tree}")
+    ln_fwd_times(dev, tag="measure")
+    rng = np.random.RandomState(1)
+    x, w, b = (torch.from_numpy(rng.randn(*sh).astype(np.float32)).to(dev)
+               for sh in ((8, 1024), (1024,), (1024,)))
+    k_ms, _ = time_ms(lambda: layer_norm_fwd(x, None, w, b, 1e-5))
+    log("measure", f"forward N=8 H=1024 f32 no residual (phase 4's decode "
+        f"shape), device ms: kernel {k_ms:.5f}")
+    paged_times(dev, tag="measure")
+    multi_times(dev, tag="measure")
+    if kernels_only:
+        return
+
+    from paddle_tpu_torch.inference.serving import model_runner as mr
+
+    model = _serve_model(dev)
+    eng, _, _, _, _, args, tail, kw = _decode_setup(dev, model)
+    wall, busy, count, _, by = profile_ms(lambda: mr.decode_logits(
+        eng.params, *args, eng.cache.k, eng.cache.v, *tail, use_kernel=True,
+        **kw))
+    del eng
+    if busy is None:
+        raise RuntimeError("measure: the profiler saw no device activity")
+    lnf = sum(ms for name, ms in by.items() if "ln_fwd_kernel" in name)
+    log("measure", f"[{smi}] decode step (B=8): wall {wall:.3f} ms, device "
+        f"busy {busy:.3f} ms, {count:.0f} kernels; paged kernel "
+        f"{_paged_ms(by)[0]:.4f} ms, LN forward {lnf:.4f} ms")
+    wall, busy, count, _, by = _spec_round_profile(model, dev)
+    one, many = _paged_ms(by)
+    log("measure", f"[{smi}] one spec round (B=8, k={SPEC_K}, default "
+        f"draft): wall {wall:.3f} ms, device busy {busy:.3f} ms, {count:.0f}"
+        f" kernels; multi kernel {many:.4f} ms, decode kernel {one:.4f} ms, "
+        f"together {one + many:.4f} ms")
+    del model
+    torch.cuda.empty_cache()
+
+    model = _train_model(dev)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStepCompiler(model, opt)
+    ids, labels = _train_batch(model.config.vocab_size, dev)
+    for _ in range(TRAIN_WARMUP):
+        step(ids, labels)
+    wall, busy, count, _, by = profile_ms(lambda: step(ids, labels), reps=2)
+    part = {k: sum(ms for name, ms in by.items() if k in name)
+            for k in ("ln_fwd_kernel", "ln_bwd_kernel", "ln_bwd_sum")}
+    log("measure", f"[{smi}] training step (GPT-2 345M bf16 O2, B="
+        f"{TRAIN_BATCH} S={TRAIN_SEQ}): wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms, {count:.0f} kernels; " + ", ".join(
+            f"{k} {ms:.3f} ms" for k, ms in part.items()))
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    # --tree DIR: import paddle_tpu_torch from the checkout at DIR
+    if "--tree" in sys.argv:
+        sys.path.insert(0, os.path.abspath(
+            sys.argv[sys.argv.index("--tree") + 1]))
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2691,6 +2891,10 @@ def main():
     t0 = time.perf_counter()
     smi, name = phase_device()
     phase_build()
+    if "--measure" in sys.argv:
+        measure(dev, smi, "--kernels" in sys.argv)
+        log("done", f"measured in {time.perf_counter() - t0:.1f} s")
+        return 0
     entries = [phase_paged(dev), phase_ln(dev)]
     model = _serve_model(dev)
     counts, serve_outs, serve_stats = phase_serve(dev, model, smi)

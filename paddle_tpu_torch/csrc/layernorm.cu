@@ -14,17 +14,31 @@
 // launch latency more than by either. The backward reads dy, s (and
 // ds) and writes dx, again a few operations per byte.
 //
-// Forward design: one CTA of 256 threads per row, for any H up to
-// 4096. The row is read from device memory once, widened to f32 and
-// kept in shared memory (16 KB at H = 4096), so the mean pass, the
-// variance pass and the output pass never re-read it. Reductions are
-// warp shuffles followed by one exchange of per-warp partials.
-// Statistics are f32: mean, then the variance as mean((s - mean)^2) as
-// the TPU kernel does (:100-102), then rstd = rsqrt(var + eps). With a
-// residual, s = x + residual is rounded to the INPUT dtype before the
-// statistics, exactly as the unfused `x + residual` would be (:86-91),
-// and written out as the next block's residual. The mean and rstd of
-// every row are written as f32 for the backward kernel.
+// Forward design: the bound is the bytes (x and the residual read, y
+// and the sum s written: 33.6 MB at the training shape, 4096 rows of
+// 1024 bf16 with a residual), so the forward takes the backward's
+// structure below. A lane owns one or two 16-byte vectors of a row (8
+// bf16 or 4 f32 columns each), held in registers for the three passes
+// over the row (mean, variance, output), so the row is read from device
+// memory once and never re-read; a row wider than a warp's vectors is
+// shared by 2 to 8 warps (two at 1024 bf16), which exchange each of
+// their two sums once through shared memory at one named barrier of the
+// row's warps: no CTA barrier per row (f32 rows above 2048 take four
+// vectors a lane on 8 warps). Each warp stages its rows through a
+// two-row ring in shared memory with cp.async, its next row's loads
+// issued before the current row is reduced; the grid is persistent (as
+// many CTAs of 8 warps as fit on the card: 8 warps beat 16 and 4 at
+// both the training and the decode shape, PERF.md), and w and b are
+// staged once a CTA in shared memory while the first rows load. A
+// hidden size that is no multiple of the vector, or a row tensor that is
+// not 16-byte aligned, takes the same kernel one element at a time,
+// reading global memory directly. Statistics are f32: mean, then the
+// variance as mean((s - mean)^2) as the TPU kernel does (:100-102), then
+// rstd = rsqrt(var + eps). With a residual, s = x + residual is rounded
+// to the INPUT dtype before the statistics, exactly as the unfused
+// `x + residual` would be (:86-91), and written out as the next block's
+// residual. The mean and rstd of every row are written as f32 for the
+// backward kernel.
 //
 // Backward design: the bound is the bytes (dy, s, ds read, dx written:
 // 33.5 MB at the training shape, 4096 rows of 1024 bf16 with a
@@ -60,7 +74,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxHidden = 4096;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -79,21 +92,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even
 }
 
-// Sum over the CTA; every thread gets the total. `red` holds one
-// partial per warp and is free again when this returns.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < (kThreads >> 5) ? red[lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  __syncthreads();
-  return t;
-}
-
 // kAct: 0 none, 1 tanh GeLU (jax.nn.gelu's default), 2 erf GeLU
 template <int kAct>
 __device__ __forceinline__ float activate(float v) {
@@ -103,90 +101,6 @@ __device__ __forceinline__ float activate(float v) {
   }
   if (kAct == 2) return 0.5f * v * (1.f + erff(v / 1.4142135623730951f));
   return v;
-}
-
-template <typename T, bool kResidual, int kAct>
-__global__ void __launch_bounds__(kThreads)
-    ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                  const float* __restrict__ w, const float* __restrict__ b,
-                  T* __restrict__ y, T* __restrict__ s_out,
-                  float* __restrict__ mean, float* __restrict__ rstd, int h,
-                  float eps) {
-  extern __shared__ float row[];  // h values of s, widened to f32
-  __shared__ float red[kThreads >> 5];
-  const size_t base = static_cast<size_t>(blockIdx.x) * h;
-
-  float part = 0.f;
-  for (int i = threadIdx.x; i < h; i += kThreads) {
-    T v = x[base + i];
-    if (kResidual) {
-      // one rounding of the exact sum, in the input dtype
-      v = from_f32<T>(to_f32(v) + to_f32(res[base + i]));
-      s_out[base + i] = v;
-    }
-    const float f = to_f32(v);
-    row[i] = f;
-    part += f;
-  }
-  const float mu = block_sum(part, red) / h;
-
-  part = 0.f;
-  for (int i = threadIdx.x; i < h; i += kThreads) {
-    const float d = row[i] - mu;
-    part += d * d;
-  }
-  const float var = block_sum(part, red) / h;
-  const float rs = rsqrtf(var + eps);
-
-  for (int i = threadIdx.x; i < h; i += kThreads) {
-    const float xhat = (row[i] - mu) * rs;
-    y[base + i] = from_f32<T>(activate<kAct>(xhat * w[i] + b[i]));
-  }
-  if (threadIdx.x == 0) {
-    mean[blockIdx.x] = mu;
-    rstd[blockIdx.x] = rs;
-  }
-}
-
-template <typename T, bool kResidual>
-void launch_act(int act, dim3 grid, size_t smem, cudaStream_t st,
-                const T* x, const T* res, const float* w, const float* b,
-                T* y, T* s, float* mean, float* rstd, int h, float eps) {
-  switch (act) {
-    case 0:
-      ln_fwd_kernel<T, kResidual, 0><<<grid, kThreads, smem, st>>>(
-          x, res, w, b, y, s, mean, rstd, h, eps);
-      break;
-    case 1:
-      ln_fwd_kernel<T, kResidual, 1><<<grid, kThreads, smem, st>>>(
-          x, res, w, b, y, s, mean, rstd, h, eps);
-      break;
-    default:
-      ln_fwd_kernel<T, kResidual, 2><<<grid, kThreads, smem, st>>>(
-          x, res, w, b, y, s, mean, rstd, h, eps);
-      break;
-  }
-}
-
-template <typename T>
-void launch(const void* x, const void* res, const void* w, const void* b,
-            void* y, void* s, void* mean, void* rstd, int n, int h,
-            float eps, int act, cudaStream_t st) {
-  const dim3 grid(n);
-  const size_t smem = static_cast<size_t>(h) * sizeof(float);
-  const T* xt = static_cast<const T*>(x);
-  const float* wt = static_cast<const float*>(w);
-  const float* bt = static_cast<const float*>(b);
-  float* mt = static_cast<float*>(mean);
-  float* rt = static_cast<float*>(rstd);
-  if (res != nullptr) {
-    launch_act<T, true>(act, grid, smem, st, xt, static_cast<const T*>(res),
-                        wt, bt, static_cast<T*>(y), static_cast<T*>(s), mt,
-                        rt, h, eps);
-  } else {
-    launch_act<T, false>(act, grid, smem, st, xt, nullptr, wt, bt,
-                         static_cast<T*>(y), nullptr, mt, rt, h, eps);
-  }
 }
 
 // -- backward ------------------------------------------------------------
@@ -297,7 +211,7 @@ __device__ __forceinline__ void row_barrier(int id, int count) {
 // each), then, per warp, a ring of kBwdStages rows of dy, s (and ds), kV
 // 16-byte vectors a lane each (vector path only); the ring's space then
 // holds the CTA's per-group dw and db sums.
-__host__ __device__ constexpr int bwd_wb(int h) { return (h + 3) & ~3; }
+__host__ __device__ constexpr int wb_floats(int h) { return (h + 3) & ~3; }
 
 template <bool kResidual, int VW, int kV>
 __host__ __device__ constexpr int bwd_ring_bytes() {
@@ -314,7 +228,7 @@ template <bool kResidual, int VW, int kV>
 size_t bwd_smem(int h, int wpr) {
   const size_t sums = sizeof(float) * 2 * (kBwdWarps / wpr) * h;
   const size_t ring = bwd_ring_bytes<kResidual, VW, kV>();
-  return sizeof(float) * 2 * bwd_wb(h) + (ring > sums ? ring : sums);
+  return sizeof(float) * 2 * wb_floats(h) + (ring > sums ? ring : sums);
 }
 
 // One row is shared by `wpr` warps (a group; kBwdWarps / wpr groups a
@@ -336,8 +250,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[2][kBwdWarps][2];  // p1, p2 a warp, by row parity
   float* sW = smem;
-  float* sB = smem + bwd_wb(h);
-  auto* ring = reinterpret_cast<unsigned char*>(smem + 2 * bwd_wb(h));
+  float* sB = smem + wb_floats(h);
+  auto* ring = reinterpret_cast<unsigned char*>(smem + 2 * wb_floats(h));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int groups = kBwdWarps / wpr;
   const int grp = warp / wpr, wig = warp % wpr;
@@ -479,7 +393,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   // fixed order into one partial row [dw | db] of `part`
   if (kAsync) cp_async_wait<0>();
   __syncthreads();  // every warp is done with its ring
-  float* sums = smem + 2 * bwd_wb(h);  // [groups][2][h]
+  float* sums = smem + 2 * wb_floats(h);  // [groups][2][h]
 #pragma unroll
   for (int j = 0; j < kV; ++j)
 #pragma unroll
@@ -530,6 +444,176 @@ __global__ void __launch_bounds__(kSumThreads)
     for (int i = 0; i < 32; ++i) s4[i & 3] += red[i][lane];
     out[c] = (s4[0] + s4[1]) + (s4[2] + s4[3]);
   }
+}
+
+// -- forward ------------------------------------------------------------
+
+constexpr int kFwdThreads = 256;  // 8 warps a CTA
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdStages = 2;  // a warp's rows in shared memory: this, next
+
+// Shared memory of the forward kernel, in bytes: w and b (`wb` floats
+// each), then, per warp, a ring of kFwdStages rows of x (and the
+// residual), kV 16-byte vectors a lane each (vector path only).
+template <bool kResidual, int VW, int kV>
+__host__ __device__ constexpr int fwd_ring_bytes() {
+  return VW == 1 ? 0
+                 : kFwdWarps * kFwdStages * (kResidual ? 2 : 1) * kV * 32 *
+                       16;
+}
+
+// the most any instantiation takes: 96 KB at h = 4096 (32 KB of w and
+// b; a 64 KB ring at f32 with the residual, 4 vectors a lane)
+constexpr int kFwdMaxSmem = 96 * 1024;
+
+template <bool kResidual, int VW, int kV>
+size_t fwd_smem(int h) {
+  return sizeof(float) * 2 * wb_floats(h) +
+         fwd_ring_bytes<kResidual, VW, kV>();
+}
+
+// The sum of v over the row's `wpr` warps (group `grp`, barrier 1 +
+// grp), through red[warp]; every lane of the group gets it
+__device__ __forceinline__ float row_sum(float v, float* red, int wpr,
+                                         int grp, int warp, int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (wpr > 1) {
+    if (lane == 0) red[warp] = v;
+    row_barrier(1 + grp, wpr * 32);
+    v = 0.f;
+    for (int i = 0; i < wpr; ++i) v += red[grp * wpr + i];
+  }
+  return v;
+}
+
+// Rows and columns as in the backward kernel: lane `lane` of the row
+// group's warp `wig` owns columns ((j * wpr + wig) * 32 + lane) * VW +
+// [0, VW) for j < kV; groups walk rows blockIdx.x * groups + grp, then
+// every gridDim.x * groups, on a persistent grid.
+template <typename T, bool kResidual, int kAct, int VW, int kV>
+__global__ void __launch_bounds__(kFwdThreads)
+    ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                  const float* __restrict__ w, const float* __restrict__ b,
+                  T* __restrict__ y, T* __restrict__ s_out,
+                  float* __restrict__ mean, float* __restrict__ rstd, int n,
+                  int h, int wpr, float eps) {
+  constexpr bool kAsync = VW > 1;  // 16-byte vectors staged by cp.async
+  constexpr int kArrays = kResidual ? 2 : 1;  // x (, res) in the ring
+  extern __shared__ __align__(16) float smem[];
+  // a sum a warp, by row parity and pass (mean, variance): a warp may
+  // run one row ahead of its group's slowest warp
+  __shared__ float red[2][2][kFwdWarps];
+  float* sW = smem;
+  float* sB = smem + wb_floats(h);
+  auto* ring = reinterpret_cast<unsigned char*>(smem + 2 * wb_floats(h));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = kFwdWarps / wpr;
+  const int grp = warp / wpr, wig = warp % wpr;
+  unsigned char* wring =
+      ring + warp * (fwd_ring_bytes<kResidual, VW, kV>() / kFwdWarps);
+  // this lane's 16 bytes of array a, vector j, ring stage st: a lane
+  // reads back only what its own cp.async wrote
+  auto staged = [&](int st, int a, int j) {
+    return reinterpret_cast<T*>(
+        wring + (((st * kArrays + a) * kV + j) * 32 + lane) * 16);
+  };
+  auto col = [&](int j) { return ((j * wpr + wig) * 32 + lane) * VW; };
+  auto issue = [&](int row, int st) {
+    const size_t base = static_cast<size_t>(row) * h;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int c = col(j);
+      if (c < h) {
+        cp_async16(staged(st, 0, j), x + base + c);
+        if (kResidual) cp_async16(staged(st, 1, j), res + base + c);
+      }
+    }
+  };
+
+  // the first row's loads go out before w and b are staged
+  const int stride = gridDim.x * groups;
+  int row = blockIdx.x * groups + grp;
+  if (kAsync && row < n) issue(row, 0);
+  if (kAsync) cp_async_commit();
+  for (int i = threadIdx.x; i < h; i += kFwdThreads) {
+    sW[i] = w[i];
+    sB[i] = b[i];
+  }
+  __syncthreads();
+  for (int k = 0; row < n; ++k, row += stride) {
+    // the next row's loads go out before this row is reduced
+    const int next = row + stride;
+    if (kAsync) {
+      if (next < n) issue(next, (k + 1) % kFwdStages);
+      cp_async_commit();
+      cp_async_wait<kFwdStages - 1>();  // this row's group has landed
+    }
+    const int st = k % kFwdStages;
+    const size_t base = static_cast<size_t>(row) * h;
+
+    // the row (or s = x + residual, rounded once to T and written out)
+    // in registers, and its sum
+    float v[kV][VW];
+    float p = 0.f;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int c = col(j);
+      if (c >= h) continue;
+      if constexpr (kAsync)
+        load_vec<T, VW>(v[j], staged(st, 0, j));
+      else
+        load_vec<T, VW>(v[j], x + base + c);
+      if constexpr (kResidual) {
+        float rv[VW];
+        if constexpr (kAsync)
+          load_vec<T, VW>(rv, staged(st, 1, j));
+        else
+          load_vec<T, VW>(rv, res + base + c);
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+          v[j][e] = to_f32(from_f32<T>(__fadd_rn(v[j][e], rv[e])));
+        store_vec<T, VW>(s_out + base + c, v[j]);
+      }
+#pragma unroll
+      for (int e = 0; e < VW; ++e) p += v[j][e];
+    }
+    const float mu = row_sum(p, red[k & 1][0], wpr, grp, warp, lane) / h;
+
+    // the variance from the registers: mean((s - mean)^2)
+    p = 0.f;
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      if (col(j) >= h) continue;
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        const float d = v[j][e] - mu;
+        p += d * d;
+      }
+    }
+    const float var = row_sum(p, red[k & 1][1], wpr, grp, warp, lane) / h;
+    const float rs = rsqrtf(var + eps);
+
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const int c = col(j);
+      if (c >= h) continue;
+      float wv[VW], bv[VW], o[VW];
+      load_f32<VW>(wv, sW + c);
+      load_f32<VW>(bv, sB + c);
+#pragma unroll
+      for (int e = 0; e < VW; ++e) {
+        const float xhat = (v[j][e] - mu) * rs;
+        o[e] = activate<kAct>(xhat * wv[e] + bv[e]);
+      }
+      store_vec<T, VW>(y + base + c, o);
+    }
+    if (wig == 0 && lane == 0) {
+      mean[row] = mu;
+      rstd[row] = rs;
+    }
+  }
+  if (kAsync) cp_async_wait<0>();  // no copy outlives the CTA
 }
 
 int sm_count() {  // SMs of the current device, read once
@@ -640,31 +724,134 @@ cudaError_t bwd(const BwdArgs& a, int act, int dtype, bool residual,
                   : bwd_act<__nv_bfloat16, false>(a, act, vec);
 }
 
+
+// -- forward launch --------------------------------------------------------
+
+struct FwdArgs {
+  const void *x, *res, *w, *b;
+  void *y, *s, *mean, *rstd;
+  int n, h, grid;
+  float eps;
+  cudaStream_t st;
+  int* groups;  // plan only: rows a CTA works on at once
+  int* ctas;    // plan only: CTAs resident on the card at once
+};
+
+// plan (a.groups set) or launch one instantiation with `wpr` warps a row
+template <typename T, bool kResidual, int kAct, int VW, int kV>
+cudaError_t fwd_run(const FwdArgs& a, int wpr) {
+  auto* const kern = &ln_fwd_kernel<T, kResidual, kAct, VW, kV>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdMaxSmem);
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = fwd_smem<kResidual, VW, kV>(a.h);
+  if (smem > kFwdMaxSmem) return cudaErrorInvalidValue;
+  const int groups = kFwdWarps / wpr;
+  if (a.groups != nullptr) {
+    int occ = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, kern, kFwdThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    *a.groups = groups;
+    *a.ctas = occ * sm_count();
+    return cudaSuccess;
+  }
+  if (a.grid < 1 || a.grid > cdiv(a.n, groups))
+    return cudaErrorInvalidValue;
+  kern<<<a.grid, kFwdThreads, smem, a.st>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.res),
+      static_cast<const float*>(a.w), static_cast<const float*>(a.b),
+      static_cast<T*>(a.y), static_cast<T*>(a.s),
+      static_cast<float*>(a.mean), static_cast<float*>(a.rstd), a.n, a.h,
+      wpr, a.eps);
+  return cudaGetLastError();
+}
+
+// the instantiation for h, as the backward's (bwd_shape) within a CTA of
+// 8 warps: 16-byte vectors, 2 a lane, as many warps a row as the row
+// needs (two at 1024 bf16, four at 1024 f32), and 4 vectors a lane past
+// 8 warps (f32 above 2048); else one element at a time, 8 a lane, 16
+// past 8 warps
+template <typename T, bool kResidual, int kAct>
+cudaError_t fwd_shape(const FwdArgs& a, bool vec) {
+  constexpr int VW = 16 / static_cast<int>(sizeof(T));
+  const int per = vec ? 32 * VW : 32;  // columns a warp's vector slot spans
+  int wpr = 1;
+  while (per * (vec ? 2 : 8) * wpr < a.h && wpr < kFwdWarps) wpr *= 2;
+  if (vec) {
+    if (per * wpr >= a.h) return fwd_run<T, kResidual, kAct, VW, 1>(a, wpr);
+    if (per * 2 * wpr >= a.h)
+      return fwd_run<T, kResidual, kAct, VW, 2>(a, wpr);
+    if constexpr (VW == 4)  // bf16 rows up to kMaxHidden fit in 2
+      return fwd_run<T, kResidual, kAct, VW, 4>(a, wpr);
+    return cudaErrorInvalidValue;
+  }
+  if (per * 8 * wpr >= a.h) return fwd_run<T, kResidual, kAct, 1, 8>(a, wpr);
+  return fwd_run<T, kResidual, kAct, 1, 16>(a, wpr);
+}
+
+template <typename T, bool kResidual>
+cudaError_t fwd_act(const FwdArgs& a, int act, bool vec) {
+  if (act == 0) return fwd_shape<T, kResidual, 0>(a, vec);
+  if (act == 1) return fwd_shape<T, kResidual, 1>(a, vec);
+  return fwd_shape<T, kResidual, 2>(a, vec);
+}
+
+cudaError_t fwd(const FwdArgs& a, int act, int dtype, bool residual,
+                bool vec) {
+  if (a.h < 1 || a.h > kMaxHidden || act < 0 || act > 2 ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  // the 16-byte path needs whole vectors in every row and aligned rows
+  const int vw = dtype == 0 ? 4 : 8;
+  if (vec && (a.h % vw != 0 ||
+              (a.groups == nullptr &&
+               !(aligned16(a.x) && aligned16(a.y) &&
+                 (!residual || (aligned16(a.res) && aligned16(a.s)))))))
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return residual ? fwd_act<float, true>(a, act, vec)
+                    : fwd_act<float, false>(a, act, vec);
+  return residual ? fwd_act<__nv_bfloat16, true>(a, act, vec)
+                  : fwd_act<__nv_bfloat16, false>(a, act, vec);
+}
+
 }  // namespace
+
+// The forward's launch plan for hidden size h: `groups`, the rows a CTA
+// works on at once, and `ctas`, the CTAs that fit on the card at once
+// (the persistent grid's most). `residual` says whether a residual is
+// given; `vec` asks for the 16-byte path (h a multiple of 8 bf16 or 4
+// f32 values, every row tensor 16-byte aligned). Returns a cudaError_t.
+extern "C" int ptt_layer_norm_fwd_plan(int h, int act, int dtype,
+                                       int residual, int vec, int* groups,
+                                       int* ctas) {
+  if (groups == nullptr || ctas == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a{};
+  a.h = h;
+  a.groups = groups;
+  a.ctas = ctas;
+  return static_cast<int>(fwd(a, act, dtype, residual != 0, vec != 0));
+}
 
 // x, res, y, s: [n, h] in the dtype named by `dtype` (0 f32, 1 bf16),
 // contiguous; res and s are NULL without a residual. w, b: [h] f32.
-// mean, rstd: [n] f32. Launches on `stream`, allocates nothing, does
-// not synchronise; returns cudaGetLastError().
+// mean, rstd: [n] f32. `grid` is at most what ptt_layer_norm_fwd_plan
+// allows (ctas, and no more CTAs than ceil(n / groups)); `vec` as
+// there. Launches on `stream`, allocates nothing, does not synchronise;
+// returns cudaGetLastError().
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* res,
                                   const void* w, const void* b, void* y,
                                   void* s, void* mean, void* rstd, int n,
-                                  int h, float eps, int act, int dtype,
-                                  void* stream) {
-  if (h < 1 || h > kMaxHidden || act < 0 || act > 2 || n < 0 ||
-      (res == nullptr) != (s == nullptr))
+                                  int h, int grid, float eps, int act,
+                                  int dtype, int vec, void* stream) {
+  if (n < 1 || (res == nullptr) != (s == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(x, res, w, b, y, s, mean, rstd, n, h, eps, act, st);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(x, res, w, b, y, s, mean, rstd, n, h, eps, act,
-                          st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  FwdArgs a{x, res,  w,   b, y, s, mean, rstd, n, h, grid, eps,
+            static_cast<cudaStream_t>(stream), nullptr, nullptr};
+  return static_cast<int>(fwd(a, act, dtype, res != nullptr, vec != 0));
 }
 
 // The backward's launch plan for hidden size h: `groups`, the rows a

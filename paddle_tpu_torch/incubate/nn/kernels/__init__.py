@@ -166,18 +166,21 @@ def build_info():
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ptt_layer_norm_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, f,
-                                       i, i, p]
+    lib.ptt_layer_norm_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                       f, i, i, i, p]
     lib.ptt_layer_norm_fwd.restype = i
     lib.ptt_layer_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i,
                                        i, i, i, i, p]
     lib.ptt_layer_norm_bwd.restype = i
     ip = ctypes.POINTER(i)
-    lib.ptt_layer_norm_bwd_plan.argtypes = [i, i, i, i, i, ip, ip]
-    lib.ptt_layer_norm_bwd_plan.restype = i
-    lib.ptt_paged_attention_multi.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                              i, i, f, i, p]
+    for name in ("ptt_layer_norm_fwd_plan", "ptt_layer_norm_bwd_plan"):
+        getattr(lib, name).argtypes = [i, i, i, i, i, ip, ip]
+        getattr(lib, name).restype = i
+    lib.ptt_paged_attention_multi.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                              i, i, i, i, f, i, p]
     lib.ptt_paged_attention_multi.restype = i
+    lib.ptt_paged_chunk.argtypes = []
+    lib.ptt_paged_chunk.restype = i
     lib.ptt_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, i, i, p]
     lib.ptt_flash_fwd.restype = i
     lib.ptt_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i,

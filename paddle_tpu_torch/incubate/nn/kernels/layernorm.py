@@ -46,7 +46,8 @@ __all__ = ["fused_layer_norm", "fused_residual_layer_norm",
 MAX_HIDDEN = 4096  # kMaxHidden in csrc/layernorm.cu
 _DTYPES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
 # (library, h, act, dtype code, residual, vec) -> (rows a CTA, CTAs
-# resident at once): the backward kernel's persistent grid
+# resident at once): the forward and backward kernels' persistent grids
+_FWD_PLANS = {}
 _BWD_PLANS = {}
 
 
@@ -127,11 +128,16 @@ def layer_norm_fwd(x, residual, weight, bias, eps=1e-5, activation=None,
     if n == 0:                     # no rows: nothing to launch
         return y, s, mean, rstd
     lib = load()
+    rows = [t for t in (x, residual, y, s) if t is not None]
+    vec = _vec(h, x, rows)
+    groups, ctas = _fwd_plan(lib, h, act, _DTYPES[x.dtype],
+                             residual is not None, vec)
     rc = lib.ptt_layer_norm_fwd(
         x.data_ptr(), None if residual is None else residual.data_ptr(),
         weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
         None if s is None else s.data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), n, h, float(eps), act, _DTYPES[x.dtype],
+        rstd.data_ptr(), n, h, min(-(-n // groups), ctas), float(eps), act,
+        _DTYPES[x.dtype], vec,
         torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "fused_layer_norm")
     count("fused_layer_norm")
@@ -212,10 +218,7 @@ def layer_norm_bwd(dy, ds, s, weight, bias, mean, rstd, activation=None,
         zeros = torch.zeros(h, dtype=torch.float32, device=s.device)
         return dx, zeros, zeros.clone()
     lib = load()
-    # the 16-byte path: whole vectors in every row, aligned row tensors
-    rows = [t for t in (dy, ds, s, dx) if t is not None]
-    vec = int(h % (16 // s.element_size()) == 0
-              and all(t.data_ptr() % 16 == 0 for t in rows))
+    vec = _vec(h, s, [t for t in (dy, ds, s, dx) if t is not None])
     groups, ctas = _bwd_plan(lib, h, act, _DTYPES[s.dtype], ds is not None,
                              vec)
     grid = min(-(-n // groups), ctas)
@@ -232,18 +235,38 @@ def layer_norm_bwd(dy, ds, s, weight, bias, mean, rstd, activation=None,
     return dx, dwdb[:h], dwdb[h:]
 
 
-def _bwd_plan(lib, h, act, dtype, residual, vec):
+def _vec(h, x, rows):
+    """1 for the kernels' 16-byte path: whole vectors in every row
+    (h a multiple of 4 f32 or 8 bf16 values) and 16-byte aligned row
+    tensors; else 0, one element at a time."""
+    return int(h % (16 // x.element_size()) == 0
+               and all(t.data_ptr() % 16 == 0 for t in rows))
+
+
+def _plan(plans, plan_fn, name, lib, h, act, dtype, residual, vec):
     """(rows a CTA works on at once, CTAs resident on the card at once)
-    of the backward kernel's instantiation for these arguments."""
+    of a kernel's instantiation for these arguments, from `plan_fn`
+    once and then from `plans`."""
     key = (id(lib), h, act, dtype, residual, vec)
-    if key not in _BWD_PLANS:
+    if key not in plans:
         groups, ctas = ctypes.c_int(), ctypes.c_int()
-        rc = lib.ptt_layer_norm_bwd_plan(h, act, dtype, int(residual), vec,
-                                         ctypes.byref(groups),
-                                         ctypes.byref(ctas))
-        check(rc, "fused_layer_norm_bwd plan")
-        _BWD_PLANS[key] = (groups.value, ctas.value)
-    return _BWD_PLANS[key]
+        rc = plan_fn(h, act, dtype, int(residual), vec, ctypes.byref(groups),
+                     ctypes.byref(ctas))
+        check(rc, f"{name} plan")
+        plans[key] = (groups.value, ctas.value)
+    return plans[key]
+
+
+def _fwd_plan(lib, h, act, dtype, residual, vec):
+    """The forward kernel's (rows a CTA, CTAs at once)."""
+    return _plan(_FWD_PLANS, lib.ptt_layer_norm_fwd_plan, "fused_layer_norm",
+                 lib, h, act, dtype, residual, vec)
+
+
+def _bwd_plan(lib, h, act, dtype, residual, vec):
+    """The backward kernel's (rows a CTA, CTAs at once)."""
+    return _plan(_BWD_PLANS, lib.ptt_layer_norm_bwd_plan,
+                 "fused_layer_norm_bwd", lib, h, act, dtype, residual, vec)
 
 
 def _fwd_bwd(use_kernel):

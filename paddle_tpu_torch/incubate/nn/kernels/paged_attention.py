@@ -23,6 +23,13 @@ is its plain version, with the same rounding; it has no limit on T, and
 the prefix cache's tail prefill uses it for a whole prompt tail. One
 kernel serves both wrappers: the decode step is its one-slot launch,
 counted apart as `paged_attention`.
+
+The kernel cuts each context into chunks of `PAGED_CHUNK` token
+positions and merges the chunks' partial softmax states in chunk order
+(`csrc/paged_attention.cu`): the wrapper hands it a workspace for the
+partials (`workspace_numel`, through torch's caching allocator) and a
+set of per-(sequence, head) counters that the kernel leaves at zero,
+kept per device and stream.
 """
 from __future__ import annotations
 
@@ -32,12 +39,29 @@ from . import DTYPE_BF16, DTYPE_F32, check, count, load
 
 __all__ = ["paged_attention", "paged_attention_reference",
            "paged_attention_multi", "paged_attention_multi_reference",
-           "paged_decode_supported", "MAX_QUERY_SLOTS"]
+           "paged_decode_supported", "workspace_numel", "MAX_QUERY_SLOTS",
+           "PAGED_CHUNK"]
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: DTYPE_F32, torch.bfloat16: DTYPE_BF16}
 # the multi-query kernel unrolls its slot loop (paged_attention.py:260)
 MAX_QUERY_SLOTS = 8
+# token positions a work item of the kernel covers (kChunk in
+# csrc/paged_attention.cu)
+PAGED_CHUNK = 64
+# (device, stream) -> int32 counters, one per (sequence, head), zero
+# between launches
+_COUNTERS = {}
+
+
+def workspace_numel(batch, num_q, heads, head_dim, max_blocks, block_size):
+    """f32 values of the kernel's partials: one (m, l, acc[head_dim]) per
+    sequence, head, slot and chunk of the table's width; 0 when the
+    table spans one chunk (each sequence then finishes in one CTA)."""
+    chunks = -(-max_blocks * block_size // PAGED_CHUNK)
+    if chunks <= 1:
+        return 0
+    return batch * heads * num_q * chunks * (head_dim + 2)
 
 
 def paged_decode_supported(head_dim, block_size):
@@ -119,6 +143,10 @@ def _kernel_checks(name, q, k_pool, v_pool, block_tables, context_lens):
     for t in (q, k_pool, v_pool, block_tables, context_lens):
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors")
+    for t in (k_pool, v_pool):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} copies pool rows 16 bytes at a time:"
+                             " the pools must be 16-byte aligned")
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
@@ -201,6 +229,16 @@ def paged_attention_multi(q, k_pool, v_pool, block_tables, context_lens,
                    context_lens, sm_scale)
 
 
+def _counters(device, stream, n):
+    """At least n zeroed int32 counters for launches on this stream."""
+    key = (device, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
+
+
 def _launch(name, q, k_pool, v_pool, block_tables, context_lens, sm_scale):
     """One launch of the kernel on checked CUDA tensors, q [B, T, H, D];
     counts it under `name`."""
@@ -209,11 +247,17 @@ def _launch(name, q, k_pool, v_pool, block_tables, context_lens, sm_scale):
     if b == 0:                     # no sequences: nothing to launch
         return out
     lib = load()
+    bs, maxb = k_pool.shape[1], block_tables.shape[1]
+    n = workspace_numel(b, t, h, d, maxb, bs)
+    part = torch.empty(n, dtype=torch.float32, device=q.device) if n \
+        else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counters(q.device, stream, b * h)
     rc = lib.ptt_paged_attention_multi(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        b, t, h, d, k_pool.shape[1], block_tables.shape[1], float(sm_scale),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        None if part is None else part.data_ptr(), counters.data_ptr(),
+        b, t, h, d, bs, maxb, float(sm_scale), _DTYPES[q.dtype], stream)
     check(rc, name)
     count(name)
     return out

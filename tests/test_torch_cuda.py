@@ -562,6 +562,155 @@ def test_paged_attention_multi_wrapper_rejects_what_the_kernel_does_not_take(
                                  vp[..., :32].contiguous(), bt, lens)
 
 
+def _chunk_inputs(cuda, dtype, t, head_dim, seed, maxb=12):
+    """q [8, T, 4, D], pools of distinct blocks, tables of `maxb` real
+    columns (block size 16; 12: 192 positions, three chunks) plus the
+    NULL column, and contexts around the chunk's edges: 1, chunk - 1,
+    chunk, chunk + 1, two chunks - 1, two chunks + 1 (or, past 8 chunks,
+    8 chunks - 1 and + 1), one whose deepest slot ends at the last real
+    column, and the table's width (every slot clamped)."""
+    rng = np.random.RandomState(seed)
+    b, h, bs = 8, 4, 16
+    n = b * maxb + 1
+    c = pa.PAGED_CHUNK
+    q, kp, vp = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .to(cuda, dtype)
+                 for shape in ((b, t, h, head_dim), (n, bs, h, head_dim),
+                               (n, bs, h, head_dim)))
+    bt = np.concatenate([rng.permutation(np.arange(1, n)).reshape(b, maxb),
+                         np.zeros((b, 1), int)], axis=1).astype(np.int32)
+    cap = maxb * bs
+    k = 8 if cap > 9 * c else 2
+    lens = np.array([1, c - 1, c, c + 1, k * c - 1, k * c + 1,
+                     cap - t + 1, cap], np.int32)
+    return (q, kp, vp, torch.from_numpy(bt).to(cuda),
+            torch.from_numpy(lens).to(cuda))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("t,maxb", [(1, 12), (2, 12), (4, 12), (8, 12),
+                                    (1, 40), (4, 40)])
+def test_paged_attention_chunks(cuda, dtype, tol, head_dim, t, maxb):
+    """The split context: contexts one short of, at and one past a
+    chunk's edge, of one token and at the table's width, T 1/2/4/8, and
+    tables of 40 blocks (640 positions: the merge reads chunks past its
+    first 8 from global memory). The kernel matches its plain version;
+    slot s equals the decode wrapper (the one-slot launch) at context +
+    s bit for bit, whichever chunks the two merge; NaN at every position
+    past slot s's context (and in every block no table maps) leaves slot
+    s bit-identical; a second launch gives the same bits (the counters
+    were left at zero)."""
+    assert kernels.load().ptt_paged_chunk() == pa.PAGED_CHUNK
+    q, kp, vp, bt, lens = _chunk_inputs(cuda, dtype, t, head_dim, seed=t,
+                                        maxb=maxb)
+    out = pa.paged_attention_multi(q, kp, vp, bt, lens, sm_scale=0.125)
+    ref = pa.paged_attention_multi_reference(q, kp, vp, bt, lens,
+                                             sm_scale=0.125)
+    torch.cuda.synchronize()
+    atol = tol if dtype == torch.float32 else tol * float(ref.abs().max())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=atol)
+    assert torch.equal(out, pa.paged_attention_multi(q, kp, vp, bt, lens,
+                                                     sm_scale=0.125))
+    for s in range(t):
+        one = pa.paged_attention(q[:, s].contiguous(), kp, vp, bt, lens + s,
+                                 sm_scale=0.125)
+        assert torch.equal(out[:, s], one), s
+    tb, lb = bt.cpu().numpy(), lens.cpu().numpy()
+    cap = (tb.shape[1]) * kp.shape[1]
+    nan = torch.full_like(kp, float("nan"))
+    for s in range(t):
+        live = torch.zeros(kp.shape[:2], dtype=torch.bool)
+        for b in range(len(lb)):
+            for pos in range(min(int(lb[b]) + s, cap)):
+                live[tb[b, pos // 16], pos % 16] = True
+        live = live.to(cuda)[:, :, None, None]
+        out2 = pa.paged_attention_multi(q, torch.where(live, kp, nan),
+                                        torch.where(live, vp, nan), bt, lens,
+                                        sm_scale=0.125)
+        assert torch.equal(out[:, s], out2[:, s]), s
+
+
+def test_paged_attention_workspace_follows_the_table(cuda):
+    """A table one chunk wide needs no workspace; a wider one gets one
+    partial per sequence, head, slot and chunk; a context of 0 gives
+    zeros, as the plain version does."""
+    assert pa.workspace_numel(8, 4, 16, 64, 4, 16) == 0
+    assert pa.workspace_numel(8, 4, 16, 64, 65, 16) == 8 * 4 * 16 * 17 * 66
+    q, kp, vp, bt, lens = _chunk_inputs(cuda, torch.float32, 2, 64, seed=9)
+    lens = torch.zeros_like(lens)
+    out = pa.paged_attention_multi(q, kp, vp, bt, lens, sm_scale=0.125)
+    ref = pa.paged_attention_multi_reference(q, kp, vp, bt, lens,
+                                             sm_scale=0.125)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out[:, 0], torch.zeros_like(out[:, 0]))
+
+
+_LN_FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,approx", [(None, True), ("gelu", True),
+                                        ("gelu", False)])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("hidden", [768, 1000, 1002, 1024, 4094, 4096])
+def test_layer_norm_fwd_training_rows(cuda, dtype, act, approx, res, hidden):
+    """The forward kernel at 4096 rows: one or two 16-byte vectors a lane
+    on 1 to 8 warps a row (768, 1000, 1024, 4096) and four at f32 4096,
+    one element at a time (1002 and 4094: no multiple of either vector;
+    8 and 16 a lane); y within phase 4's limits (f32 1e-5, bf16 one ulp),
+    mean and rstd within 1e-5, s bit-identical to the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(hidden)
+    x = torch.randn(4096, hidden, device=cuda, generator=g).to(dtype)
+    r = torch.randn(4096, hidden, device=cuda, generator=g).to(dtype) \
+        if res else None
+    w = 1 + 0.1 * torch.randn(hidden, device=cuda, generator=g)
+    b = 0.1 * torch.randn(hidden, device=cuda, generator=g)
+    before = kernels.launches()["fused_layer_norm"]
+    y, s, mu, rs = ln.layer_norm_fwd(x, r, w, b, 1e-5, act, approx)
+    y0, s0, mu0, rs0 = ln.layer_norm_fwd_reference(x, r, w, b, 1e-5, act,
+                                                   approx)
+    torch.cuda.synchronize()
+    assert kernels.launches()["fused_layer_norm"] == before + 1
+    tol = _LN_FWD_TOL[dtype]
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(mu, mu0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, rs0, rtol=1e-5, atol=1e-5)
+    if res:
+        assert torch.equal(s, s0)
+    else:
+        assert s is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_fwd_row_counts_and_alignment(cuda, dtype):
+    """1, 7 and more rows than the persistent grid works on at once (so
+    row groups walk several rows), and row tensors that are not 16-byte
+    aligned (the one-element path), each against the plain version."""
+    hidden = 1024
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = 1 + 0.1 * torch.randn(hidden, device=cuda, generator=g)
+    b = 0.1 * torch.randn(hidden, device=cuda, generator=g)
+    vw = 16 // torch.empty(0, dtype=dtype).element_size()
+    groups, ctas = ln._fwd_plan(kernels.load(), hidden, 0, ln._DTYPES[dtype],
+                                True, 1)
+    tol = _LN_FWD_TOL[dtype]
+    for n, offset in ((1, 0), (7, 0), (groups * ctas + 5, 0), (300, 1)):
+        buf = torch.randn(2, n * hidden + vw, device=cuda,
+                          generator=g).to(dtype)
+        x = buf[0, offset:offset + n * hidden].view(n, hidden)
+        r = buf[1, offset:offset + n * hidden].view(n, hidden)
+        y, s, mu, rs = ln.layer_norm_fwd(x, r, w, b, 1e-5)
+        y0, s0, mu0, rs0 = ln.layer_norm_fwd_reference(x, r, w, b, 1e-5)
+        torch.testing.assert_close(y.float(), y0.float(), rtol=tol, atol=tol,
+                                   msg=f"{n} rows, offset {offset}")
+        torch.testing.assert_close(mu, mu0, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rs, rs0, rtol=1e-5, atol=1e-5)
+        assert torch.equal(s, s0), f"{n} rows, offset {offset}"
+
+
 def test_speculative_prefix_engine_on_card(cuda):
     """A 2-layer GPT (head_dim 64) served with spec_k=4 and prefix
     caching on the card gives the k=1, cache-off engine's tokens, and

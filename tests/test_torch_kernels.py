@@ -130,6 +130,20 @@ def test_paged_decode_supported_geometry():
     assert pa.paged_decode_supported(64, 512)
 
 
+@pytest.mark.parametrize("b,t,h,d,maxb,bs,want", [
+    (8, 1, 16, 64, 4, 16, 0),                       # one chunk: no partials
+    (8, 1, 16, 64, 64, 16, 8 * 1 * 16 * 16 * 66),   # the decode table
+    (8, 4, 16, 64, 65, 16, 8 * 4 * 16 * 17 * 66),   # + the NULL column
+    (2, 8, 8, 128, 3, 24, 2 * 8 * 8 * 2 * 130),     # 72 positions: 2 chunks
+])
+def test_paged_workspace_follows_the_table_width(b, t, h, d, maxb, bs, want):
+    """The kernel's chunk partials: one (m, l, acc[D]) per sequence,
+    head, slot and PAGED_CHUNK-token chunk of the table's width; none
+    when the table spans one chunk."""
+    assert pa.PAGED_CHUNK == 64
+    assert pa.workspace_numel(b, t, h, d, maxb, bs) == want
+
+
 _LN_CASES = [(act, approx, res)
              for act, approx in ((None, True), ("gelu", True),
                                  ("gelu", False))
