@@ -36,7 +36,12 @@ merge of three or more chunks, and read the second page of a chunk
 through the block id of its first page (a table-column fault only
 chunks that span pages show). The two quantize mutants take the abs-max with
 fmaxf alone, which drops a NaN, so a NaN block gets a finite scale, and
-round the codes with truncf in place of rintf.
+round the codes with truncf in place of rintf. Four more show only at
+BERT's shapes: the forward and dq kernels skip the last KV tile and the
+dk/dv kernel the last q tile when not causal (every other check is
+causal), and the LayerNorm forward (variance) and backward (means and
+dw/db) leave out a lane's last vector when a row does not fill its
+lanes' vectors, as 768 does and 1024 does not.
 
 For the unmutated library (the control) and each flash mutant, three
 checks:
@@ -73,8 +78,22 @@ check:
              bf16, with and without the residual, no / tanh / erf GeLU
              (dx within 1e-5 / 1e-2 x max|ref|, dw and db within 1e-5 x
              max|ref|), and a second call bit-identical
-Exits non-zero when the control fails a check, a flash mutant passes the
-per-row flash check, a LayerNorm mutant passes the lnbwd check,
+For the control and each of the four BERT-shape mutants, one more check:
+  bert       chip_smoke's phase 18 kernel check: the flash kernels vs
+             their plain versions at B 32, H 12, S 512, D 64, bf16,
+             non-causal, per row (and f32 at B 2), and the LayerNorm
+             forward and backward at 16384 x 768 bf16 with no, a bf16
+             and an f32 residual, eps 1e-12 and 1e-5, f32 and bf16
+             weights
+  bert grads chip_smoke's phase 18 bf16 gradient check, at the initial
+             weights (seed 0): BERT-base (12 layers, bf16 O2, B 32 x S
+             512), kernel path vs plain path per row at 8e-2 x the
+             row's max|g|, the row scale floored at 0.1 x the
+             tensor's (BERT_GRADS_FLOOR), and every row within its
+             own max|g|
+Exits non-zero when the control fails a check, a BERT-shape mutant
+passes the bert check, another flash mutant passes the
+per-row flash check, another LayerNorm mutant passes the lnbwd check,
 an optimizer mutant passes the optim check, a multi-query mutant passes
 the multi check, or a quantize mutant passes the compress check.
 """
@@ -92,7 +111,9 @@ OPTIM = "optim.cu"
 PAGED = "paged_attention.cu"
 COMPRESS = "compress.cu"
 LN = "layernorm.cu"
-# (name, source in csrc/, [(unique text of the source, replacement)])
+BERT = "bert"   # the check of the mutants only BERT's shapes show
+# (name, source in csrc/, [(unique text of the source, replacement)]
+#  [, the check that must catch it; default: the source's own])
 MUTANTS = [
     ("fwd: KV tile 0 skipped for query rows >= 512", FLASH,
      [("      mbar_wait(&k_full[s], parity);\n"
@@ -212,6 +233,39 @@ MUTANTS = [
     ("compress: codes rounded by truncf, not rintf", COMPRESS,
      [("  const float r = rintf(__fdiv_rn(x, scale));\n",
        "  const float r = truncf(__fdiv_rn(x, scale));\n")]),
+    # faults only BERT's shapes show: non-causal attention, 768-wide rows
+    ("fwd and dq: the last KV tile skipped when not causal", FLASH,
+     [("  if (kCausal) it.n_kv = min(it.n_kv, (it.q0 + kFwdRows - 1) / kKeys"
+       " + 1);\n",
+       "  if (kCausal) it.n_kv = min(it.n_kv, (it.q0 + kFwdRows - 1) / kKeys"
+       " + 1);\n"
+       "  else if (it.n_kv > 1) it.n_kv -= 1;\n")], BERT),
+    ("dk/dv: the last q tile skipped when not causal", FLASH,
+     [("  it.n_t = (sq + kDkvRows - 1) / kDkvRows - it.t0;\n",
+       "  it.n_t = (sq + kDkvRows - 1) / kDkvRows - it.t0;\n"
+       "  if (!kCausal && it.n_t > 1) it.n_t -= 1;\n")], BERT),
+    ("lnfwd: a row that does not fill its lanes' vectors (768) leaves its "
+     "last vector out of the variance", LN,
+     [("    // the variance from the registers: mean((s - mean)^2)\n"
+       "    p = 0.f;\n"
+       "#pragma unroll\n"
+       "    for (int j = 0; j < kV; ++j) {\n",
+       "    // the variance from the registers: mean((s - mean)^2)\n"
+       "    p = 0.f;\n"
+       "#pragma unroll\n"
+       "    for (int j = 0; j < (h % (64 * VW * wpr) ? kV - 1 : kV); ++j) {\n"
+       )], BERT),
+    ("lnbwd: a row that does not fill its lanes' vectors (768) leaves its "
+     "last vector out of the means and the dw/db partial", LN,
+     [("    // pass 1: the row's two means (:172-174), and dw, db\n"
+       "    float p1 = 0.f, p2 = 0.f;\n"
+       "#pragma unroll\n"
+       "    for (int j = 0; j < kV; ++j) {\n",
+       "    // pass 1: the row's two means (:172-174), and dw, db\n"
+       "    float p1 = 0.f, p2 = 0.f;\n"
+       "#pragma unroll\n"
+       "    for (int j = 0; j < (h % (64 * VW * wpr) ? kV - 1 : kV); ++j) {\n"
+       )], BERT),
 ]
 
 
@@ -228,7 +282,7 @@ def build_mutants():
         common[src] = root / src.replace(".cu", ".o")
         jobs.append((src, [nvcc, *K.NVCC_FLAGS, "-c", str(K.CSRC_DIR / src),
                            "-o", str(common[src])]))
-    for i, (name, src, edits) in enumerate(MUTANTS):
+    for i, (name, src, edits, *_) in enumerate(MUTANTS):
         text = (K.CSRC_DIR / src).read_text()
         for old, new in edits:
             if text.count(old) != 1:
@@ -248,7 +302,7 @@ def build_mutants():
         if p.returncode:
             raise RuntimeError(f"nvcc failed on {n}:\n{out}")
     libs = []
-    for i, (_, src, _) in enumerate(MUTANTS):
+    for i, (_, src, *_) in enumerate(MUTANTS):
         so = root / f"m{i}.so"
         others = [str(o) for s, o in common.items() if s != src]
         subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -338,6 +392,26 @@ def lnbwd_check(dev):
         return f"FAILS ({e})"
 
 
+def bert_check(dev):
+    import chip_smoke as cs
+
+    try:
+        cs.bert_kernel_checks(dev)
+        return "passes"
+    except AssertionError as e:
+        return f"FAILS ({e})"
+
+
+def bert_grads_check(dev, model, ids):
+    import chip_smoke as cs
+
+    try:
+        cs.bert_bf16_grads_check("bert grads", model, ids)
+        return "passes"
+    except AssertionError as e:
+        return f"FAILS ({e})"
+
+
 def compress_check(dev):
     import chip_smoke as cs
 
@@ -368,10 +442,15 @@ def main():
     batch = cs._train_batch(model.config.vocab_size, dev)
     named = list(cs._train_model(dev).named_parameters())
     grads = cs._optim_grads(named, dev)
+    bert = cs._bert_model(dev)
+    bert_ids, _ = cs._bert_batch(bert.config.vocab_size, dev)
     ok, caught = True, 0
-    runs = [("control (unmutated)", None, control)] + [
-        (n, src, lib) for (n, src, _), lib in zip(MUTANTS, libs)]
-    for name, src, lib in runs:
+    own = {FLASH: "per-row", OPTIM: "optim", PAGED: "multi", LN: "lnbwd",
+           COMPRESS: "compress"}
+    runs = [("control (unmutated)", None, control, None)] + [
+        (m[0], m[1], lib, m[3] if len(m) > 3 else own[m[1]])
+        for m, lib in zip(MUTANTS, libs)]
+    for name, src, lib, check in runs:
         K._lib = lib
         try:
             res = {}
@@ -385,21 +464,23 @@ def main():
                 res["compress"] = compress_check(dev)
             if src in (None, LN):
                 res["lnbwd"] = lnbwd_check(dev)
+            if src is None or check == BERT:
+                res[BERT] = bert_check(dev)
+                res["bert grads"] = bert_grads_check(dev, bert, bert_ids)
         finally:
             K._lib = control
-        for check, verdict in res.items():
-            print(f"[mutant] {name} | {check}: {verdict}", flush=True)
+        for which, verdict in res.items():
+            print(f"[mutant] {name} | {which}: {verdict}", flush=True)
         if lib is control:
             ok &= not any(r.lower().startswith("fails")
                           for r in res.values())
             continue
-        check = {FLASH: "per-row", OPTIM: "optim", PAGED: "multi",
-                 LN: "lnbwd", COMPRESS: "compress"}[src]
         caught += res[check].startswith("FAILS")
         ok &= res[check].startswith("FAILS")
     print(f"[mutant] {caught}/{len(MUTANTS)} mutants caught; "
           f"{'every' if ok else 'NOT every'} mutant fails its check "
-          "(per-row flash, optim, multi, compress, lnbwd) and the control "
+          "(per-row flash, optim, multi, compress, lnbwd, bert) and the "
+          "control "
           "passes every check")
     return 0 if ok else 1
 

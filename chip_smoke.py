@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --measure [--kernels] [--tree DIR]
+    python3 chip_smoke.py --bert-grads
 
 Needs one CUDA card and `nvcc`; exits non-zero, printing no result,
 without them. `--measure` runs phases 1-2 and then only the times the
@@ -10,7 +11,11 @@ paged-attention and LayerNorm-forward kernels are judged by and the
 decode-step, speculative-round and training-step profiles (`measure`;
 `--kernels`: the kernel times alone), with `paddle_tpu_torch` imported
 from DIR when given: a comparison of
-two source trees runs it on each in turns in one call. Phases, each printing one line (or a few):
+two source trees runs it on each in turns in one call. `--bert-grads`
+runs phases 1-2 and then `bert_grads_rows`: where BERT-base's bf16
+gradient rows disagree, kernel path, plain path and f32, on two seeds,
+with other labels, the decoder untied and after training. Phases, each
+printing one line (or a few):
 
   1. device   card name and power limit (nvidia-smi), torch's name
   2. build    the port's CUDA kernels compiled from paddle_tpu_torch/csrc;
@@ -115,6 +120,29 @@ two source trees runs it on each in turns in one call. Phases, each printing one
               device ms within the step); then
               all_reduce(compress="int8") on 1M elements a rank, bit for
               bit against the same call on CPU copies (the plain path)
+ 18. bert     BERT-base pretraining, bench_bert's on-chip recipe (bf16
+              O2, dropout 0, AdamW(1e-4, wd 0.01, multi_precision), B 32
+              x S 512, the ids as MLM labels, token types 0, no mask,
+              random weights from seed 0): the flash kernels vs their
+              plain versions at B 32, H 12, S 512, D 64, bf16,
+              non-causal, per row (and f32 at B 2); the LayerNorm
+              kernels at 16384 x 768 bf16 with no, a bf16 and an f32
+              residual (O1's first epilogue), eps 1e-12 and 1e-5, f32
+              and bf16 weight and bias, forward, backward and the
+              autograd Function; each kernel's time against its bound,
+              its plain version and the library call (SDPA non-causal,
+              F.layer_norm); then training through TrainStepCompiler,
+              3 warm-up steps and 3 windows of 4: the loss falls, exact
+              launches a step (LayerNorm forward and backward 25 each,
+              the three flash kernels 12 each, fused_adam once for the
+              206 parameters), step ms, tokens/s, MFU, peak
+              memory, a torch.profiler split of a step (flash,
+              LayerNorm, optimizer, GEMMs, elementwise, idle); one
+              step's loss and every gradient kernel path vs plain path
+              (phase 10's tolerances, full width bf16 12 layers with the
+              row scale floored at BERT_GRADS_FLOOR x the tensor's, at
+              the initial weights, and f32 2 layers); and an O1 run (f32 parameters, amp_level="O1")
+              whose loss falls with every flash launch on bf16 q/k/v
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -169,16 +197,20 @@ def time_ms(fn, iters=100, flush=None):
     Device time: a CUDA event pair around every call, with the card
     first held by a spin kernel (torch.cuda._sleep) long enough for the
     host to enqueue every call, so the events bracket the calls' device
-    work back to back and not the Python wrappers' host time (an
-    enqueue that outlasts half the hold is retried with a longer one).
-    With `flush` (a tensor larger than the 50 MB L2), the L2 is
-    overwritten before every call, as a caller reading cold memory
-    would find it. Host time: the enqueue loop's wall time per call.
-    For a function of a few launches: a long chain of launches fills
-    the launch queue behind the hold (`profile_ms` covers those)."""
-    def enqueue():
+    work back to back and not the Python wrappers' host time. An
+    enqueue that outlasts half the hold is retried with a hold four
+    times longer (at most 5 s) and half the calls: the host may have
+    been slow, or the launch queue may have filled behind the hold (a
+    plain version's dozens of launches a call, a kernel's 30 KB
+    parameter), which blocks the host until the hold ends. With `flush`
+    (a tensor larger than the 50 MB L2), the L2 is overwritten before
+    every call, as a caller reading cold memory would find it. Host
+    time: the enqueue loop's wall time per call. For a function of a
+    few launches: a long chain of launches fills the launch queue
+    behind the hold (`profile_ms` covers those)."""
+    def enqueue(n):
         pairs = []
-        for _ in range(iters):
+        for _ in range(n):
             if flush is not None:
                 flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
@@ -193,24 +225,28 @@ def time_ms(fn, iters=100, flush=None):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    enqueue()
+    enqueue(iters)
     torch.cuda.synchronize()
     hold_s = min(5.0, 2.0 * (time.perf_counter() - t0))
-    for _ in range(4):
+    n = iters
+    for _ in range(8):
         # _sleep counts SM cycles; at <= 2 GHz this holds >= hold_s
         torch.cuda._sleep(int(hold_s * 2e9))
         t0 = time.perf_counter()
-        pairs = enqueue()
+        pairs = enqueue(n)
         host_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         if host_s < 0.5 * hold_s:
             break
-        hold_s = min(5.0, 4 * hold_s)       # the host caught up
+        tried = f"{host_s:.3f} s to enqueue {n} calls behind {hold_s:.3f} s"
+        hold_s, n = min(5.0, 4 * hold_s), max(1, n // 2)
     else:
-        raise RuntimeError("time_ms: the host could not stay ahead of "
-                           "the card")
-    dev_ms = sum(s.elapsed_time(e) for s, e in pairs) / iters
-    return dev_ms, host_s * 1e3 / iters
+        caller = sys._getframe(1)
+        raise RuntimeError(
+            f"time_ms ({caller.f_code.co_name}, line {caller.f_lineno}): "
+            f"the host could not stay ahead of the card ({tried})")
+    dev_ms = sum(s.elapsed_time(e) for s, e in pairs) / n
+    return dev_ms, host_s * 1e3 / n
 
 
 def chain_ms(fn, iters=20):
@@ -1351,16 +1387,20 @@ def _loss_and_grads(model, ids, labels, use_kernel):
     return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
 
 
-def _grads_check(tag, model, ids, labels, loss_rtol, row_tol):
+def _grads_check(tag, model, ids, labels, loss_rtol, row_tol,
+                 loss_and_grads=_loss_and_grads):
     """Loss and every gradient, kernels vs plain versions, from the
     same parameters. Each gradient is held per row (its last axis: one
     output unit of a weight, one token of an embedding, one layer of a
     stacked bias) at row_tol x the row's max|g|. Returns the worst row
     ratio max|err| / row max|g| over all parameters."""
-    loss_k, gk = _loss_and_grads(model, ids, labels, True)
-    loss_p, gp = _loss_and_grads(model, ids, labels, False)
+    loss_k, gk = loss_and_grads(model, ids, labels, True)
+    loss_p, gp = loss_and_grads(model, ids, labels, False)
     if abs(loss_k - loss_p) > loss_rtol * abs(loss_p):
         raise AssertionError(f"{tag}: loss {loss_k} vs plain {loss_p}")
+    if set(gk) != set(gp):
+        raise AssertionError(f"{tag}: the two paths give gradients to "
+                             f"different parameters")
     worst = (0.0, "")
     for name, want in gp.items():
         got = gk[name]
@@ -2794,6 +2834,622 @@ def phase_dp(dev, smi, steps=DP_STEPS):
     return runs[0]["int8:ef"]["launches"]
 
 
+# -- phase 18 ----------------------------------------------------------
+# bench_bert's on-chip recipe (bench.py:475-518): BERT-base, dropout 0,
+# bf16 O2, AdamW(1e-4, weight_decay=0.01, multi_precision), B 32 x S
+# 512, the ids as MLM labels, token types 0, no attention mask, 12
+# steps after 3 of warm-up
+BERT_BATCH, BERT_SEQ = 32, 512
+BERT_WARMUP, BERT_STEPS, BERT_WINDOWS = 3, 4, 3
+BERT_ROWS = BERT_BATCH * BERT_SEQ
+
+
+class _BertStep(torch.nn.Module):
+    """bench_bert's fixed signature: (ids, token types, MLM labels) ->
+    the pretraining loss."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.m = model
+
+    def forward(self, ids, tt, labels):
+        return self.m(ids, token_type_ids=tt, masked_lm_labels=labels)
+
+
+def _bert_model(dev, num_layers=12, o2=True, seed=0):
+    """BERT-base at full width, weights from `seed`; bf16 O2 unless `o2`
+    is False."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models.bert import BertForPretraining, bert_base
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = BertForPretraining(bert_base(dropout=0.0, num_layers=num_layers),
+                               device=dev, generator=gen)
+    return amp.decorate(model, level="O2", dtype="bfloat16") if o2 else model
+
+
+def _bert_batch(vocab, dev, seed=0):
+    """bench_bert's batch: ids from RandomState(seed), token types 0."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (BERT_BATCH, BERT_SEQ)).astype(np.int64)
+    ids = torch.from_numpy(ids).to(dev)
+    return ids, torch.zeros_like(ids)
+
+
+def _bert_launches(model):
+    """Kernel launches in one BERT training step: the embedding
+    LayerNorm and two residual LayerNorm epilogues a block, forward and
+    backward; the three flash kernels once a block; AdamW's fused_adam
+    once for every MAX_TENSORS parameters (one launch's table: once for
+    BERT-base's 206)."""
+    from paddle_tpu_torch.incubate.nn.kernels.optim import MAX_TENSORS
+
+    n_layers = model.config.num_layers
+    n_tensors = len(list(model.parameters()))
+    return {"fused_layer_norm": 2 * n_layers + 1,
+            "fused_layer_norm_bwd": 2 * n_layers + 1,
+            "flash_attention_fwd": n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers,
+            "fused_adam": -(-n_tensors // MAX_TENSORS),
+            "paged_attention": 0, "paged_attention_multi": 0,
+            "fused_sgd": 0, "fused_momentum": 0, "quantize_i8": 0,
+            "dequantize_i8": 0}
+
+
+def bert_kernel_checks(dev):
+    """Kernels #1-5 against their plain versions at BERT's shapes. Flash:
+    B 32, H 12, S 512, D 64, bf16, non-causal, per row (phase 7's check
+    and limits), and the same in f32 at B 2. LayerNorm at 16384 x 768:
+    bf16 x with and without a bf16 residual and with an f32 residual (the
+    O1 epilogue), eps 1e-12 (embeddings) and 1e-5 (blocks), f32 and bf16
+    weight and bias; the forward (phase 8's limits: y 1e-2 abs + rel,
+    mean and rstd 1e-5, s bit-identical) and the backward on its outputs
+    (dx 1e-2 x max|ref| + 1e-2 rel, dw and db 1e-5 x max|ref|), then
+    through the autograd Function (each gradient in its input's dtype).
+    Returns {name: max|err|} of the bf16 cases."""
+    from paddle_tpu_torch.incubate.nn.kernels import layernorm as ln
+
+    rng = np.random.RandomState(18)
+    scale = 64 ** -0.5
+    errs = {}
+    q, k, v, do = _flash_inputs(rng, BERT_BATCH, 12, BERT_SEQ, 64,
+                                torch.bfloat16, dev)
+    fe = _flash_check("bert flash B32 H12 S512 D64 bf16 non-causal", q, k,
+                      v, do, False, scale)
+    errs.update({n: e for n, (e, _) in fe.items()})
+    del q, k, v, do
+    q, k, v, do = _flash_inputs(rng, 2, 12, BERT_SEQ, 64, torch.float32,
+                                dev)
+    _flash_check("bert flash B2 H12 S512 D64 f32 non-causal", q, k, v, do,
+                 False, scale)
+    h = 768
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            dev, dtype)
+
+    w32, b32 = 1 + 0.1 * t(h), 0.1 * t(h)
+    x, dy, ds = (t(BERT_ROWS, h, dtype=torch.bfloat16) for _ in range(3))
+    residuals = {"none": None, "bf16": t(BERT_ROWS, h, dtype=torch.bfloat16),
+                 "f32": 3 * t(BERT_ROWS, h)}
+    fwd_err = bwd_err = 0.0
+    for rname, r in residuals.items():
+        for eps in (1e-12, 1e-5):
+            for wdt in (torch.float32, torch.bfloat16):
+                w, b = w32.to(wdt), b32.to(wdt)
+                tag = (f"bert ln {BERT_ROWS}x{h} bf16 residual={rname} "
+                       f"eps={eps} w/b {wdt}")
+                y, s, mu, rs = ln.layer_norm_fwd(x, r, w, b, eps)
+                y0, s0, mu0, rs0 = ln.layer_norm_fwd_reference(x, r, w, b,
+                                                               eps)
+                if y.dtype != x.dtype or (r is not None
+                                          and s.dtype != x.dtype):
+                    raise AssertionError(f"{tag}: outputs not in x's dtype")
+                e = assert_close(f"{tag} y", y, y0, 1e-2, 1e-2)
+                e = max(e, assert_close(f"{tag} mean", mu, mu0, 1e-5, 1e-5))
+                e = max(e, assert_close(f"{tag} rstd", rs, rs0, 1e-5, 1e-5))
+                if r is not None and not torch.equal(s, s0):
+                    raise AssertionError(f"{tag}: s differs")
+                fwd_err = max(fwd_err, e)
+                s = x if r is None else s
+                dsr = None if r is None else ds
+                got = ln.layer_norm_bwd(dy, dsr, s, w, b, mu, rs)
+                want = ln.layer_norm_bwd_reference(dy, dsr, s, w, b, mu, rs)
+                e = assert_close(f"{tag} dx", got[0], want[0],
+                                 1e-2 * float(want[0].float().abs().max()),
+                                 1e-2)
+                for name, g_, w_ in (("dw", got[1], want[1]),
+                                     ("db", got[2], want[2])):
+                    e = max(e, assert_close(f"{tag} {name}", g_, w_,
+                                            1e-5 * float(w_.abs().max()),
+                                            1e-5))
+                bwd_err = max(bwd_err, e)
+    # the autograd Function on the O1 epilogue's dtypes: x and the
+    # residual's gradients each in its own dtype, dw and db in bf16
+    leaves = [x.clone().requires_grad_(),
+              residuals["f32"].clone().requires_grad_(),
+              w32.bfloat16().requires_grad_(),
+              b32.bfloat16().requires_grad_()]
+    grads = []
+    for fn in (ln.fused_residual_layer_norm,
+               ln.fused_residual_layer_norm_reference):
+        y, s = fn(*leaves, 1e-5)
+        grads.append(torch.autograd.grad((y, s), leaves, (dy, ds)))
+    for name, g_, w_, leaf in zip(("dx", "dresidual", "dw", "db"), *grads,
+                                  leaves):
+        if g_.dtype != leaf.dtype:
+            raise AssertionError(f"bert ln Function {name}: {g_.dtype}, "
+                                 f"expected {leaf.dtype}")
+        bwd_err = max(bwd_err, assert_close(
+            f"bert ln Function {name}", g_, w_,
+            1e-2 * float(w_.float().abs().max()), 1e-2))
+    errs["ln_fwd"], errs["ln_bwd"] = fwd_err, bwd_err
+    return errs
+
+
+def bert_kernel_times(dev, smi, iters=50):
+    """Logs kernel, plain, library and bound ms of #1-5 at BERT's
+    shapes: flash at B 32, H 12, S 512, D 64, bf16, non-causal, cold L2;
+    the LayerNorm forward and backward at 16384 x 768 bf16, warm L2, with
+    and without the residual, and the forward of the O1 epilogue (bf16
+    x, f32 residual)."""
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.kernels import layernorm as ln
+
+    rng = np.random.RandomState(19)
+    b, hh, s, d = BERT_BATCH, 12, BERT_SEQ, 64
+    scale = d ** -0.5
+    q, k, v, do = _flash_inputs(rng, b, hh, s, d, torch.bfloat16, dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, False, scale)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    pit = max(1, iters // 5)
+    ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, False,
+                                                         scale),
+                         iters, flush)[0],
+          "dq": time_ms(lambda: fa.flash_attention_bwd_dq(
+              q, k, v, do, lse, delta, False, scale), iters, flush)[0],
+          "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv(
+              q, k, v, do, lse, delta, False, scale), iters, flush)[0]}
+    plain = {"fwd": time_ms(lambda: fa.flash_attention_fwd_reference(
+                 q, k, v, False, scale), pit, flush)[0],
+             "dq": time_ms(lambda: fa.flash_attention_bwd_dq_reference(
+                 q, k, v, do, lse, delta, False, scale), pit, flush)[0],
+             "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
+                 q, k, v, do, lse, delta, False, scale), pit, flush)[0]}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, scale=scale), iters, flush)[0]
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = sdpa(qg, kg, vg, scale=scale)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters, flush)[0]
+    del out, qg, kg, vg, q, k, v, do, o, lse, delta, flush
+    bh = b * hh
+    mm = 2.0 * bh * s * s * d                # one S x S x D product
+    elem = bh * s * d * 2                    # one bf16 [B, H, S, D] tensor
+    row = bh * s * 4                         # one f32 [B, H, S] row stat
+    work = {"fwd": (4 * elem + row, 2 * mm),
+            "dq": (5 * elem + 2 * row, 3 * mm),
+            "dkv": (6 * elem + 2 * row, 4 * mm)}
+    for n, (nb, fl) in work.items():
+        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
+        lib = lib_fwd if n == "fwd" else lib_bwd
+        which = "forward" if n == "fwd" else "backward (dq, dk, dv)"
+        log("bert", f"[{smi}] flash {n} B={b} H={hh} S={s} D={d} bf16 "
+            f"non-causal, cold L2: kernel {ms[n]:.5f} ms | plain "
+            f"{plain[n]:.5f} | SDPA {which} {lib:.5f} | bound {b_ms:.5f} "
+            f"({b_by}; {fl / 1e9:.2f} GFLOP, {nb / 1e6:.1f} MB) | "
+            f"{fl / ms[n] / 1e9:.1f} TFLOP/s")
+
+    h, n = 768, BERT_ROWS
+    x, r, dy, ds = (torch.from_numpy(rng.randn(n, h).astype(np.float32))
+                    .to(dev, torch.bfloat16) for _ in range(4))
+    r32 = r.float()
+    w = (1 + 0.1 * torch.from_numpy(rng.randn(h).astype(np.float32))).to(dev)
+    bias = (0.1 * torch.from_numpy(rng.randn(h).astype(np.float32))).to(dev)
+    wl, bl = w.bfloat16(), bias.bfloat16()
+    lib_f = time_ms(lambda: torch.nn.functional.layer_norm(
+        x, (h,), wl, bl, 1e-5), 100)[0]
+    xl = x.detach().requires_grad_()
+    wg, bg = (t_.detach().requires_grad_() for t_ in (wl, bl))
+    yl = torch.nn.functional.layer_norm(xl, (h,), wg, bg, 1e-5)
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        yl, (xl, wg, bg), dy, retain_graph=True), 100)[0]
+    del xl, wg, bg, yl
+    elems = n * h
+    _, s_, mu, rs = ln.layer_norm_fwd(x, r, w, bias, 1e-5)
+    for tag, res in (("residual", r), ("no residual", None),
+                     ("f32 residual (O1)", r32)):
+        k_ms = time_ms(lambda: ln.layer_norm_fwd(x, res, w, bias, 1e-5),
+                       100)[0]
+        p_ms = time_ms(lambda: ln.layer_norm_fwd_reference(
+            x, res, w, bias, 1e-5), 25)[0]
+        res_bytes = 0 if res is None else elems * (res.element_size() + 2)
+        nbytes = 2 * elems * 2 + res_bytes + 2 * h * 4 + 2 * n * 4
+        b_ms, b_by = bound_ms(nbytes, 8 * elems)
+        lib = lib_f if res is None else None
+        log("bert", f"[{smi}] LayerNorm forward N={n} H={h} bf16 {tag}, warm "
+            f"L2: kernel {k_ms:.5f} ms | plain {p_ms:.5f} | F.layer_norm "
+            f"{'n/a' if lib is None else f'{lib:.5f}'} | bound {b_ms:.5f} "
+            f"({b_by}, {nbytes} B)")
+    for tag, dsr in (("residual", ds), ("no residual", None)):
+        k_ms = time_ms(lambda: ln.layer_norm_bwd(dy, dsr, s_, w, bias, mu,
+                                                 rs), 100)[0]
+        p_ms = time_ms(lambda: ln.layer_norm_bwd_reference(
+            dy, dsr, s_, w, bias, mu, rs), 25)[0]
+        nbytes = (3 + (dsr is not None)) * elems * 2 + 4 * h * 4 + 2 * n * 4
+        b_ms, b_by = bound_ms(nbytes, 12 * elems)
+        lib = lib_b if dsr is None else None
+        log("bert", f"[{smi}] LayerNorm backward N={n} H={h} bf16 {tag}, "
+            f"warm L2: kernel {k_ms:.5f} ms | plain {p_ms:.5f} | F.layer_norm"
+            f" backward {'n/a' if lib is None else f'{lib:.5f}'} | bound "
+            f"{b_ms:.5f} ({b_by}, {nbytes} B)")
+
+
+def bert_adam_times(dev, smi, named, iters=20):
+    """fused_adam over BERT-base's O2 parameter set (206 tensors, bf16
+    with f32 masters, f32 LayerNorm parameters): one step bit-identical
+    to the plain version, then kernel / plain / torch.optim fused AdamW /
+    bound ms (phase 11's measurement)."""
+    from paddle_tpu_torch.incubate.nn.kernels import optim as ko
+
+    g0 = _optim_grads(named, dev, steps=1)[0]
+    lr, wd = 1e-4, 0.01
+    kw = dict(lr=lr, beta1=0.9, beta2=0.999, eps=1e-8,
+              decay=[float(np.float32(1) - np.float32(lr) * np.float32(wd))]
+              * len(named))
+    got, want = (_optim_lists(named, g0, "fused_adam") for _ in range(2))
+    ko.fused_adam(*got, **kw)
+    ko.fused_adam_reference(*want, **kw)
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            if x is not None and not torch.equal(x, y):
+                raise AssertionError("bert fused_adam: kernel and plain "
+                                     "version differ after one step")
+    del got, want
+    # time_ms, not phase 11's chain_ms: the wrapper's host work for 206
+    # table entries outlasts the five launches' device work, so a chain
+    # of calls would time the host. The plain version (a Python loop of
+    # ~15 ops a tensor) is host-bound itself: chain_ms
+    lists = _optim_lists(named, g0, "fused_adam")
+    k_ms, k_host = time_ms(lambda: ko.fused_adam(*lists, **kw), iters)
+    p_ms, _ = chain_ms(lambda: ko.fused_adam_reference(*lists, **kw),
+                       max(1, iters // 4))
+    del lists
+    lib_p = [p.detach().float().clone() for _, p in named]
+    for p, (n, _) in zip(lib_p, named):
+        p.grad = g0[n].float()
+    lib = torch.optim.AdamW(lib_p, lr=lr, weight_decay=wd, fused=True)
+    l_ms, l_host = time_ms(lib.step, iters)
+    del lib, lib_p
+    n_elem = sum(p.numel() for _, p in named)
+    nbytes = _optim_bytes(named, g0, "fused_adam")
+    b_ms, b_by = bound_ms(nbytes, 15 * n_elem)
+    launches = -(-len(named) // ko.MAX_TENSORS)
+    log("bert", f"[{smi}] fused_adam over BERT-base's O2 set ({len(named)} "
+        f"tensors, {n_elem} elements; bit-identical to the plain version "
+        f"after a step), device ms: kernel ({launches} launches) "
+        f"{k_ms:.5f} | plain (host-bound) "
+        f"{p_ms:.5f} | torch.optim fused AdamW (f32 copies) {l_ms:.5f} | "
+        f"bound {b_ms:.5f} ({b_by}, {nbytes / 1e9:.3f} GB), "
+        f"{100 * b_ms / k_ms:.1f}% of the bound; host ms per call: kernel "
+        f"wrapper {k_host:.5f}, torch.optim {l_host:.5f}")
+
+
+def _bert_step_split(by):
+    """{part: device ms} of a profiled BERT step's {kernel: ms}: the
+    flash kernels, the LayerNorm kernels, the optimizer, the cuBLAS /
+    CUTLASS products and the rest (elementwise, reductions, copies)."""
+    parts = {"flash": 0.0, "LayerNorm": 0.0, "optimizer": 0.0,
+             "GEMMs": 0.0, "elementwise and other": 0.0}
+    for name, ms in by.items():
+        low = name.lower()
+        if "fa_fwd" in low or "fa_bwd" in low:
+            parts["flash"] += ms
+        elif "ln_fwd_kernel" in low or "ln_bwd" in low:
+            parts["LayerNorm"] += ms
+        elif "multi_tensor_optim" in low or "advance_beta_pows" in low:
+            parts["optimizer"] += ms
+        elif ("gemm" in low or "xmma" in low or "cutlass" in low
+              or "nvjet" in low):
+            parts["GEMMs"] += ms
+        else:
+            parts["elementwise and other"] += ms
+    return parts
+
+
+def _bert_train(dev, smi, model, tag, amp_level=None, warmup=BERT_WARMUP,
+                windows=BERT_WINDOWS, steps=BERT_STEPS, profile=True):
+    """Train `model` to bench_bert's recipe through TrainStepCompiler:
+    the loss falls over the windows' steps; every kernel's launches are
+    exact per step; logs step ms (median of the windows), tokens/s, MFU,
+    peak memory and, with `profile`, a torch.profiler split of one
+    step."""
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    wrap = _BertStep(model)
+    o2 = any(p.dtype == torch.bfloat16 for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=wrap.parameters(),
+                weight_decay=0.01, multi_precision=o2)
+    step = TrainStepCompiler(wrap, opt, amp_level=amp_level)
+    ids, tt = _bert_batch(model.config.vocab_size, dev)
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        loss = step(ids, tt, ids)
+    first = float(loss.item())
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    dts, losses = [], []
+    for _ in range(windows):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(ids, tt, ids)
+        losses.append(float(loss.item()))        # .item() synchronises
+        dts.append((time.perf_counter() - t0) / steps)
+    counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_steps = windows * steps
+    per_step = _bert_launches(model)
+    for name, per in per_step.items():
+        if counts[name] != per * n_steps:
+            raise AssertionError(
+                f"{tag}: {name} launched {counts[name]} times in {n_steps} "
+                f"steps, expected {per} per step")
+    last = losses[-1]
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"{tag}: loss did not decrease ({first:.4f} "
+                             f"-> {last:.4f})")
+    dt = float(np.median(dts))
+    tokens = BERT_BATCH * BERT_SEQ
+    n_params = sum(p.numel() for p in model.parameters())
+    mfu = 6 * n_params * tokens / dt / PEAK_BF16_FLOPS
+    log("bert", f"[{smi}] {tag} ({n_params} params, "
+        f"{model.config.num_layers}L), AdamW multi_precision={o2}, "
+        f"B={BERT_BATCH} S={BERT_SEQ}: loss {first:.4f} -> "
+        + " -> ".join(f"{x:.4f}" for x in losses) + f" over {n_steps} steps"
+        f" after {warmup} warm-up; step {dt * 1e3:.3f} ms (median of "
+        f"{windows} windows of {steps}: "
+        + ", ".join(f"{x * 1e3:.3f}" for x in dts) + f") = "
+        f"{tokens / dt:.1f} tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s "
+        f"(6 N tokens); peak memory {peak / 2 ** 30:.2f} GiB; warm-up "
+        f"{warm_s:.2f} s")
+    log("bert", f"[{smi}] {tag} launches over {n_steps} steps: " + ", ".join(
+        f"{n} {counts[n]} = {per} x {n_steps}"
+        for n, per in per_step.items() if per))
+    if profile:
+        wall, busy, count, top, by = profile_ms(
+            lambda: step(ids, tt, ids), reps=2, n_top=8)
+        if busy is None:
+            log("bert", f"[{smi}] {tag} step wall {wall:.3f} ms; device "
+                "time not measured (the profiler saw no device activity)")
+        else:
+            parts = _bert_step_split(by)
+            log("bert", f"[{smi}] {tag} where a step goes (torch.profiler, 2 "
+                f"steps): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                f"({100 * busy / wall:.1f}%), idle {wall - busy:.3f} ms, "
+                f"{count:.0f} kernels; " + ", ".join(
+                    f"{k} {ms:.3f} ms ({100 * ms / wall:.1f}%)"
+                    for k, ms in parts.items()))
+            log("bert", f"[{smi}] {tag} top kernels: " + "; ".join(
+                f"{name} x{n:.0f} {t:.3f} ms" for name, n, t in top))
+    del step, opt, wrap
+
+
+def _bert_loss_and_grads(model, ids, labels, use_kernel):
+    from paddle_tpu_torch.incubate.nn import set_use_kernel
+
+    set_use_kernel(model, use_kernel)
+    try:
+        named = list(model.named_parameters())
+        loss = model(ids, token_type_ids=torch.zeros_like(ids),
+                     masked_lm_labels=labels)
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
+    finally:
+        set_use_kernel(model, True)
+    # a parameter the loss does not read (the NSP head, the pooler, the
+    # unused pre-LN scales) has no gradient on either path
+    return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)
+                                  if g is not None}
+
+
+# BERT's bf16 gradients, kernel path vs plain path at the initial
+# weights, are held per row at phase 10's 8e-2 x the row's max|g|
+# (GRADS_BF16_TOL), with the row scale floored at BERT_GRADS_FLOOR x its
+# tensor's max|g|, not at phase 10's 1e-3; and every row, however small,
+# within its own max|g| (floored at 1e-3 x the tensor's). The rows under
+# the floor are small next to their tensor (rows of `wte`, of the late
+# blocks' attention projections), and one bf16 rounding that falls the
+# other way moves them by more than 8e-2 of their own size on either
+# path: `chip_smoke.py --bert-grads` (an H100, PERF.md) finds every row
+# over 8e-2 under 6.3e-2 x its tensor's max|g|, on two seeds, with the
+# labels drawn apart from the ids and with the decoder untied, and the
+# plain path as far from an f32 copy of the weights on them as from the
+# kernel path. After 15 steps such rows reach 0.11 x their tensor's,
+# and the plain path is 0.13 x a row off f32 at this floor, so the check
+# runs on the initial weights, as chip_mutants.py's BERT faults do.
+BERT_GRADS_FLOOR = 0.1
+
+
+def bert_bf16_grads_check(tag, model, ids):
+    """Loss (1e-3 relative) and every gradient of the bf16 model, kernel
+    path vs plain path from the same weights; see BERT_GRADS_FLOOR.
+    Returns the worst row ratio at the floor."""
+    loss_k, gk = _bert_loss_and_grads(model, ids, ids, True)
+    loss_p, gp = _bert_loss_and_grads(model, ids, ids, False)
+    if abs(loss_k - loss_p) > GRADS_BF16_TOL[0] * abs(loss_p):
+        raise AssertionError(f"{tag}: loss {loss_k} vs plain {loss_p}")
+    if set(gk) != set(gp):
+        raise AssertionError(f"{tag}: the two paths give gradients to "
+                             "different parameters")
+    worst, own = (0.0, ""), (0.0, "")
+    for name, want in gp.items():
+        got = gk[name]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{tag}: non-finite grad {name}")
+        worst = max(worst, (assert_close_rows(
+            f"{tag} {name}", got, want, GRADS_BF16_TOL[1],
+            BERT_GRADS_FLOOR)[1], name))
+        own = max(own, (assert_close_rows(f"{tag} {name}", got, want,
+                                          1.0)[1], name))
+    log("grads", f"{tag}: loss kernel {loss_k:.6f} plain {loss_p:.6f} (tol "
+        f"{GRADS_BF16_TOL[0]} rel); worst grad row max|err| / row scale "
+        f"{worst[0]:.3e} ({worst[1]}), tolerance {GRADS_BF16_TOL[1]} with "
+        f"the row scale floored at {BERT_GRADS_FLOOR} x the tensor's "
+        f"max|g|; worst row against its own max|g| {own[0]:.3e} "
+        f"({own[1]}), tolerance 1; on every row of {len(gp)} parameters")
+    return worst[0]
+
+
+class _UntiedEmbedding(torch.nn.Module):
+    """BERT's word embedding with the MLM decoder untied: the lookup
+    keeps the embedding, and `weight`, which the decoder reads, becomes
+    a copy of it."""
+
+    def __init__(self, emb):
+        super().__init__()
+        self.lookup = emb
+        self.weight = torch.nn.Parameter(emb.weight.detach().clone())
+
+    def forward(self, ids):
+        return self.lookup(ids)
+
+
+def _row_stats(got, want):
+    """Per row (the last axis): max|got - want| and max|want|, flat, and
+    the tensor's max|want|."""
+    g, w = got.float(), want.float()
+    row = w.abs().amax(dim=-1).flatten()
+    return (g - w).abs().amax(dim=-1).flatten(), row, float(row.max())
+
+
+def bert_grads_rows(dev, smi, floors=(1e-3, 1e-2, 3e-2, 1e-1)):
+    """--bert-grads: where BERT-base's bf16 gradient rows disagree. For
+    each variant (the weights' seed, the labels, the decoder tied or
+    not, trained or not) one step's gradients through the kernels, the
+    plain versions and an f32 copy of the same weights (plain versions);
+    logs, for kernel vs plain, plain vs f32 and kernel vs f32, the worst
+    row ratio max|err| / row scale at each scale floor, how many rows
+    are over phase 10's 8e-2 at the 1e-3 floor and the largest of those
+    rows' max|g| relative to its tensor's."""
+    variants = [("seed 0, ids as labels", 0, 0, False, 0),
+                ("seed 1 (weights and ids), ids as labels", 1, None, False,
+                 0),
+                ("seed 0, labels a second draw of ids", 0, 1, False, 0),
+                ("seed 0, decoder untied, ids as labels", 0, 0, True, 0),
+                ("seed 0 after 15 O2 steps, ids as labels", 0, 0, False,
+                 BERT_WARMUP + BERT_WINDOWS * BERT_STEPS)]
+    for tag, seed, label_seed, untie, steps in variants:
+        model = _bert_model(dev, seed=seed)
+        ref = _bert_model(dev, o2=False, seed=seed)
+        if untie:
+            for m in (model, ref):
+                m.bert.embeddings.word_embeddings = _UntiedEmbedding(
+                    m.bert.embeddings.word_embeddings)
+        ids, _ = _bert_batch(model.config.vocab_size, dev, seed)
+        labels = ids if label_seed in (None, seed) else _bert_batch(
+            model.config.vocab_size, dev, label_seed)[0]
+        if steps:
+            _bert_train(dev, smi, model, f"--bert-grads {tag}",
+                        warmup=BERT_WARMUP, windows=BERT_WINDOWS,
+                        steps=BERT_STEPS, profile=False)
+        with torch.no_grad():
+            for (n, p), (n2, q) in zip(ref.named_parameters(),
+                                       model.named_parameters()):
+                assert n == n2
+                p.copy_(q.float())
+        loss_k, gk = _bert_loss_and_grads(model, ids, labels, True)
+        loss_p, gp = _bert_loss_and_grads(model, ids, labels, False)
+        loss_t, gt = _bert_loss_and_grads(ref, ids, labels, False)
+        del model, ref
+        torch.cuda.empty_cache()
+        parts = []
+        for pair, a, b in (("kernel vs plain", gk, gp),
+                           ("plain vs f32", gp, gt),
+                           ("kernel vs f32", gk, gt)):
+            worst = {f: (0.0, "") for f in floors}
+            over, rel_over = 0, (0.0, "")
+            for name, want in b.items():
+                err, row, top = _row_stats(a[name], want)
+                for f in floors:
+                    r = float((err / row.clamp_min(max(f * top, 1e-30)))
+                              .max())
+                    worst[f] = max(worst[f], (r, name))
+                bad = err > GRADS_BF16_TOL[1] * row.clamp_min(
+                    max(1e-3 * top, 1e-30))
+                if bool(bad.any()):
+                    over += int(bad.sum())
+                    rel_over = max(rel_over, (float(row[bad].max()) / top,
+                                              name))
+            parts.append(
+                f"{pair}: worst row ratio at floor " + ", ".join(
+                    f"{f:g} {r:.3e} ({n})" for f, (r, n) in worst.items())
+                + f"; {over} rows over {GRADS_BF16_TOL[1]} at floor 1e-3, "
+                f"the largest of them {rel_over[0]:.3e} x its tensor's "
+                f"max|g| ({rel_over[1]})")
+        log("grads", f"[{smi}] --bert-grads {tag}: loss kernel {loss_k:.6f}"
+            f" plain {loss_p:.6f} f32 {loss_t:.6f}; " + " | ".join(parts))
+        del gk, gp, gt
+        torch.cuda.empty_cache()
+
+
+def phase_bert(dev, smi):
+    """Phase 18: BERT-base pretraining (see the module docstring)."""
+    errs = bert_kernel_checks(dev)
+    log("bert", f"[{smi}] kernels vs plain at BERT's shapes: flash B32 H12 "
+        f"S512 D64 bf16 non-causal per row (o {errs['o']:.3e}, dq "
+        f"{errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e}; tol "
+        f"{FLASH_BF16_ROW_TOL} x row max|ref|) and f32 B2 (2e-5 / 2e-4); "
+        f"LayerNorm 16384x768 bf16, residual none / bf16 / f32, eps 1e-12 "
+        f"and 1e-5, w/b f32 and bf16: forward max|err| {errs['ln_fwd']:.3e}"
+        f" (y 1e-2 abs + rel, mean/rstd 1e-5, s bit-identical), backward "
+        f"{errs['ln_bwd']:.3e} (dx 1e-2 x max|ref|, dw/db 1e-5 x max|ref|)")
+    bert_kernel_times(dev, smi)
+    model = _bert_model(dev)
+    ids, _ = _bert_batch(model.config.vocab_size, dev)
+    bert_bf16_grads_check(f"BERT-base {model.config.num_layers}L bf16 O2, "
+                          "initial weights", model, ids)
+    bert_adam_times(dev, smi, list(model.named_parameters()))
+    _bert_train(dev, smi, model, "BERT-base bf16 O2")
+    del model
+    torch.cuda.empty_cache()
+    small = _bert_model(dev, num_layers=2, o2=False)
+    _grads_check("BERT-base width 2L f32", small, ids, ids, *GRADS_F32_TOL,
+                 loss_and_grads=_bert_loss_and_grads)
+    del small
+    torch.cuda.empty_cache()
+
+    # O1: f32 parameters, the forward under auto_cast; the flash kernels
+    # must see bf16 q/k/v
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
+
+    seen = []
+    real_fwd = fa.flash_attention_fwd
+
+    def spy(q, *a, **kw):
+        seen.append(q.dtype)
+        return real_fwd(q, *a, **kw)
+
+    fa.flash_attention_fwd = spy
+    try:
+        o1 = _bert_model(dev, o2=False)
+        _bert_train(dev, smi, o1, "BERT-base f32 params, O1", amp_level="O1",
+                    warmup=1, windows=2, steps=2, profile=False)
+    finally:
+        fa.flash_attention_fwd = real_fwd
+    if not seen or set(seen) != {torch.bfloat16}:
+        raise AssertionError(f"bert O1: flash forward saw {set(seen)}")
+    log("bert", f"[{smi}] O1: {len(seen)} flash forward launches, every one "
+        "on bf16 q/k/v")
+    del o1
+    torch.cuda.empty_cache()
+
+
 def _paged_ms(by):
     """(T = 1 launches' ms, T > 1 launches' ms) of the paged kernel in a
     profile's {kernel name: ms}: one kernel, told apart by its slot
@@ -2891,6 +3547,10 @@ def main():
     t0 = time.perf_counter()
     smi, name = phase_device()
     phase_build()
+    if "--bert-grads" in sys.argv:
+        bert_grads_rows(dev, smi)
+        log("done", f"measured in {time.perf_counter() - t0:.1f} s")
+        return 0
     if "--measure" in sys.argv:
         measure(dev, smi, "--kernels" in sys.argv)
         log("done", f"measured in {time.perf_counter() - t0:.1f} s")
@@ -2931,6 +3591,8 @@ def main():
     for e in compress_entries:
         e["launches"] = counts[e["name"]]
     entries += compress_entries
+    torch.cuda.empty_cache()
+    phase_bert(dev, smi)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -14,15 +14,26 @@ package's, so each counterpart sits at the same path:
                                         Functions
   * `text.models.gpt`                   GPT-2 as an `nn.Module`: logits,
                                         causal-LM loss, training
-  * `amp`                               `decorate` (O2: bf16 params,
-                                        LayerNorm kept f32), `GradScaler`
+  * `text.models.bert`                  BERT pretraining (MLM + NSP) on
+                                        the fused transformer layers
+  * `incubate.nn`                       the fused transformer layers,
+                                        the fused LayerNorm entry points
+                                        and SDPA with its flash routing
+  * `amp`                               `auto_cast` (O1: white-listed
+                                        ops on bf16 inputs), `decorate`
+                                        (O2: bf16 params, LayerNorm kept
+                                        f32), `GradScaler`
   * `optimizer`                         SGD, Momentum, Adam, AdamW (one
                                         multi-tensor kernel launch a
                                         step on the card) and the rules
                                         without a kernel; f32 master
                                         weights; `optimizer.lr`, the LR
                                         schedulers
-  * `nn`                                the gradient clips
+  * `nn`, `ops`                         `Linear`, `Embedding`, `Dropout`,
+                                        `LayerNorm`, `Tanh`, `LayerList`,
+                                        the functional ops they run on,
+                                        the initializers, the gradient
+                                        clips
   * `jit`                               `TrainStepCompiler`: forward
                                         loss, backward, update; gradient
                                         merge, the non-finite guard,

@@ -1,14 +1,32 @@
 """paddle_tpu_torch.amp — mixed precision, the port of
-`paddle_tpu/amp/__init__.py` (level O2 and `GradScaler`).
+`paddle_tpu/amp/__init__.py`: `auto_cast` (O1), `decorate` (O2) and
+`GradScaler`.
+
+`auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
+level="O1", dtype="bfloat16")` (alias `amp_guard`) is a context manager
+over a thread-local state (`amp_state()`). Inside it, every op of the
+port's functional layer (`nn.functional`, `ops`, `incubate.nn`) first
+hands its inputs to `maybe_cast_inputs(op_name, vals)` under its JAX
+op name, as the JAX dispatcher does (amp/__init__.py:108-130): for a
+name in `WHITE_LIST` plus the custom white list minus the custom black
+list, every f32 tensor among the inputs, an additive attention mask
+included, becomes the amp dtype; any other tensor and any other op is
+left alone. The black list upcasts nothing. The lists are the JAX
+package's, verbatim. This is not `torch.autocast`: that one has its own
+op lists, runs `layer_norm` and `softmax` in f32 and caches casts.
+`audit_op_lists()` names the list entries no op of the port dispatches
+(`known_op_names()` scans the port's sources for the names it hands to
+`maybe_cast_inputs`). The JAX `auto_cast`'s PTA092 precision audit
+belongs to the analysis plane, which is not ported.
 
 `decorate(models, optimizers=None, level="O2", dtype="bfloat16")` casts
 every floating parameter and buffer of the models to the amp dtype in
-place, except those of normalisation layers and those marked
-`no_amp_cast` (GPT's LayerNorm scales and shifts), which stay f32 —
-the reference's `pure_fp16_initialize`. Parameters keep their identity
-(only `.data` changes), so an optimizer built before or after holds
-the same tensors. f32 master weights are the optimizer's business
-(`multi_precision=True`).
+place, except those of normalisation layers (torch's and the port's
+`nn.LayerNorm`) and those marked `no_amp_cast` (GPT's LayerNorm scales
+and shifts), which stay f32 — the reference's `pure_fp16_initialize`.
+Parameters keep their identity (only `.data` changes), so an optimizer
+built before or after holds the same tensors. f32 master weights are
+the optimizer's business (`multi_precision=True`).
 
 `GradScaler` is dynamic loss scaling (amp/__init__.py:220-345):
 `scale`, `unscale_`, `step`, `update`, `minimize`, the state dict, and
@@ -16,25 +34,156 @@ the same tensors. f32 master weights are the optimizer's business
 feeds it one finite / non-finite verdict per microstep. The eager
 `unscale_` leaves f32 gradients, as the JAX package's does (:254-257),
 and takes the finiteness verdict of all of them with one host sync.
-
-Queued: `auto_cast` (O1): it needs an op-level cast hook in the port's
-functional model code (the JAX dispatcher's `maybe_cast_inputs`).
 """
 from __future__ import annotations
+
+import os
+import re
+import threading
 
 import torch
 import torch.nn as nn
 
 from ..core import monitor as _monitor
 
-__all__ = ["decorate", "GradScaler"]
+__all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler",
+           "white_list", "black_list", "amp_state", "maybe_cast_inputs",
+           "audit_op_lists", "known_op_names", "WHITE_LIST", "BLACK_LIST"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
 
-# the reference's pure_fp16_initialize skips these layer types
-_NORM_LAYERS = (nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm,
-                nn.RMSNorm)
+# reference: imperative/amp_auto_cast.cc AmpOperators default lists, as
+# the JAX package keeps them (amp/__init__.py:29-35): names of ops as
+# dispatched
+WHITE_LIST = {"matmul", "mv", "conv2d", "conv1d", "conv3d",
+              "linear", "einsum", "addmm",
+              "scaled_dot_product_attention"}
+BLACK_LIST = {"exp", "log", "log2", "log10", "log1p", "mean", "sum", "softmax",
+              "log_softmax", "cross_entropy", "softmax_with_cross_entropy",
+              "layer_norm", "batch_norm", "norm", "cumsum", "pow",
+              "logsumexp"}
+
+
+def _norm_layers():
+    """The layer types the reference's pure_fp16_initialize skips:
+    torch's norm layers and the port's `nn.LayerNorm`."""
+    from ..nn.layer.norm import LayerNorm
+
+    return (nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm,
+            nn.RMSNorm, LayerNorm)
+
+
+def _amp_dtype(dtype):
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if dtype not in _DTYPES:
+        raise ValueError(f"unsupported amp dtype {dtype!r}")
+    return _DTYPES[dtype]
+
+
+def white_list():
+    return {"float16": {"O1": WHITE_LIST, "O2": WHITE_LIST},
+            "bfloat16": {"O1": WHITE_LIST, "O2": WHITE_LIST}}
+
+
+def black_list():
+    return {"float16": {"O1": BLACK_LIST, "O2": BLACK_LIST},
+            "bfloat16": {"O1": BLACK_LIST, "O2": BLACK_LIST}}
+
+
+_CAST_CALL = re.compile(r"""maybe_cast_inputs\(\s*['"](\w+)['"]""")
+
+
+def known_op_names():
+    """Every op name the port's functional layer hands to
+    `maybe_cast_inputs`: the literal first arguments of its calls in
+    the package's sources."""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    names = set()
+    for root, _, files in os.walk(pkg):
+        for fn in files:
+            if fn.endswith(".py"):
+                with open(os.path.join(root, fn), encoding="utf-8") as f:
+                    names.update(_CAST_CALL.findall(f.read()))
+    return names
+
+
+def audit_op_lists():
+    """{"white": [...], "black": [...]}: the entries of WHITE_LIST and
+    BLACK_LIST that no op of the port dispatches — ops not ported yet,
+    which auto_cast can therefore never see."""
+    known = known_op_names()
+    return {"white": sorted(n for n in WHITE_LIST if n not in known),
+            "black": sorted(n for n in BLACK_LIST if n not in known)}
+
+
+class _AmpState(threading.local):
+    def __init__(self):
+        self.enabled = False
+        self.dtype = torch.bfloat16
+        self.level = "O1"
+        self.custom_white = set()
+        self.custom_black = set()
+
+
+_amp = _AmpState()
+
+
+def amp_state():
+    return _amp
+
+
+def _cast_tree(v, dtype):
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype) if v.dtype == torch.float32 else v
+    if isinstance(v, (list, tuple)):
+        return type(v)(_cast_tree(x, dtype) for x in v)
+    return v
+
+
+def maybe_cast_inputs(op_name, vals):
+    """`vals` with every f32 tensor cast to the amp dtype when auto_cast
+    is on and `op_name` is white-listed (the default list plus the
+    custom white list, minus the custom black list); else `vals` as
+    given. Called by each op of the functional layer on its tensor
+    inputs, under the op's JAX name."""
+    if not _amp.enabled:
+        return vals
+    if op_name not in (WHITE_LIST | _amp.custom_white) - _amp.custom_black:
+        return vals
+    return _cast_tree(vals, _amp.dtype)
+
+
+class auto_cast:
+    """Context manager (paddle.amp.auto_cast): O1 casts the inputs of
+    white-listed ops; on exit the outer state comes back."""
+
+    def __init__(self, enable=True, custom_white_list=None,
+                 custom_black_list=None, level="O1", dtype="bfloat16"):
+        self._enable = enable
+        self._white = set(custom_white_list or [])
+        self._black = set(custom_black_list or [])
+        self._level = level
+        self._dtype = _amp_dtype(dtype)
+
+    def __enter__(self):
+        self._prev = (_amp.enabled, _amp.dtype, _amp.level,
+                      _amp.custom_white, _amp.custom_black)
+        _amp.enabled = self._enable
+        _amp.dtype = self._dtype
+        _amp.level = self._level
+        _amp.custom_white = self._white
+        _amp.custom_black = self._black
+        return self
+
+    def __exit__(self, *exc):
+        (_amp.enabled, _amp.dtype, _amp.level, _amp.custom_white,
+         _amp.custom_black) = self._prev
+        return False
+
+
+amp_guard = auto_cast
 
 
 def _cast(t, dtype):
@@ -49,16 +198,14 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16"):
     (and the optimizers, when given), as the reference does."""
     if level not in ("O1", "O2"):
         raise ValueError(f"level must be 'O1' or 'O2', got {level!r}")
-    if isinstance(dtype, str):
-        if dtype not in _DTYPES:
-            raise ValueError(f"unsupported amp dtype {dtype!r}")
-        dtype = _DTYPES[dtype]
+    dtype = _amp_dtype(dtype)
+    norm_layers = _norm_layers()
     single = not isinstance(models, (list, tuple))
     model_list = [models] if single else list(models)
     if level == "O2":
         for model in model_list:
             for layer in model.modules():
-                if isinstance(layer, _NORM_LAYERS):
+                if isinstance(layer, norm_layers):
                     continue
                 for p in layer._parameters.values():
                     if _cast(p, dtype):

@@ -13,6 +13,11 @@ Trees of an O2 model (`amp.decorate` in the JAX package) hold bf16
 arrays (numpy's `bfloat16` from ml_dtypes); they load into bf16 port
 parameters unchanged, through an exact f32 round trip.
 
+`load_reference_state_dict(model, flat)` loads a flat {structured
+name: array} dict, as `dict(jax_model.state_dict())` gives it (BERT and
+the other models built from `nn` layers), into a port model whose
+parameters carry the same names (`model.named_parameters()`).
+
 `optimizer_state_from_numpy` carries a JAX optimizer's slots (moments,
 velocity, beta powers, master weights) into the port's
 `Optimizer.set_state_dict` keys, so that both packages can go on from
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_numpy", "load_reference_params",
-           "optimizer_state_from_numpy"]
+           "load_reference_state_dict", "optimizer_state_from_numpy"]
 
 
 def _tensor(arr):
@@ -69,6 +74,29 @@ def load_reference_params(model, tree):
             raise ValueError(
                 f"{name}: shape {tuple(value.shape)} != "
                 f"{tuple(p.shape)}")
+        p.copy_(value.to(device=p.device, dtype=p.dtype))
+    return model
+
+
+@torch.no_grad()
+def load_reference_state_dict(model, flat):
+    """Copy a flat {structured name: array} dict (numpy arrays, or
+    anything `np.asarray` takes) into the parameters of the same names
+    of a port model, in place, on the model's device and in each
+    parameter's dtype. A missing, extra or misshapen name raises."""
+    own = dict(model.named_parameters())
+    if set(flat) != set(own):
+        raise ValueError(
+            f"parameter names differ: missing {sorted(set(own) - set(flat))}"
+            f", unexpected {sorted(set(flat) - set(own))}")
+    values = {name: _tensor(arr) for name, arr in flat.items()}
+    for name, value in values.items():
+        if tuple(value.shape) != tuple(own[name].shape):
+            raise ValueError(
+                f"{name}: shape {tuple(value.shape)} != "
+                f"{tuple(own[name].shape)}")
+    for name, value in values.items():
+        p = own[name]
         p.copy_(value.to(device=p.device, dtype=p.dtype))
     return model
 

@@ -20,8 +20,10 @@
 // one array; that copies every tensor twice per step. Here nothing is
 // packed: the wrapper passes a table of per-tensor entries (pointers,
 // element count, per-tensor scalars) BY VALUE as the kernel's parameter
-// (under 4 KB), so a step costs no host-to-device copy, and one more
-// launch follows only for a list of more than kMaxTensors tensors. An
+// (30 KB for 384 entries: CUDA 12.1 and later take up to 32,764 bytes of
+// parameters on sm_70 and later), so a step costs no host-to-device
+// copy, and one more launch follows only for a list of more than
+// kMaxTensors tensors (BERT-base's 206 and GPT-2's 16 take one). An
 // O2 model's bf16 parameters with f32 masters and its f32 LayerNorm
 // parameters without masters are entries of the same table, so they go
 // in the same launch. The grid walks (tensor, chunk) pairs: block b
@@ -55,7 +57,7 @@ constexpr int kThreads = 256;
 constexpr int kVec = 4;
 constexpr int kIters = 8;
 constexpr int kChunk = kThreads * kVec * kIters;  // 8192 elements a block
-constexpr int kMaxTensors = 48;
+constexpr int kMaxTensors = 384;
 
 enum Kind { kSgd = 0, kMomentum = 1, kNesterov = 2, kAdam = 3 };
 // entry flags
@@ -96,7 +98,7 @@ struct Table {
 };
 static_assert(sizeof(Entry) == 80, "Entry layout is shared with ctypes");
 static_assert(sizeof(Scalars) == 32, "Scalars layout is shared with ctypes");
-static_assert(sizeof(Table) <= 4096, "the table rides as a kernel parameter");
+static_assert(sizeof(Table) <= 32764, "the table rides as a kernel parameter");
 
 }  // namespace ptt_optim
 
@@ -287,7 +289,8 @@ extern "C" int ptt_fused_optim(const Scalars* s, const Entry* entries,
   }
   T.chunks = static_cast<int>(chunks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s->kind == kAdam) advance_beta_pows_kernel<<<1, 64, 0, st>>>(T);
+  if (s->kind == kAdam)
+    advance_beta_pows_kernel<<<1, kMaxTensors, 0, st>>>(T);
   if (chunks > 0) {
     switch (s->kind) {
       case kSgd:

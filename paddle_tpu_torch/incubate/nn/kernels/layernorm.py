@@ -20,8 +20,22 @@ residual variant hands the same dx to x and to the residual.
 
 `layer_norm_fwd` returns every output of the forward kernel, (y, s,
 mean, rstd), with mean and rstd f32 of shape [rows]; `layer_norm_bwd`
-returns (dx, dw, db). For CUDA tensors they launch the kernels; for CPU
-tensors they run `layer_norm_fwd_reference` / `layer_norm_bwd_reference`,
+returns (dx, dw, db), dw and db in f32.
+
+The weight and bias may be f32 or bf16 (`amp.decorate` casts the fused
+transformer layers' LayerNorm scales): the wrappers hand the kernels
+an f32 copy (exact), and the autograd Functions return dw and db in
+the parameters' dtype, as `_ln_bwd_impl` does (:217-218). A residual
+of another dtype than x (a bf16 x and an f32 residual: block 0's
+attention epilogue under O1) follows the Pallas kernel (:85-110): s =
+x + residual in the promoted dtype, statistics and y from that
+unrounded sum, s and y stored in x's dtype. The wrapper runs the kernel
+in the promoted dtype on upcast copies (exact) and rounds y and s to
+x's dtype; the backward then sees the stored s, as the Pallas
+backward does, and the residual's gradient comes back in its dtype.
+
+For CUDA tensors the wrappers launch the kernels; for CPU tensors they
+run `layer_norm_fwd_reference` / `layer_norm_bwd_reference`,
 the same arithmetic in plain PyTorch. The `*_reference` public
 functions go through the plain versions on any device: the comparison
 path.
@@ -64,7 +78,8 @@ def layer_norm_fwd_reference(x, residual, weight, bias, eps=1e-5,
                              activation=None, approximate=True):
     """Plain PyTorch (y, s, mean, rstd): the kernel's arithmetic.
 
-    The sum is formed in the input dtype; statistics are f32 with the
+    The sum is formed in the input dtype (in the promoted dtype when the
+    residual's differs, and stored in x's); statistics are f32 with the
     population variance (`jnp.var`'s, `correction=0`); the GeLU is the
     tanh form when `approximate` (jax.nn.gelu's default), else erf."""
     _act_code(activation, approximate)
@@ -76,7 +91,7 @@ def layer_norm_fwd_reference(x, residual, weight, bias, eps=1e-5,
     y = (sf - mu) * rstd * weight.float() + bias.float()
     if activation == "gelu":
         y = F.gelu(y, approximate="tanh" if approximate else "none")
-    return (y.to(x.dtype), None if residual is None else s,
+    return (y.to(x.dtype), None if residual is None else s.to(x.dtype),
             mu.reshape(-1), rstd.reshape(-1))
 
 
@@ -105,6 +120,12 @@ def _check(x, residual, weight, bias):
                              f"{t.dtype} {tuple(t.shape)}")
 
 
+def _f32(t):
+    """An f32 copy of a bf16 weight or bias for the kernels (exact);
+    any other tensor as it is, for `_check` to judge."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def layer_norm_fwd(x, residual, weight, bias, eps=1e-5, activation=None,
                    approximate=True):
     """(y, s, mean, rstd) of the fused LayerNorm; s is None without a
@@ -117,6 +138,15 @@ def layer_norm_fwd(x, residual, weight, bias, eps=1e-5, activation=None,
         raise ValueError(
             f"fused_layer_norm runs on CUDA (kernel) or CPU (plain "
             f"version), got {x.device}")
+    weight, bias = _f32(weight), _f32(bias)
+    if residual is not None and residual.dtype != x.dtype \
+            and {x.dtype, residual.dtype} <= set(_DTYPES):
+        # the sum in the promoted dtype, y and s stored in x's
+        ct = torch.promote_types(x.dtype, residual.dtype)
+        y, s, mean, rstd = layer_norm_fwd(
+            x.to(ct), residual.to(ct), weight, bias, eps, activation,
+            approximate)
+        return y.to(x.dtype), s.to(x.dtype), mean, rstd
     act = _act_code(activation, approximate)
     _check(x, residual, weight, bias)
     h = x.shape[-1]
@@ -197,6 +227,7 @@ def layer_norm_bwd(dy, ds, s, weight, bias, mean, rstd, activation=None,
             f"fused_layer_norm runs on CUDA (kernel) or CPU (plain "
             f"version), got {s.device}")
     act = _act_code(activation, approximate)
+    weight, bias = _f32(weight), _f32(bias)
     _check(s, None, weight, bias)
     h = s.shape[-1]
     n = s.numel() // h
@@ -277,7 +308,8 @@ def _fwd_bwd(use_kernel):
 
 class FusedLayerNormFn(torch.autograd.Function):
     """y = [gelu](LayerNorm(x) * w + b), with the backward kernel as
-    its gradient (`use_kernel=False`: the plain versions both ways)."""
+    its gradient (`use_kernel=False`: the plain versions both ways); dw
+    and db in the weight's and bias's dtype."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, activation, approximate,
@@ -296,13 +328,14 @@ class FusedLayerNormFn(torch.autograd.Function):
         _, bwd = _fwd_bwd(use_kernel)
         dx, dw, db = bwd(dy.contiguous(), None, x, weight, bias, mean, rstd,
                          activation, approximate)
-        return dx, dw, db, None, None, None, None
+        return (dx, dw.to(weight.dtype), db.to(bias.dtype), None, None, None,
+                None)
 
 
 class FusedResidualLayerNormFn(torch.autograd.Function):
     """(y, s): s = x + residual, y = [gelu](LayerNorm(s) * w + b). Both
     outputs carry cotangents; x and the residual get the same dx
-    (layernorm.py:300-310)."""
+    (layernorm.py:300-310), each in its own dtype."""
 
     @staticmethod
     def forward(ctx, x, residual, weight, bias, eps, activation,
@@ -311,17 +344,18 @@ class FusedResidualLayerNormFn(torch.autograd.Function):
         y, s, mean, rstd = fwd(x, residual, weight, bias, eps, activation,
                                approximate)
         ctx.save_for_backward(s, weight, bias, mean, rstd)
-        ctx.cfg = (activation, approximate, use_kernel)
+        ctx.cfg = (activation, approximate, use_kernel, residual.dtype)
         return y, s
 
     @staticmethod
     def backward(ctx, dy, ds):
         s, weight, bias, mean, rstd = ctx.saved_tensors
-        activation, approximate, use_kernel = ctx.cfg
+        activation, approximate, use_kernel, res_dtype = ctx.cfg
         _, bwd = _fwd_bwd(use_kernel)
         dx, dw, db = bwd(dy.contiguous(), ds.contiguous(), s, weight, bias,
                          mean, rstd, activation, approximate)
-        return dx, dx, dw, db, None, None, None, None
+        return (dx, dx.to(res_dtype), dw.to(weight.dtype), db.to(bias.dtype),
+                None, None, None, None)
 
 
 def fused_layer_norm(x, weight, bias, eps=1e-5, activation=None,

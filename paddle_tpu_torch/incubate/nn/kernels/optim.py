@@ -45,7 +45,7 @@ __all__ = ["fused_adam", "fused_sgd", "fused_momentum",
            "fused_momentum_reference", "adam_rule", "momentum_rule",
            "sgd_rule", "MAX_TENSORS", "CHUNK"]
 
-MAX_TENSORS = 48   # kMaxTensors in csrc/optim.cu: table entries a launch
+MAX_TENSORS = 384  # kMaxTensors in csrc/optim.cu: table entries a launch
 CHUNK = 8192       # kChunk: elements a CUDA block updates
 _SGD, _MOMENTUM, _NESTEROV, _ADAM = 0, 1, 2, 3
 _BASE_BF16, _GRAD_BF16, _ALIGNED = 1, 2, 4

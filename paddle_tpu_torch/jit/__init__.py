@@ -34,14 +34,23 @@ compiled step's semantics (`one_step`, :1515-1598):
 
 The optimizer's `_step_count` advances by the merge boundaries a call
 crossed (:1269-1275), skipped or not, as in the JAX package. O2 is
-`amp.decorate` on the model, as in the JAX package; `amp_level="O1"` is
-queued and raises NotImplementedError.
+`amp.decorate` on the model, as in the JAX package. `amp_level="O1"`
+runs each microstep's forward loss, and not its backward, inside
+`amp.auto_cast(level="O1", dtype=amp_dtype, custom_white_list=...,
+custom_black_list=...)`, as the JAX `_build` wraps `loss_of`
+(:1445-1458): the white-listed ops of models built from the port's
+functional layer (`nn`, `incubate.nn`) then run on bf16 inputs. A
+model that calls no such op (the port's GPT, whose loss is one op in
+the JAX package too, `"gpt_loss"`) trains exactly as in f32.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
+from .. import amp as _amp
 from ..core import monitor as _monitor
 
 __all__ = ["TrainStepCompiler"]
@@ -50,14 +59,15 @@ __all__ = ["TrainStepCompiler"]
 class TrainStepCompiler:
     def __init__(self, model, optimizer, loss_fn=None, accumulate_steps=1,
                  amp_level=None, steps_per_dispatch=1, guard_nonfinite=False,
-                 grad_scaler=None):
-        if amp_level == "O1":
-            raise NotImplementedError(
-                "TrainStepCompiler: amp_level='O1' is not ported yet (it "
-                "needs an op-level cast hook in the model code)")
-        if amp_level not in (None, "O2"):
+                 grad_scaler=None, amp_dtype="bfloat16",
+                 amp_custom_white_list=None, amp_custom_black_list=None):
+        if amp_level not in (None, "O1", "O2"):
             raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
                              f"{amp_level!r}")
+        self._amp_level = amp_level
+        self._amp_dtype = amp_dtype
+        self._amp_white = amp_custom_white_list
+        self._amp_black = amp_custom_black_list
         self._model = model
         self._opt = optimizer
         self._loss_fn = loss_fn
@@ -76,10 +86,18 @@ class TrainStepCompiler:
     def _device(self):
         return next(self._model.parameters()).device
 
+    def _amp_ctx(self):
+        if self._amp_level != "O1":
+            return contextlib.nullcontext()
+        return _amp.auto_cast(enable=True, level="O1", dtype=self._amp_dtype,
+                              custom_white_list=self._amp_white,
+                              custom_black_list=self._amp_black)
+
     def _loss(self, batch):
-        if self._loss_fn is not None:
-            return self._loss_fn(self._model(*batch[:-1]), batch[-1])
-        return self._model(*batch)
+        with self._amp_ctx():
+            if self._loss_fn is not None:
+                return self._loss_fn(self._model(*batch[:-1]), batch[-1])
+            return self._model(*batch)
 
     def __call__(self, *batch):
         dev = self._device()

@@ -1,0 +1,65 @@
+"""paddle_tpu_torch.nn.functional — the port of the part of
+`paddle_tpu/nn/functional/__init__.py` the BERT path uses: `linear`
+(W is [in, out], y = x @ W + b), `embedding`, `dropout` and
+`scaled_dot_product_attention` (routed in `incubate.nn.attention`),
+plus the ops of `paddle_tpu_torch.ops` it re-exports (`gelu`, `tanh`,
+`cross_entropy`, `layer_norm`).
+
+Each op hands its tensor inputs to `amp.maybe_cast_inputs` under its
+JAX op name. Mixed dtypes promote as jnp promotes them. Dropout is
+"upscale_in_train" and draws its keep mask from the `torch.Generator`
+it is given (the default generator of the tensor's device when none
+is); the masks are not JAX's.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ...amp import maybe_cast_inputs
+from ...ops.activation import gelu, tanh
+from ...ops.linalg import promote
+from ...ops.loss_ops import cross_entropy
+from ...ops.norm_ops import layer_norm
+
+__all__ = ["linear", "embedding", "dropout", "scaled_dot_product_attention",
+           "gelu", "tanh", "cross_entropy", "layer_norm"]
+
+
+def linear(x, weight, bias=None):
+    """y = x @ W + b, W [in, out] (nn/functional/__init__.py:23-33)."""
+    x, weight, bias = maybe_cast_inputs("linear", (x, weight, bias))
+    y = torch.matmul(*promote(x, weight))
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def embedding(x, weight):
+    """Rows of `weight` at the ids `x`."""
+    x, weight = maybe_cast_inputs("embedding", (x, weight))
+    return F.embedding(x.long(), weight)
+
+
+def dropout(x, p=0.5, training=True, generator=None):
+    """Keep each element with probability 1 - p and scale what it keeps
+    by 1 / (1 - p); the identity outside training or at p = 0."""
+    if not training or p == 0.0:
+        return x
+    (x,) = maybe_cast_inputs("dropout", (x,))
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """Attention over [B, H, S, D]: the flash kernels where the JAX
+    package would take its Pallas kernel, else the plain composition
+    (`incubate.nn.attention`)."""
+    from ...incubate.nn import attention as _attn
+
+    return _attn.scaled_dot_product_attention(
+        query, key, value, attn_mask=attn_mask, dropout_p=dropout_p,
+        is_causal=is_causal, training=training, generator=generator)

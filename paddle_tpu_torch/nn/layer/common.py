@@ -1,0 +1,68 @@
+"""`Linear`, `Embedding` and `Dropout`: the port of
+`paddle_tpu/nn/layer/common.py` (:21-79), as `torch.nn.Module`s.
+
+Parameters keep the JAX package's names and layouts (`Linear.weight`
+is [in, out], Xavier-normal; the bias zeros), so a state dict carries
+over name for name. They are f32 on `device` (None: the card), drawn
+from `generator` (a `torch.Generator` on that device; None: a fresh one
+seeded 0). `Dropout` draws its masks from its `generator` (None: the
+device's default generator)."""
+from __future__ import annotations
+
+import torch.nn as nn
+
+from .. import functional as F
+from ..initializer import create_parameter, init_source
+
+__all__ = ["Linear", "Embedding", "Dropout"]
+
+
+class Linear(nn.Module):
+    """y = x W + b, W [in_features, out_features]."""
+
+    def __init__(self, in_features, out_features, device=None,
+                 generator=None):
+        super().__init__()
+        dev, gen = init_source(device, generator)
+        self._in_features = in_features
+        self._out_features = out_features
+        self.weight = create_parameter([in_features, out_features], dev, gen)
+        self.bias = create_parameter([out_features], dev, gen, is_bias=True)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self._in_features}, "
+                f"out_features={self._out_features}")
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings, embedding_dim, device=None,
+                 generator=None):
+        super().__init__()
+        dev, gen = init_source(device, generator)
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self.weight = create_parameter([num_embeddings, embedding_dim], dev,
+                                       gen)
+
+    def forward(self, x):
+        return F.embedding(x, self.weight)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(nn.Module):
+    def __init__(self, p=0.5, generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, p=self.p, training=self.training,
+                         generator=self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}"

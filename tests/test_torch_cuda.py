@@ -843,3 +843,127 @@ def test_all_reduce_flat_two_ranks_on_the_card_via_gloo(cuda, tmp_path):
     spawn(_card_allreduce_rank, args=(str(tmp_path),), nprocs=2,
           backend="gloo", join=False).join(timeout=300)
     assert [(tmp_path / f"r{r}").read_text() for r in range(2)] == ["ok"] * 2
+
+
+# -- BERT's shapes -----------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bert_shape_non_causal(cuda, dtype):
+    """BERT-base attention: non-causal, H 12, S 512 (four 128-row q
+    tiles, no masked diagonal), D 64; bf16 per row."""
+    rng = np.random.RandomState(512)
+    q, k, v, do = (torch.from_numpy(
+        (0.5 * rng.randn(4, 12, 512, 64)).astype(np.float32))
+        .to(cuda, dtype) for _ in range(4))
+    before = kernels.launches()
+    o, lse = fa.flash_attention_fwd(q, k, v, False, 0.125)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, False, 0.125)
+    o0, lse0 = fa.flash_attention_fwd_reference(q, k, v, False, 0.125)
+    dq0, dk0, dv0 = fa.flash_attention_bwd_reference(q, k, v, o0, lse0, do,
+                                                     False, 0.125)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-4)
+    for name, got, want, f32_tol in (("o", o, o0, 2e-5), ("dq", dq, dq0, 2e-4),
+                                     ("dk", dk, dk0, 2e-4),
+                                     ("dv", dv, dv0, 2e-4)):
+        assert got.dtype == dtype, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=f32_tol,
+                                       atol=f32_tol, msg=name)
+        else:
+            _assert_rows_close(got, want, name)
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [None, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("eps", [1e-12, 1e-5])
+def test_layer_norm_bert_width(cuda, wdtype, residual, eps):
+    """LayerNorm at hidden 768 (two warps a row, a lane's second vector
+    empty in one of them), bf16 x, with bf16 weight and bias (O2's fused
+    layers) and with an f32 residual (O1's first epilogue: the sum in
+    f32, s and y stored in bf16): forward and backward kernels vs plain,
+    then the autograd Function's gradients, each in its input's dtype."""
+    g = torch.Generator(device=cuda).manual_seed(768)
+    x, dy, ds = (torch.randn(1000, 768, device=cuda, generator=g)
+                 .bfloat16() for _ in range(3))
+    r = None if residual is None else (
+        3 * torch.randn(1000, 768, device=cuda, generator=g)).to(residual)
+    w = (1 + 0.1 * torch.randn(768, device=cuda, generator=g)).to(wdtype)
+    b = (0.1 * torch.randn(768, device=cuda, generator=g)).to(wdtype)
+    before = kernels.launches()["fused_layer_norm"]
+    y, s, mu, rs = ln.layer_norm_fwd(x, r, w, b, eps)
+    y0, s0, mu0, rs0 = ln.layer_norm_fwd_reference(x, r, w, b, eps)
+    torch.cuda.synchronize()
+    assert kernels.launches()["fused_layer_norm"] == before + 1
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), y0.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(mu, mu0, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rs, rs0, rtol=1e-5, atol=1e-5)
+    if r is not None:
+        assert s.dtype == torch.bfloat16 and torch.equal(s, s0)
+    sv = x if r is None else s
+    dsr = None if r is None else ds
+    got = ln.layer_norm_bwd(dy, dsr, sv, w, b, mu, rs)
+    want = ln.layer_norm_bwd_reference(dy, dsr, sv, w, b, mu, rs)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=1e-2,
+                               atol=1e-2 * float(want[0].float().abs().max()))
+    for a, b_ in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b_, rtol=1e-5,
+                                   atol=1e-5 * float(b_.abs().max()))
+    if r is None:
+        return
+    leaves = [t.clone().requires_grad_() for t in (x, r, w, b)]
+    grads = []
+    for fn in (ln.fused_residual_layer_norm,
+               ln.fused_residual_layer_norm_reference):
+        out = fn(*leaves, eps)
+        grads.append(torch.autograd.grad(out, leaves, (dy, ds)))
+    for a, b_, leaf in zip(*grads, leaves):
+        assert a.dtype == leaf.dtype
+        torch.testing.assert_close(a.float(), b_.float(), rtol=1e-2,
+                                   atol=1e-2 * float(b_.float().abs().max()))
+
+
+def test_bert_on_card_kernel_path_vs_plain(cuda):
+    """A 2-layer BERT at head_dim 64 on the card: loss and every
+    gradient through the kernels vs through their plain versions (f32,
+    summation order only: 1e-5 and 1e-4 x max|g|), and the launches of
+    one forward and backward: 5 LayerNorm forwards and backwards, 2 of
+    each flash kernel."""
+    from paddle_tpu_torch.incubate.nn import set_use_kernel
+    from paddle_tpu_torch.text.models.bert import (BertConfig,
+                                                   BertForPretraining)
+
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                     num_heads=2, ffn_hidden=256, max_seq_len=128,
+                     dropout=0.0)
+    model = BertForPretraining(cfg, device=cuda)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (2, 128))).to(cuda)
+    named = list(model.named_parameters())
+    out = []
+    for use_kernel in (True, False):
+        set_use_kernel(model, use_kernel)
+        before = kernels.launches()
+        loss = model(ids, masked_lm_labels=ids)
+        grads = torch.autograd.grad(loss, [p for _, p in named],
+                                    allow_unused=True)
+        torch.cuda.synchronize()
+        after = kernels.launches()
+        out.append((loss, grads, {n: after[n] - before[n] for n in after}))
+    (lk, gk, ck), (lp, gp, cp) = out
+    assert ck["fused_layer_norm"] == ck["fused_layer_norm_bwd"] == 5
+    assert ck["flash_attention_fwd"] == ck["flash_attention_bwd_dq"] \
+        == ck["flash_attention_bwd_dkv"] == 2
+    assert not any(cp.values())
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=0)
+    for (name, _), a, b_ in zip(named, gk, gp):
+        if b_ is None:
+            assert a is None, name
+            continue
+        torch.testing.assert_close(a, b_, rtol=0,
+                                   atol=1e-4 * float(b_.abs().max()),
+                                   msg=name)

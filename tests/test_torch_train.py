@@ -346,9 +346,8 @@ def test_optimizer_state_dict_and_queued_options():
     opt4.set_lr_scheduler(sched4)
     opt4.set_state_dict(sd3)
     assert sched4.last_epoch == 3 and opt4.get_lr() == 0.05
-    # the one queued option: O1 auto-cast
-    with pytest.raises(NotImplementedError):
-        TrainStepCompiler(lin, opt, amp_level="O1")
+    # O1 auto-cast is ported (tests/test_torch_amp.py)
+    assert TrainStepCompiler(lin, opt, amp_level="O1")._amp_level == "O1"
 
 
 def test_train_step_with_loss_fn_and_cuda_default():
