@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --measure [--kernels] [--tree DIR]
     python3 chip_smoke.py --bert-grads
+    python3 chip_smoke.py --fit-worker      (phase 19's runs start it)
 
 Needs one CUDA card and `nvcc`; exits non-zero, printing no result,
 without them. `--measure` runs phases 1-2 and then only the times the
@@ -143,6 +144,29 @@ printing one line (or a few):
               row scale floored at BERT_GRADS_FLOOR x the tensor's, at
               the initial weights, and f32 2 layers); and an O1 run (f32 parameters, amp_level="O1")
               whose loss falls with every flash launch on bf16 q/k/v
+ 19. fit      BERT-base through hapi.Model.fit, phase 18's recipe over a
+              DataLoader of 192 rows of ids from RandomState(0) shuffled
+              by BatchSampler(seed=11), batches of 32, 2 epochs (12
+              steps), AdamW under a 4-step warm-up to 1e-4 and a cosine
+              decay, training-state snapshots every 4 steps (async, the
+              newest 2 kept). Four runs, each a subprocess of this script
+              (`--fit-worker`) with its own PADDLE_CKPT_DIR under a
+              temporary directory: A and A' uninterrupted, equal bit for
+              bit (losses as float.hex, the final parameters and optimizer
+              slots by sha256, the step count, the learning rate); B
+              SIGKILLed (its process group) once step 8's manifest is on
+              disk; C, B's relaunch, resumes from step 8 two batches into
+              the second epoch, and B + C equal A bit for bit, overlap
+              included; every step of A, A' and C launches kernels #1-6 in
+              phase 18's counts. Then, in this process: Model.fit's step
+              against the bare TrainStepCompiler step (hapi's host cost),
+              the fit with a snapshot every 10 steps against without
+              (bench.py's ckpt_overhead_pct), the capture and writer ms
+              and the snapshot's bytes, C's restore ms,
+              ExponentialMovingAverage.update() ms over the 206 parameters
+              with an apply() / restore() round trip bit for bit, and a
+              framework.save / load round trip of the bf16 state dict
+              bit for bit
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -3450,6 +3474,437 @@ def phase_bert(dev, smi):
     torch.cuda.empty_cache()
 
 
+# -- phase 19 ----------------------------------------------------------
+# hapi.Model.fit of phase 18's BERT-base recipe over a seeded DataLoader:
+# 192 rows of ids from RandomState(0), batches of 32 shuffled by
+# BatchSampler(seed=11): 6 steps an epoch, 2 epochs; AdamW under a
+# warm-up to 1e-4 over 4 steps and a cosine decay, so every step runs
+# at another learning rate; training-state snapshots every 4 steps,
+# async, the newest 2 kept; the kill lands once step 8's manifest is on
+# disk, two batches into the second epoch
+FIT_ROWS, FIT_EPOCHS, FIT_SAVE_STEPS, FIT_KILL_AT = 192, 2, 4, 8
+FIT_STEPS = FIT_ROWS // BERT_BATCH * FIT_EPOCHS
+FIT_KERNELS = ("fused_layer_norm", "fused_layer_norm_bwd",
+               "flash_attention_fwd", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv", "fused_adam")
+# the timed loops: 2 warm-up steps, then 3 windows of 10, each window
+# holding one save of the checkpointed loop (bench.py:178-217's
+# CKPT_EVERY)
+FIT_WINDOW, FIT_WINDOWS, FIT_CKPT_EVERY = 10, 3, 10
+
+
+def _fit_loss(logits, nsp, labels):
+    """bench_bert's loss: the MLM cross-entropy, the ids as labels."""
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(logits, labels, ignore_index=-1)
+
+
+def _fit_loader(dev, vocab):
+    from paddle_tpu_torch.io import BatchSampler, DataLoader, TensorDataset
+
+    ids = np.random.RandomState(0).randint(0, vocab, (FIT_ROWS, BERT_SEQ))
+    ids = torch.from_numpy(ids.astype(np.int64))
+    ds = TensorDataset([ids, torch.zeros_like(ids), ids])
+    return DataLoader(ds, batch_sampler=BatchSampler(
+        ds, shuffle=True, batch_size=BERT_BATCH, drop_last=True, seed=11),
+        device=dev)
+
+
+def _fit_sched():
+    from paddle_tpu_torch.optimizer import lr
+
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, FIT_STEPS), 4,
+                           0.0, 1e-4)
+
+
+def _digest(t):
+    import hashlib
+
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha256(t.reshape(-1).view(torch.uint8).numpy()).hexdigest()
+
+
+def fit_worker(dev=None):
+    """`--fit-worker`: one run of phase 19 (PADDLE_CKPT_DIR and
+    PADDLE_JOB_ID say where its snapshots go; FIT_STALL_AT parks it
+    after that step's loss is logged). Logs "<global step> <loss hex>"
+    to FIT_LOG, fsynced; writes FIT_RESULT: each step's launches, the
+    restore and first-step times, and sha256 digests of the final
+    parameters and optimizer slots with the step count and learning
+    rate."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    kernels.load()
+    stall_at = int(os.environ.get("FIT_STALL_AT", "-1"))
+    log_path = os.environ["FIT_LOG"]
+    model = _bert_model(dev)
+    opt = AdamW(learning_rate=_fit_sched(), parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    m = Model(model).prepare(opt, _fit_loss)
+    rec = {"launches": [], "want": _bert_launches(model)}
+
+    class Log(Callback):
+        def on_train_begin(self, logs=None):
+            torch.cuda.synchronize(dev)
+            rec["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["start_step"] = self.model._ckpt_manager.global_step
+            kernels.reset_launches()
+
+        def on_train_batch_end(self, step, logs=None):
+            mgr = self.model._ckpt_manager
+            g = mgr.global_step
+            rec.setdefault("first_step_ms", (time.perf_counter() - t0) * 1e3)
+            rec["launches"].append(kernels.launches())
+            kernels.reset_launches()
+            with open(log_path, "a") as f:
+                f.write(f"{g} {float(logs['loss']).hex()}\n")
+                f.flush()
+                os.fsync(f.fileno())
+            if g == stall_at:
+                mgr.flush(600)
+                while True:      # the parent SIGKILLs this process
+                    time.sleep(0.5)
+
+    t0 = time.perf_counter()
+    m.fit(_fit_loader(dev, model.config.vocab_size), epochs=FIT_EPOCHS,
+          verbose=0, resume="auto",
+          callbacks=[Log()])
+    slots = opt._slot_state(list(model.named_parameters()))
+    rec["final"] = {
+        "params": {n: _digest(p) for n, p in model.named_parameters()},
+        "slots": {f"{n}.{k}": _digest(v) for n, sl in slots.items()
+                  for k, v in sl.items()},
+        "step_count": opt._step_count, "lr": opt.get_lr()}
+    with open(os.environ["FIT_RESULT"], "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _fit_env(tmp, name, stall_at=None):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PADDLE_")}
+    env.update(PADDLE_CKPT_DIR=os.path.join(tmp, f"{name}_ckpt"),
+               PADDLE_JOB_ID="phase19",
+               PADDLE_CKPT_SAVE_STEPS=str(FIT_SAVE_STEPS),
+               PADDLE_CKPT_MAX_NUM="2",
+               FIT_LOG=os.path.join(tmp, f"{name}.log"),
+               FIT_RESULT=os.path.join(tmp, f"{name}.json"))
+    if stall_at is not None:
+        env["FIT_STALL_AT"] = str(stall_at)
+    return env
+
+
+def _fit_cmd():
+    cmd = [sys.executable, os.path.abspath(__file__), "--fit-worker"]
+    if "--tree" in sys.argv:
+        cmd += ["--tree", sys.argv[sys.argv.index("--tree") + 1]]
+    return cmd
+
+
+def _fit_log(path):
+    out = {}
+    with open(path) as f:
+        for line in f:
+            g, h = line.split()
+            out[int(g)] = h
+    return out
+
+
+def _fit_run(tmp, name, ckpt_from=None):
+    """One run to its end as a subprocess; (losses by step, result)."""
+    env = _fit_env(tmp, name)
+    if ckpt_from is not None:
+        env["PADDLE_CKPT_DIR"] = os.path.join(tmp, f"{ckpt_from}_ckpt")
+    res = subprocess.run(_fit_cmd(), env=env, capture_output=True, text=True,
+                         timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"fit run {name} failed (exit {res.returncode}):"
+                           f"\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    with open(env["FIT_RESULT"]) as f:
+        return _fit_log(env["FIT_LOG"]), json.load(f)
+
+
+def _fit_killed_run(tmp, name):
+    """A run SIGKILLed (its whole process group) once step FIT_KILL_AT's
+    manifest is on disk and that step's loss is logged; its losses."""
+    import signal
+
+    env = _fit_env(tmp, name, stall_at=FIT_KILL_AT)
+    manifest = os.path.join(env["PADDLE_CKPT_DIR"], "phase19", "train_state",
+                            f"step_{FIT_KILL_AT}", "manifest.json")
+    proc = subprocess.Popen(_fit_cmd(), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    deadline = time.monotonic() + 900
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise RuntimeError("fit run B exited before its kill:\n"
+                                   + proc.stdout.read().decode()[-4000:])
+            if (os.path.exists(manifest) and os.path.exists(env["FIT_LOG"])
+                    and FIT_KILL_AT in _fit_log(env["FIT_LOG"])):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError("fit run B never reached its kill point")
+            time.sleep(0.2)
+        os.killpg(proc.pid, signal.SIGKILL)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(60)
+        proc.stdout.close()
+    return _fit_log(env["FIT_LOG"])
+
+
+def _fit_check_launches(tag, rec):
+    """Every step of a run launched exactly phase 18's counts of
+    kernels #1-6 (and nothing else); the number of steps checked."""
+    want = rec["want"]
+    if any(want[k] < 1 for k in FIT_KERNELS):
+        raise AssertionError(f"fit {tag}: expected launches {want}")
+    for i, counts in enumerate(rec["launches"]):
+        bad = {k: v for k, v in counts.items() if v != want[k]}
+        if bad:
+            raise AssertionError(f"fit {tag}: step {i} launched {bad}, "
+                                 f"expected {want}")
+    return len(rec["launches"])
+
+
+def fit_resume_check(dev, smi):
+    """Runs A, A' (uninterrupted), B (SIGKILLed after step 8's snapshot)
+    and C (B's relaunch) as subprocesses; A' and the stitched B + C must
+    equal A bit for bit. Returns C's result."""
+    import shutil
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        la, ra = _fit_run(tmp, "A")
+        ta = time.perf_counter() - t0
+        la2, ra2 = _fit_run(tmp, "A2")
+        for name in ("A", "A2"):     # 1.5 GB a snapshot: free the disk
+            shutil.rmtree(os.path.join(tmp, f"{name}_ckpt"))
+        if sorted(la) != list(range(FIT_STEPS)):
+            raise AssertionError(f"fit A logged steps {sorted(la)}")
+        if la2 != la or ra2["final"] != ra["final"]:
+            diff = [g for g in la if la2.get(g) != la[g]]
+            raise AssertionError(
+                "fit: A' differs from A (the card's step is not "
+                f"deterministic): losses at steps {diff}, final state "
+                f"{'equal' if ra2['final'] == ra['final'] else 'differs'}")
+        part1 = _fit_killed_run(tmp, "B")
+        part2, rc = _fit_run(tmp, "C", ckpt_from="B")
+        snaps = sorted(os.listdir(os.path.join(tmp, "B_ckpt", "phase19",
+                                               "train_state")))
+    if max(part1) != FIT_KILL_AT or min(part2) != FIT_KILL_AT:
+        raise AssertionError(f"fit: B logged to step {max(part1)}, C resumed "
+                             f"at {min(part2)}; expected {FIT_KILL_AT}")
+    overlap = sorted(set(part1) & set(part2))
+    if any(part1[g] != part2[g] for g in overlap):
+        raise AssertionError(f"fit: the overlap {overlap} differs")
+    stitched = dict(part1)
+    stitched.update(part2)
+    if stitched != la:
+        raise AssertionError(
+            "fit: stitched B + C differs from A at steps "
+            f"{[g for g in la if stitched.get(g) != la[g]]}")
+    if rc["final"] != ra["final"]:
+        bad = [k for k in ra["final"]["params"]
+               if rc["final"]["params"][k] != ra["final"]["params"][k]]
+        raise AssertionError(f"fit: C's final state differs from A's "
+                             f"(parameters {bad[:5]}, step count "
+                             f"{rc['final']['step_count']} vs "
+                             f"{ra['final']['step_count']}, lr "
+                             f"{rc['final']['lr']} vs {ra['final']['lr']})")
+    n = sum(_fit_check_launches(t, r)
+            for t, r in (("A", ra), ("A'", ra2), ("C", rc)))
+    want = rc["want"]
+    fin = ra["final"]
+    masters = sum(k.endswith(".master_weight") for k in fin["slots"])
+    log("fit", f"[{smi}] BERT-base bf16 O2 through Model.fit, "
+        f"{FIT_STEPS} steps ({FIT_EPOCHS} epochs of {FIT_ROWS} rows, B "
+        f"{BERT_BATCH} x S {BERT_SEQ}, BatchSampler seed 11), snapshots "
+        f"every {FIT_SAVE_STEPS} steps: loss "
+        f"{float.fromhex(la[0]):.4f} -> "
+        f"{float.fromhex(la[FIT_STEPS - 1]):.4f};"
+        f" A' = A bit for bit ({FIT_STEPS} losses, {len(fin['params'])} "
+        f"parameters and {len(fin['slots'])} slots by sha256, {masters} of "
+        f"them f32 master weights, step count {fin['step_count']}, lr "
+        f"{fin['lr']!r}); run A {ta:.1f} s")
+    log("fit", f"[{smi}] B SIGKILLed after step {FIT_KILL_AT}'s manifest "
+        f"(snapshots left: {', '.join(snaps)}); C resumed at step "
+        f"{min(part2)} (epoch 1, 2 batches fast-forwarded): overlap "
+        f"{overlap} bit-identical, stitched {len(stitched)} losses = A's, "
+        f"final parameters, slots, step count and lr = A's bit for bit; "
+        f"restore {rc['restore_ms']:.1f} ms, restore to the end of the first"
+        f" resumed step {rc['first_step_ms']:.1f} ms; every one of {n} steps"
+        " launched " + ", ".join(f"{k} {want[k]}" for k in FIT_KERNELS))
+    return rc
+
+
+def _windows(stamps):
+    """Per-step seconds of each FIT_WINDOW-step window of the step-end
+    times `stamps`, after 2 warm-up steps."""
+    return [(stamps[2 + (i + 1) * FIT_WINDOW] - stamps[2 + i * FIT_WINDOW])
+            / FIT_WINDOW for i in range(FIT_WINDOWS)]
+
+
+def fit_times(dev, smi):
+    """Model.fit's step against the bare TrainStepCompiler step with the
+    same loss; the fit with a snapshot every FIT_CKPT_EVERY steps against
+    without (bench.py's ckpt_overhead_pct); the capture and the writer's
+    ms; the EMA's update and apply / restore; framework.save / load of
+    the bf16 state dict."""
+    import tempfile
+
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core import monitor
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.incubate.checkpoint import CheckpointManager
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW, ExponentialMovingAverage
+
+    n = 2 + FIT_WINDOW * FIT_WINDOWS + 1
+    model = _bert_model(dev)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    loader = _fit_loader(dev, model.config.vocab_size)
+    batch = next(iter(loader))
+    step = TrainStepCompiler(model, opt,
+                             lambda out, lbl: _fit_loss(*out, lbl))
+    for _ in range(2):
+        loss = step(*batch)
+    bare = []
+    for _ in range(FIT_WINDOWS):
+        # phase 18's windows: one synchronisation at the end of each
+        float(loss)
+        t0 = time.perf_counter()
+        for _ in range(FIT_WINDOW):
+            loss = step(*batch)
+        float(loss)
+        bare.append((time.perf_counter() - t0) / FIT_WINDOW)
+
+    class Stamp(Callback):
+        """Step-end times; with `ckpt`, the manager's maybe_save at every
+        step, its cadence putting a save at steps 2, 12, 22 and 32: one in
+        each window."""
+
+        def __init__(self, ckpt=None):
+            super().__init__()
+            self.t, self.ckpt = [], ckpt
+
+        def on_train_batch_end(self, s, logs=None):
+            self.t.append(time.perf_counter())
+            if self.ckpt is not None:
+                self.ckpt.maybe_save(self.model._training_state,
+                                     global_step=len(self.t) + 7)
+
+    m = Model(model).prepare(opt, _fit_loss)
+    plain = Stamp()
+    m.fit(loader, epochs=99, num_iters=n, verbose=0, callbacks=[plain])
+    keys = ("ckpt/saves", "ckpt/dropped", "ckpt/capture_us",
+            "ckpt/write_us", "ckpt/bytes")
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(dir=os.path.join(tmp, "ck"),
+                                save_steps=FIT_CKPT_EVERY, max_num=2,
+                                async_write=True, device=dev)
+        c0 = {k: monitor.stat_get(k) for k in keys}
+        # two saves first: the pool's two sets of pinned buffers (one
+        # with the writer, one being captured) are allocated here
+        mgr.save(m._training_state(), global_step=1)
+        mgr.flush(600)
+        c1 = {k: monitor.stat_get(k) for k in keys}
+        mgr.save(m._training_state(), global_step=2)
+        mgr.flush(600)
+        c2 = {k: monitor.stat_get(k) for k in keys}
+        ck = Stamp(mgr)
+        m.fit(loader, epochs=99, num_iters=n, verbose=0, callbacks=[ck])
+        mgr.close(600)
+        c3 = {k: monitor.stat_get(k) for k in keys}
+        snap_files = os.listdir(os.path.join(tmp, "ck"))
+    fit_w, ck_w = _windows(plain.t), _windows(ck.t)
+    d = {k: c3[k] - c2[k] for k in keys}
+    saves, dropped = d["ckpt/saves"], d["ckpt/dropped"]
+    if saves + dropped != FIT_WINDOWS + 1 or not saves:
+        raise AssertionError(f"fit: {saves} snapshots written and {dropped} "
+                             f"dropped in the checkpointed loop, expected "
+                             f"{FIT_WINDOWS + 1} captures")
+    capture_ms = d["ckpt/capture_us"] / 1e3 / (saves + dropped)
+    dt_bare, dt_fit, dt_ck = (float(np.median(w)) * 1e3
+                              for w in (bare, fit_w, ck_w))
+    log("fit", f"[{smi}] step ms (median of {FIT_WINDOWS} windows of "
+        f"{FIT_WINDOW}): bare TrainStepCompiler {dt_bare:.3f} ("
+        + ", ".join(f"{x * 1e3:.3f}" for x in bare) + f"), Model.fit "
+        f"{dt_fit:.3f} (" + ", ".join(f"{x * 1e3:.3f}" for x in fit_w)
+        + f"): hapi's host cost {dt_fit - dt_bare:.3f} ms a step "
+        f"({100 * (dt_fit / dt_bare - 1):.2f}%; fit reads the loss every "
+        "step, the bare loop once a window)")
+    log("fit", f"[{smi}] Model.fit with a snapshot every {FIT_CKPT_EVERY} "
+        f"steps {dt_ck:.3f} ms (" + ", ".join(f"{x * 1e3:.3f}" for x in ck_w)
+        + f"): checkpoint cost {100 * (dt_ck / dt_fit - 1):.2f}% "
+        f"(bench.py's ckpt_overhead_pct); {saves + dropped} captures, "
+        f"{saves} written, {dropped} dropped by the latest-wins writer; "
+        f"capture on the step thread {capture_ms:.3f} ms a snapshot into "
+        f"pooled pinned buffers (the first, allocating its set: "
+        f"{(c1['ckpt/capture_us'] - c0['ckpt/capture_us']) / 1e3:.3f} ms), "
+        f"the writer's pickle + fsync {d['ckpt/write_us'] / 1e3 / saves:.3f}"
+        f" ms, {d['ckpt/bytes'] / saves:.0f} bytes a snapshot; kept: "
+        f"{', '.join(sorted(snap_files))}")
+    # the EMA over the 206 parameters; apply / restore bit for bit
+    params = list(model.parameters())
+    ema = ExponentialMovingAverage(params, decay=0.999)
+    ema_dev, ema_host = chain_ms(ema.update, iters=20)
+    before = [p.detach().clone() for p in params]
+    want = ema._corrected()
+    with ema.apply():
+        inside = all(torch.equal(p, w) for p, w in zip(params, want))
+    after = all(torch.equal(p, b) for p, b in zip(params, before))
+    if not (inside and after):
+        raise AssertionError(f"fit: EMA apply {inside}, restore {after}")
+    log("fit", f"[{smi}] ExponentialMovingAverage.update() over "
+        f"{len(params)} parameters: {ema_dev:.3f} ms device, "
+        f"{ema_host:.3f} ms host a call (chained 20); apply() swaps in the "
+        "bias-corrected shadows bit for bit and restore() gives the "
+        "parameters back bit for bit")
+    del ema, before, want
+    sd = model.state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bert.pdparams")
+        t0 = time.perf_counter()
+        framework.save(sd, path)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = framework.load(path)
+        t_load = time.perf_counter() - t0
+    bad = [k for k, v in sd.items()
+           if back[k].dtype != v.dtype or not torch.equal(back[k], v.cpu())]
+    n_bf16 = sum(v.dtype == torch.bfloat16 for v in sd.values())
+    if bad or set(back) != set(sd):
+        raise AssertionError(f"fit: framework.save / load changed {bad[:5]}")
+    log("fit", f"[{smi}] framework.save / load of the O2 state dict "
+        f"({len(sd)} tensors, {n_bf16} bf16, {size} bytes): bit for bit; "
+        f"save {t_save * 1e3:.1f} ms, load {t_load * 1e3:.1f} ms (host "
+        "clock)")
+    del m, step, opt, model, sd, back
+
+
+def phase_fit(dev, smi):
+    """Phase 19: BERT-base through hapi.Model.fit, checkpointed, killed
+    and resumed (see the module docstring)."""
+    fit_resume_check(dev, smi)
+    torch.cuda.empty_cache()
+    fit_times(dev, smi)
+    torch.cuda.empty_cache()
+
+
 def _paged_ms(by):
     """(T = 1 launches' ms, T > 1 launches' ms) of the paged kernel in a
     profile's {kernel name: ms}: one kernel, told apart by its slot
@@ -3541,6 +3996,8 @@ def main():
             sys.argv[sys.argv.index("--tree") + 1]))
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if "--fit-worker" in sys.argv:
+        return fit_worker()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3593,6 +4050,8 @@ def main():
     entries += compress_entries
     torch.cuda.empty_cache()
     phase_bert(dev, smi)
+    torch.cuda.empty_cache()
+    phase_fit(dev, smi)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

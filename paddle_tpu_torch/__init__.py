@@ -28,7 +28,9 @@ package's, so each counterpart sits at the same path:
                                         step on the card) and the rules
                                         without a kernel; f32 master
                                         weights; `optimizer.lr`, the LR
-                                        schedulers
+                                        schedulers; the averaging
+                                        wrappers (EMA, LookAhead,
+                                        ModelAverage)
   * `nn`, `ops`                         `Linear`, `Embedding`, `Dropout`,
                                         `LayerNorm`, `Tanh`, `LayerList`,
                                         the functional ops they run on,
@@ -52,6 +54,21 @@ package's, so each counterpart sits at the same path:
   * `inference.serving`                 `LLMEngine`: paged KV cache,
                                         continuous batching, prefill +
                                         paged decode
+  * `hapi`                              `Model`: prepare, fit (gradient
+                                        merge, K steps a call, the
+                                        non-finite guard, elastic resume),
+                                        evaluate, predict, save / load;
+                                        the callbacks
+  * `io`                                datasets, samplers (seeded,
+                                        fast-forwardable), `DataLoader`
+  * `metric`                            Accuracy, Precision, Recall, Auc
+  * `framework`                         `save` / `load` (atomic; bf16 bit
+                                        for bit; reads the JAX
+                                        package's f32 and integer files)
+  * `incubate.checkpoint`               `CheckpointManager` (async
+                                        training-state snapshots,
+                                        rotation, torn-snapshot fallback,
+                                        preemption), `auto_checkpoint`
   * `convert`                           weights carried across from the
                                         JAX package's parameter tree
 

@@ -4,8 +4,9 @@ StatValue/StatRegistry with STAT_ADD:130).
 
 A copy of the part of `paddle_tpu.core.monitor` that the serving and
 training code uses — `stat_add`, `stat_set`, `stat_get`,
-`hist_observe`, `registry.snapshot()` — so the `serve/*`, `jit/*`,
-`train/nonfinite_skips` and `amp/scale/*` counters keep their names.
+`hist_observe`, `registry.snapshot()`, the `_env_*` readers — so the
+`serve/*`, `jit/*`, `train/nonfinite_skips`, `amp/scale/*` and `ckpt/*`
+counters keep their names.
 The JAX package's fleet merge, windowed deltas and PJRT memory readers
 are not carried over, nor histogram quantiles and the env knobs of the
 bucket layout: nothing in the port reads a quantile yet.
@@ -13,6 +14,7 @@ bucket layout: nothing in the port reads a quantile yet.
 from __future__ import annotations
 
 import math
+import os
 import threading
 
 __all__ = ["StatValue", "StatRegistry", "Histogram", "stat_add",
@@ -120,6 +122,27 @@ class StatRegistry:
 
 
 registry = StatRegistry()
+
+
+def _env_int(name, default):
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def _env_float(name, default):
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def _env_on(name, default=True):
+    v = os.environ.get(name, "").strip().lower()
+    if not v:
+        return default
+    return v not in ("0", "false", "off", "no")
 
 
 def stat_add(name, n=1):

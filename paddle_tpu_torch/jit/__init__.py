@@ -42,6 +42,14 @@ custom_black_list=...)`, as the JAX `_build` wraps `loss_of`
 functional layer (`nn`, `incubate.nn`) then run on bf16 inputs. A
 model that calls no such op (the port's GPT, whose loss is one op in
 the JAX package too, `"gpt_loss"`) trains exactly as in f32.
+
+The step's own state (`state_dict`, `restore_state`, `adopt_state_from`,
+JAX :1320-1410) is the microstep count `_step`, the merge buffers
+`_accum` and the communication state `_comm_state` (a data-parallel
+step's error-feedback residual); the optimizer's slots live in the
+optimizer, so `restore_state` writes them into its `_accumulators` and
+`adopt_state_from` shares them. Slots and buffers are keyed by the
+model's structured parameter names, which survive a relaunch.
 """
 from __future__ import annotations
 
@@ -82,6 +90,7 @@ class TrainStepCompiler:
         self.last_skips = 0  # non-finite trips in the last call
         self._accum = {}     # param name -> f32 gradient-merge buffer
         self._step = 0       # microsteps run
+        self._comm_state = {}  # a data-parallel step's residual
 
     def _device(self):
         return next(self._model.parameters()).device
@@ -202,3 +211,60 @@ class TrainStepCompiler:
     def _commit_comm(self, ok):
         """Commit the communication state `_reduce_grads` computed,
         unless the guard tripped (`ok` false)."""
+
+    # -- the step's own state (elastic checkpoints) -----------------------
+    def _structured(self):
+        """{optimizer name: structured name} and back, the structured
+        names being the model's `named_parameters()` keys."""
+        sname = {id(p): n for n, p in self._model.named_parameters()}
+        to_s = {n: sname.get(id(p), n) for n, p in self._opt._named}
+        return to_s, {s: n for n, s in to_s.items()}
+
+    def state_dict(self):
+        """The step's state, live tensors keyed by the model's structured
+        parameter names: the optimizer's slots, the microstep count, the
+        merge buffers and the communication state (the error-feedback
+        residual of a data-parallel step)."""
+        to_s, _ = self._structured()
+        return {"slots": self._opt._slot_state(
+                    list(self._model.named_parameters())),
+                "step": self._step,
+                "accum": {to_s.get(n, n): t for n, t in self._accum.items()},
+                "comm": dict(self._comm_state)}
+
+    @torch.no_grad()
+    def restore_state(self, slots, step, accum=None, comm=None):
+        """Load the state `state_dict` gave, from host or device tensors:
+        the slots go into the optimizer's `_accumulators` (in place where
+        a slot exists), the merge buffers and the residual onto the
+        step's device. A residual whose shape no longer fits the packed
+        gradient (another world size) is dropped at the first call."""
+        dev = self._device()
+        self._opt._load_slot_state(slots or {},
+                                   list(self._model.named_parameters()))
+        _, from_s = self._structured()
+        self._accum = {from_s.get(n, n): torch.as_tensor(t).to(
+                           dev, torch.float32, copy=True)
+                       for n, t in (accum or {}).items()}
+        self._comm_state = {n: torch.as_tensor(t).to(dev, copy=True)
+                            for n, t in (comm or {}).items()}
+        self._step = int(step)
+
+    def adopt_state_from(self, other):
+        """Share `other`'s live state: its optimizer's slots (when the two
+        hold different optimizers), its microstep count, its merge buffers
+        when the merge width is the same (else this step's window starts
+        empty) and its communication state when the compression is the
+        same. For two steps over one model and optimizer that differ in
+        `steps_per_dispatch`, as hapi's fused dispatch and its one-batch
+        tail are."""
+        if other is None or other is self:
+            return
+        if other._opt is not self._opt:
+            self._opt._accumulators = other._opt._accumulators
+        self._step = other._step
+        self._accum = (other._accum
+                       if other._accum_steps == self._accum_steps else {})
+        if getattr(other, "_compress", None) == getattr(self, "_compress",
+                                                        None):
+            self._comm_state = other._comm_state

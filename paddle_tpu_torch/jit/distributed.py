@@ -34,7 +34,8 @@ before the non-finite guard and the gradient merge.
   zero at the first call, L = `padded_elems` of the packed gradient
   (`_init_comm_state` :226-251), in `self._comm_state["residual"]`. A
   microstep the guard trips keeps the old residual, as in the JAX
-  package.
+  package. `restore_state(..., comm=)` (or `adopt_state_from`) before
+  the first call sets the residual the first call then keeps.
 - Validation at the first call (`_resolve_compress` :153-203): fewer
   than 2 ranks disables compression; a parameter that carries a
   `dist_spec` (a sharded layout, which has no single flat gradient)
@@ -71,7 +72,6 @@ class DistributedTrainStepCompiler(TrainStepCompiler):
         self._compress_from_env = comm_compress is True
         self._nranks = None          # resolved at the first call
         self._rank = 0
-        self._comm_state = {}
         self._pending_residual = None
 
     def _resolve_compress(self):
@@ -107,8 +107,14 @@ class DistributedTrainStepCompiler(TrainStepCompiler):
         if cfg is not None and cfg.ef:
             total = sum(p.numel() for _, p in self._params())
             L = C.padded_elems(cfg, total, self._nranks)
-            self._comm_state = {"residual": torch.zeros(
-                L, dtype=torch.float32, device=self._device())}
+            # a restored (or adopted) residual of this length is kept:
+            # exact error-feedback resume is a same-world-size contract
+            res = self._comm_state.get("residual")
+            if res is None or tuple(res.shape) != (L,):
+                self._comm_state["residual"] = torch.zeros(
+                    L, dtype=torch.float32, device=self._device())
+        else:
+            self._comm_state.pop("residual", None)
         if self._nranks > 1:
             src = (0 if self._group is None
                    else dist.get_global_rank(self._group, 0))

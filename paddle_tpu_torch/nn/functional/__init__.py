@@ -35,10 +35,42 @@ def linear(x, weight, bias=None):
     return y
 
 
+class _Embedding(torch.autograd.Function):
+    """`F.embedding` whose weight gradient sums each id's rows in a
+    fixed order, so that a step gives the same bits in every process:
+    the ids sorted stably, each id's rows reduced by
+    `torch.segment_reduce` (one thread an output element, in row
+    order), accumulated in f32 and cast to the weight's dtype.
+    PyTorch's own CUDA backward gave BERT-base's token-type gradient (16384
+    rows of one id) other low bits in another process, which broke
+    bit-identical resume. No host synchronisation: the segment lengths
+    are counted on the device."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        rows = grad.reshape(flat.numel(), -1)
+        order = torch.sort(flat, stable=True).indices
+        lengths = torch.zeros(ctx.num_rows, dtype=torch.long,
+                              device=flat.device).index_add_(
+            0, flat, torch.ones_like(flat))
+        dw = torch.segment_reduce(rows.index_select(0, order).float(), "sum",
+                                  lengths=lengths, axis=0, unsafe=True,
+                                  initial=0.0)
+        return None, dw.to(grad.dtype)
+
+
 def embedding(x, weight):
     """Rows of `weight` at the ids `x`."""
     x, weight = maybe_cast_inputs("embedding", (x, weight))
-    return F.embedding(x.long(), weight)
+    return _Embedding.apply(x.long(), weight)
 
 
 def dropout(x, p=0.5, training=True, generator=None):

@@ -12,6 +12,8 @@ launch over all their parameters, bit-identical to the per-parameter
 rule (`use_kernel=False`). `Adamax`, `Adagrad`, `Adadelta`, `RMSProp`,
 `Lamb` and `LarsMomentum` have no kernel, in the JAX package either
 (XLA computes them there): they run per parameter on every device.
+`ExponentialMovingAverage`, `LookAhead` and `ModelAverage`
+(`averaging.py`) wrap an optimizer or a parameter list.
 """
 from __future__ import annotations
 
@@ -22,12 +24,14 @@ from ..incubate.nn.kernels.optim import (adam_rule, fused_adam,
                                          fused_momentum, fused_sgd,
                                          momentum_rule, sgd_rule)
 from . import lr
+from .averaging import ExponentialMovingAverage, LookAhead, ModelAverage
 from .lr import LRScheduler
 from .optimizer import Optimizer
 
 __all__ = [
     "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax", "Adagrad",
     "Adadelta", "RMSProp", "Lamb", "LarsMomentum", "lr", "LRScheduler",
+    "ExponentialMovingAverage", "LookAhead", "ModelAverage",
 ]
 
 

@@ -32,6 +32,8 @@ Slots are keyed by parameter name: `parameters` may be an iterable of
 tensors (named `param_0`, `param_1`, ...) or of (name, tensor) pairs,
 as `model.named_parameters()` gives them. `state_dict()` keys are
 `"<name>.<slot>"`, `"@step"` and, with a scheduler, `"LR_Scheduler"`.
+`_slot_state` / `_load_slot_state` re-key the slots by a model's
+structured names, for training-state snapshots (`hapi.Model`).
 """
 from __future__ import annotations
 
@@ -208,3 +210,37 @@ class Optimizer:
             self._accumulators.setdefault(pname, {})[sname] = t.clone()
 
     set_dict = set_state_dict
+
+    # -- elastic checkpoint slot state ------------------------------------
+    def _slot_state(self, named_params):
+        """The live slots keyed by structured parameter name (the
+        `named_parameters()` keys of `named_params`), the key space a
+        training-state snapshot stores them under: the optimizer's own
+        names (`param_<i>` for unnamed parameters) depend on how it was
+        built, the structured names survive a relaunch. The tensors are
+        the live ones, not copies."""
+        rev = {id(p): sname for sname, p in named_params}
+        own = dict(self._named)
+        return {rev.get(id(own.get(pn)), pn): dict(sl)
+                for pn, sl in self._accumulators.items()}
+
+    @torch.no_grad()
+    def _load_slot_state(self, slots, named_params):
+        """Inverse of `_slot_state`: install a structured-name slot tree
+        as the live slots, each on its parameter's device in the dtype
+        it was saved in (a master weight stays f32). A slot that exists
+        already is overwritten in place."""
+        fwd = {sname: id(p) for sname, p in named_params}
+        own = {id(p): (name, p) for name, p in self._named}
+        for sname, sl in slots.items():
+            name, p = own.get(fwd.get(sname), (sname, None))
+            cur = self._accumulators.setdefault(name, {})
+            for k, v in sl.items():
+                v = torch.as_tensor(v)
+                dev = p.device if p is not None else v.device
+                t = cur.get(k)
+                if (t is not None and t.shape == v.shape
+                        and t.dtype == v.dtype and t.device == dev):
+                    t.copy_(v)
+                else:
+                    cur[k] = v.to(dev, copy=True)
