@@ -167,6 +167,35 @@ printing one line (or a few):
               with an apply() / restore() round trip bit for bit, and a
               framework.save / load round trip of the bf16 state dict
               bit for bit
+ 20. lenet    fused_adam vs the per-parameter rule on LeNet's 10 f32
+              tensors, bit for bit after each of 3 steps, and its time
+              against the bound, the plain version and
+              torch.optim.Adam(fused=True); then
+              LeNet, bench_mnist's recipe (f32, Adam(1e-3),
+              CrossEntropyLoss, B 1024 x 1x28x28 from RandomState(0),
+              labels 0-9) through TrainStepCompiler, then the same with
+              steps_per_dispatch=8: the loss falls, exactly one fused_adam
+              launch a step and no other kernel of the port; step ms
+              (median of 3 windows of synchronised steps), imgs/s, MFU
+              (bench's 3 x 0.00042 GFLOP an image), peak memory, and
+              K=8's imgs/s over the plain step's
+ 21. resnet   ResNet-50 (1000 classes, NCHW), bench_resnet50's on-chip
+              recipe, not cut: amp.decorate O2 bf16, Momentum(0.01, 0.9,
+              multi_precision), B 128 x 3x224x224 bf16 from
+              RandomState(0), labels 0-999: the O2 split (55 bf16
+              tensors with masters, 106 f32 without); fused_momentum vs
+              the per-parameter rule on that set, bit for bit after each
+              of 3 steps, and its time against the bound, the plain
+              version and torch.optim.SGD(momentum=0.9, fused=True);
+              then the step timed with and without cudnn.benchmark and a
+              channels_last input (the faster kept and named, the global
+              setting restored), 5 warm-up steps, 3 windows of 20: the
+              loss falls, exactly one fused_momentum launch a step and no
+              other kernel of the port, every running statistic finite
+              and moved; step ms, imgs/s, MFU (bench's 3 x 4.09 GFLOP an
+              image), peak memory, and a profiled step split into
+              convolutions, BatchNorm, other elementwise work, the
+              optimizer and idle
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -3905,6 +3934,385 @@ def phase_fit(dev, smi):
     torch.cuda.empty_cache()
 
 
+# -- phases 20-21 --------------------------------------------------------
+# bench_mnist's recipe (bench.py:114-150): LeNet f32, Adam(1e-3),
+# CrossEntropyLoss, B 1024 x 1x28x28 from RandomState(0); then K = 8
+# steps a dispatch. bench_resnet50's on-chip recipe (bench.py:252-296):
+# ResNet-50 (1000 classes, NCHW) bf16 O2, Momentum(0.01, 0.9,
+# multi_precision), B 128 x 3x224x224 bf16 from RandomState(0), 5
+# warm-up steps, then 3 windows of 20 synchronised steps. The FLOP
+# counts are bench's: 3 x 0.00042 GFLOP an image for LeNet, 3 x 4.09
+# GFLOP an image for ResNet-50 at 224.
+LENET_BATCH, LENET_K = 1024, 8
+LENET_WARMUP, LENET_STEPS, LENET_WINDOWS = 5, 60, 3
+LENET_FLOP = 3 * 0.00042e9
+RESNET_BATCH, RESNET_SIZE = 128, 224
+RESNET_WARMUP, RESNET_STEPS, RESNET_WINDOWS = 5, 20, 3
+RESNET_PROBE_STEPS = 8       # each cuDNN / layout setting's short timing
+RESNET_FLOP = 3 * 4.09e9
+
+
+def _launch_counts(before=None):
+    """Kernel launches since `before` (a `kernels.launches()` dict)."""
+    from paddle_tpu_torch.incubate.nn import kernels
+
+    now = kernels.launches()
+    return now if before is None else {k: v - before[k]
+                                       for k, v in now.items()}
+
+
+def _timed_windows(step, args, windows, steps):
+    """(per-step seconds of each window, last loss of each window): each
+    window `steps` calls, synchronised by reading the loss."""
+    dts, losses = [], []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = step(*args)
+        losses.append(float(loss.reshape(-1)[-1].item()))
+        dts.append((time.perf_counter() - t0) / steps)
+    return dts, losses
+
+
+def _only_launches(tag, got, want):
+    """Every kernel's launches exactly `want` (the others 0)."""
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"{tag}: launches {got}, expected {full}")
+
+
+def phase_lenet(dev, smi):
+    """Phase 20: kernel #6 on LeNet's parameter set (`optim_at_shape`),
+    then LeNet trained to bench_mnist's recipe through
+    TrainStepCompiler, plain and K = 8 steps a dispatch: the loss falls,
+    exactly one fused_adam launch a step and no other kernel of the
+    port; imgs/s (median of the windows), MFU, peak memory."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(LENET_BATCH, 1, 28, 28).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, 10, (LENET_BATCH,)).astype(
+        np.int64)).to(dev)
+    ce = nn.CrossEntropyLoss()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    named = list(LeNet(device=dev, generator=gen).named_parameters())
+    optim_at_shape(dev, smi, "lenet", named, "fused_adam",
+                   ("LeNet's f32 set", "Adam", dict(learning_rate=1e-3), {}),
+                   dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8),
+                   lambda ps: torch.optim.Adam(ps, lr=1e-3, fused=True))
+    results = {}
+    for k in (1, LENET_K):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        net = LeNet(device=dev, generator=gen)
+        named = list(net.named_parameters())
+        opt = Adam(learning_rate=1e-3, parameters=named)
+        step = TrainStepCompiler(net, opt, lambda o, t: ce(o, t),
+                                 steps_per_dispatch=k)
+        if k == 1:
+            args = (x, y)
+        else:
+            xs = torch.from_numpy(rng.randn(k, LENET_BATCH, 1, 28, 28)
+                                  .astype(np.float32)).to(dev)
+            ys = torch.from_numpy(rng.randint(0, 10, (k, LENET_BATCH))
+                                  .astype(np.int64)).to(dev)
+            args = (xs, ys)
+        first = float(step(*args).reshape(-1)[0].item())
+        for _ in range(LENET_WARMUP - 1):
+            step(*args)
+        calls = max(1, LENET_STEPS // k)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        dts, losses = _timed_windows(step, args, LENET_WINDOWS, calls)
+        n_steps = LENET_WINDOWS * calls * k
+        _only_launches(f"lenet K={k}", _launch_counts(),
+                       {"fused_adam": n_steps})
+        last = losses[-1]
+        if not (np.isfinite(last) and last < first):
+            raise AssertionError(f"lenet K={k}: loss did not decrease "
+                                 f"({first:.4f} -> {last:.4f})")
+        dt = float(np.median(dts)) / k
+        results[k] = dict(dt=dt, dts=dts, first=first, losses=losses,
+                          peak=torch.cuda.max_memory_allocated(dev),
+                          n_steps=n_steps, tensors=len(named),
+                          elements=sum(p.numel() for _, p in named))
+        del net, opt, step
+    r1, rk = results[1], results[LENET_K]
+    for k, r in results.items():
+        mfu = LENET_FLOP * LENET_BATCH / r["dt"] / PEAK_BF16_FLOPS
+        log("lenet", f"[{smi}] LeNet f32, Adam(1e-3), B={LENET_BATCH}, "
+            f"steps_per_dispatch={k}: loss {r['first']:.4f} -> " + " -> ".join(
+                f"{v:.4f}" for v in r["losses"]) + f"; step "
+            f"{r['dt'] * 1e3:.3f} ms (median of {LENET_WINDOWS} windows of "
+            f"{r['n_steps'] // LENET_WINDOWS} steps, per step: " + ", ".join(
+                f"{v / k * 1e3:.3f}" for v in r["dts"]) + f") = "
+            f"{LENET_BATCH / r['dt']:.1f} imgs/s, MFU {100 * mfu:.4f}% "
+            f"(3 x 0.00042 GFLOP an image over 989 TFLOP/s); peak memory "
+            f"{r['peak'] / 2 ** 30:.3f} GiB; fused_adam {r['n_steps']} "
+            f"launches = 1 x {r['n_steps']} steps over {r['tensors']} f32 "
+            f"tensors, {r['elements']} elements")
+    log("lenet", f"[{smi}] K={LENET_K} over K=1: "
+        f"{r1['dt'] / rk['dt']:.3f}x the imgs/s")
+
+
+def _resnet_step_split(by, bn_ms):
+    """{part: device ms} of a profiled ResNet-50 step's {kernel: ms}:
+    the cuDNN convolutions (and the layout transforms and GEMMs around
+    them), the optimizer, BatchNorm (`bn_ms`, the device time of the
+    kernels its forward and backward launched) and the rest."""
+    parts = {"convolutions": 0.0, "BatchNorm": bn_ms, "optimizer": 0.0,
+             "other elementwise": 0.0}
+    for name, ms in by.items():
+        low = name.lower()
+        if "multi_tensor_optim" in low:
+            parts["optimizer"] += ms
+        elif any(s in low for s in ("conv", "cudnn", "xmma", "implicit",
+                                    "wgrad", "dgrad", "fprop", "gemm",
+                                    "nchwtonhwc", "nhwctonchw", "cutlass",
+                                    "nvjet", "sm90")):
+            parts["convolutions"] += ms
+        else:
+            parts["other elementwise"] += ms
+    parts["other elementwise"] -= bn_ms
+    return parts
+
+
+def _bn_device_ms(prof, reps):
+    """Device ms a step of the kernels launched inside the "batch_norm"
+    ranges (the forward) and by BatchNorm's autograd node (the
+    backward), or None when the profiler links no kernel to them."""
+    def dev_us(e):
+        if hasattr(e, "device_time_total"):
+            return e.device_time_total
+        return e.cuda_time_total
+
+    total = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name == "batch_norm" or "_BatchNormTrainBackward" in e.name:
+            parent = e.cpu_parent
+            nested = False
+            while parent is not None:
+                if (parent.name == "batch_norm"
+                        or "_BatchNormTrainBackward" in parent.name):
+                    nested = True
+                    break
+                parent = parent.cpu_parent
+            if not nested:
+                total += dev_us(e)
+    return total / reps / 1e3 if total else None
+
+
+def _resnet_profile(step, args, reps=2):
+    """torch.profiler over `reps` steps with every BatchNorm forward in a
+    "batch_norm" range: (wall ms, busy ms, kernels, top, {kernel: ms},
+    BatchNorm ms or None)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.nn import functional as F
+
+    orig = F.batch_norm
+
+    def ranged(*a, **kw):
+        with record_function("batch_norm"):
+            return orig(*a, **kw)
+
+    wall, busy, count, top, by = profile_ms(lambda: step(*args), reps=reps,
+                                            n_top=8)
+    F.batch_norm = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step(*args)
+            torch.cuda.synchronize()
+    finally:
+        F.batch_norm = orig
+    return wall, busy, count, top, by, _bn_device_ms(prof, reps)
+
+
+def _resnet_o2_set(named):
+    """(bf16 tensors, their elements, f32 tensors, their elements) of an
+    O2 parameter set."""
+    half = [p for _, p in named if p.dtype == torch.bfloat16]
+    full = [p for _, p in named if p.dtype == torch.float32]
+    return (len(half), sum(p.numel() for p in half), len(full),
+            sum(p.numel() for p in full))
+
+
+def optim_at_shape(dev, smi, tag, named, kernel, case, kw, library,
+                   iters=50):
+    """A multi-tensor optimizer kernel on a model's own parameter set:
+    bit for bit against the per-parameter rule after every one of 3
+    steps (phase 11's check, `case`), then its time (`time_ms`: the
+    wrapper builds its table on the host in about the kernel's own time,
+    so the card is held while the calls are enqueued) against the bound,
+    its plain version and `library(params)`, a torch.optim fused step
+    on f32 copies."""
+    from paddle_tpu_torch.incubate.nn.kernels import optim as ko
+
+    grads = _optim_grads(named, dev)
+    optim_checks(named, grads, cases=[case])
+    g0 = grads[0]
+    lists = _optim_lists(named, g0, kernel)
+    fn, ref = getattr(ko, kernel), getattr(ko, kernel + "_reference")
+    k_ms, k_host = time_ms(lambda: fn(*lists, **kw), iters)
+    p_ms, _ = chain_ms(lambda: ref(*lists, **kw), max(1, iters // 4))
+    lib_p = [p.detach().float().clone() for _, p in named]
+    for p, (n, _) in zip(lib_p, named):
+        p.grad = g0[n].float()
+    lib = library(lib_p)
+    l_ms, _ = time_ms(lib.step, iters)
+    n_elem = sum(p.numel() for _, p in named)
+    nbytes = _optim_bytes(named, g0, kernel)
+    ops = {"fused_adam": 15, "fused_momentum": 4, "fused_sgd": 2}[kernel]
+    b_ms, b_by = bound_ms(nbytes, ops * n_elem)
+    log(tag, f"[{smi}] {kernel} on {case[0]} ({len(named)} tensors, "
+        f"{n_elem} elements): bit-identical to the per-parameter rule after "
+        f"each of {OPTIM_STEPS} steps, one launch a step; kernel "
+        f"{k_ms:.5f} ms | plain {p_ms:.5f} ms | {type(lib).__name__}("
+        f"fused=True) on f32 copies {l_ms:.5f} ms | bound {b_ms:.5f} ms "
+        f"({b_by}, {nbytes / 1e6:.3f} MB) = {nbytes / k_ms / 1e9:.3f} TB/s, "
+        f"{100 * b_ms / k_ms:.1f}% of the bound; host ms a call "
+        f"{k_host:.5f}")
+    del lists, lib, lib_p, grads
+
+
+def phase_resnet(dev, smi):
+    """Phase 21: ResNet-50 trained to bench_resnet50's on-chip recipe
+    (see above): the O2 split, kernel #8 on its parameter set
+    (`optim_at_shape`), the step
+    timed under each cuDNN autotuning and activation-layout setting (the
+    faster one reported, the global setting restored), 3 windows of
+    synchronised steps: the loss falls, exactly one fused_momentum
+    launch a step, the running statistics finite and moved; imgs/s,
+    MFU, peak memory and a profiled step split."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = amp.decorate(resnet50(device=dev, generator=gen), level="O2",
+                         dtype="bfloat16")
+    named = list(model.named_parameters())
+    split = _resnet_o2_set(named)
+    log("resnet", f"ResNet-50 O2 parameter set: {len(named)} tensors, "
+        f"{sum(p.numel() for _, p in named)} elements: {split[0]} bf16 "
+        f"with f32 masters ({split[1]} elements), {split[2]} f32 without "
+        f"({split[3]} elements); {len(list(model.buffers()))} f32 buffers")
+    if split[0] != 55 or split[2] != 106:
+        raise AssertionError(f"resnet: O2 split {split}, expected 55 bf16 "
+                             "and 106 f32 tensors")
+    optim_at_shape(dev, smi, "resnet", named, "fused_momentum",
+                   ("ResNet-50's O2 set", "Momentum",
+                    dict(learning_rate=0.01, momentum=0.9), {}),
+                   dict(lr=0.01, momentum=0.9),
+                   lambda ps: torch.optim.SGD(ps, lr=0.01, momentum=0.9,
+                                              fused=True))
+    torch.cuda.empty_cache()
+
+    ce = nn.CrossEntropyLoss()
+    opt = Momentum(learning_rate=0.01, momentum=0.9, parameters=named,
+                   multi_precision=True)
+    step = TrainStepCompiler(model, opt, lambda o, t: ce(o, t))
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(RESNET_BATCH, 3, RESNET_SIZE,
+                                   RESNET_SIZE).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, 1000, (RESNET_BATCH,)).astype(
+        np.int64)).to(dev)
+    stats0 = [b.detach().clone() for b in model.buffers()]
+    first = float(step(x, y).item())
+    for _ in range(RESNET_WARMUP - 1):
+        step(x, y)
+    bench0 = torch.backends.cudnn.benchmark
+    probe = {}
+    try:
+        # the weights stay contiguous (the multi-tensor kernel takes
+        # contiguous tensors); channels_last is the input's layout, which
+        # the convolutions' outputs and the activations follow
+        for cl in (False, True):
+            xin = x.contiguous(memory_format=torch.channels_last) if cl else x
+            for bench in (False, True):
+                torch.backends.cudnn.benchmark = bench
+                for _ in range(2):
+                    step(xin, y)
+                dts, _ = _timed_windows(step, (xin, y), 1,
+                                        RESNET_PROBE_STEPS)
+                probe[(bench, cl)] = dts[0]
+        best = min(probe, key=probe.get)
+        torch.backends.cudnn.benchmark = best[0]
+        xin = x.contiguous(memory_format=torch.channels_last) if best[1] \
+            else x
+        name = (f"cudnn.benchmark={best[0]}, input "
+                f"{'channels_last' if best[1] else 'NCHW-contiguous'}")
+        log("resnet", f"[{smi}] step ms by setting ({RESNET_PROBE_STEPS} "
+            "synchronised steps each, after 2): " + ", ".join(
+                f"cudnn.benchmark={b} {'channels_last' if c else 'NCHW'} "
+                f"{v * 1e3:.3f}" for (b, c), v in probe.items())
+            + f"; kept: {name}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = _launch_counts()
+        dts, losses = _timed_windows(step, (xin, y), RESNET_WINDOWS,
+                                     RESNET_STEPS)
+        n_steps = RESNET_WINDOWS * RESNET_STEPS
+        counts = _launch_counts(before)
+        peak = torch.cuda.max_memory_allocated(dev)
+        _only_launches("resnet", counts, {"fused_momentum": n_steps})
+        last = losses[-1]
+        if not (np.isfinite(last) and last < first):
+            raise AssertionError(f"resnet: loss did not decrease "
+                                 f"({first:.4f} -> {last:.4f})")
+        stats = list(model.buffers())
+        if not all(bool(torch.isfinite(b).all()) for b in stats):
+            raise AssertionError("resnet: a running statistic is not finite")
+        moved = sum(not torch.equal(a, b) for a, b in zip(stats0, stats))
+        if moved != len(stats):
+            raise AssertionError(f"resnet: {len(stats) - moved} running "
+                                 "statistics did not move")
+        dt = float(np.median(dts))
+        mfu = RESNET_FLOP * RESNET_BATCH / dt / PEAK_BF16_FLOPS
+        log("resnet", f"[{smi}] ResNet-50 bf16 O2, Momentum(0.01, 0.9, "
+            f"multi_precision), B={RESNET_BATCH} x 3x{RESNET_SIZE}x"
+            f"{RESNET_SIZE}, {name}: loss {first:.4f} -> " + " -> ".join(
+                f"{v:.4f}" for v in losses) + f" over {n_steps} steps after "
+            f"{RESNET_WARMUP} warm-up; step {dt * 1e3:.3f} ms (median of "
+            f"{RESNET_WINDOWS} windows of {RESNET_STEPS}: " + ", ".join(
+                f"{v * 1e3:.3f}" for v in dts) + f") = "
+            f"{RESNET_BATCH / dt:.1f} imgs/s, MFU {100 * mfu:.2f}% (3 x 4.09 "
+            f"GFLOP an image over 989 TFLOP/s); peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; fused_momentum {counts['fused_momentum']}"
+            f" launches = 1 x {n_steps}; {moved} running statistics moved, "
+            "all finite")
+        wall, busy, count, top, by, bn_ms = _resnet_profile(step, (xin, y))
+        if busy is None:
+            log("resnet", f"[{smi}] step wall {wall:.3f} ms; device time not "
+                "measured (the profiler saw no device activity)")
+        else:
+            parts = _resnet_step_split(by, bn_ms or 0.0)
+            if bn_ms is None:
+                parts["BatchNorm"] = "not attributed"
+            log("resnet", f"[{smi}] where a step goes (torch.profiler, 2 "
+                f"steps): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                f"({100 * busy / wall:.1f}%), idle {wall - busy:.3f} ms, "
+                f"{count:.0f} kernels; " + ", ".join(
+                    f"{k} {v:.3f} ms ({100 * v / wall:.1f}%)"
+                    if isinstance(v, float) else f"{k} {v}"
+                    for k, v in parts.items()))
+            log("resnet", f"[{smi}] top kernels: " + "; ".join(
+                f"{n} x{c:.0f} {t:.3f} ms" for n, c, t in top))
+    finally:
+        torch.backends.cudnn.benchmark = bench0
+    del model, opt, step, x, xin
+
+
 def _paged_ms(by):
     """(T = 1 launches' ms, T > 1 launches' ms) of the paged kernel in a
     profile's {kernel name: ms}: one kernel, told apart by its slot
@@ -4052,6 +4460,11 @@ def main():
     phase_bert(dev, smi)
     torch.cuda.empty_cache()
     phase_fit(dev, smi)
+    torch.cuda.empty_cache()
+    phase_lenet(dev, smi)
+    torch.cuda.empty_cache()
+    phase_resnet(dev, smi)
+    torch.cuda.empty_cache()
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

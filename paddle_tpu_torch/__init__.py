@@ -7,6 +7,9 @@ package's, so each counterpart sits at the same path:
   * `device`                            `resolve_device`: CUDA by
                                         default, CPU only when asked
   * `core.monitor`                      the `serve/*` stat registry
+  * `core.flags`                        `get_flags` / `set_flags` (also
+                                        at the package root):
+                                        `stable_bn_stats`
   * `incubate.nn.kernels`               hand-written Hopper kernels
                                         (CUDA C++ in `csrc/`, built at
                                         first use) with their plain
@@ -32,10 +35,17 @@ package's, so each counterpart sits at the same path:
                                         wrappers (EMA, LookAhead,
                                         ModelAverage)
   * `nn`, `ops`                         `Linear`, `Embedding`, `Dropout`,
-                                        `LayerNorm`, `Tanh`, `LayerList`,
-                                        the functional ops they run on,
+                                        `LayerNorm`, `Tanh`, `ReLU`,
+                                        `Flatten`, `LayerList`,
+                                        `Sequential`, `Conv1D/2D/3D`, the
+                                        pooling layers, the BatchNorm
+                                        family, `CrossEntropyLoss`, the
+                                        functional ops they run on
+                                        (convolution and pooling on
+                                        PyTorch's, BatchNorm written out),
                                         the initializers, the gradient
                                         clips
+  * `vision.models`                     LeNet and the ResNet family
   * `jit`                               `TrainStepCompiler`: forward
                                         loss, backward, update; gradient
                                         merge, the non-finite guard,
@@ -76,6 +86,7 @@ The port imports torch and numpy, never jax and nothing of paddle_tpu.
 """
 from __future__ import annotations
 
+from .core.flags import get_flags, set_flags
 from .device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "get_flags", "set_flags"]

@@ -21,8 +21,9 @@ belongs to the analysis plane, which is not ported.
 
 `decorate(models, optimizers=None, level="O2", dtype="bfloat16")` casts
 every floating parameter and buffer of the models to the amp dtype in
-place, except those of normalisation layers (torch's and the port's
-`nn.LayerNorm`) and those marked `no_amp_cast` (GPT's LayerNorm scales
+place, except those of normalisation layers (torch's, the port's
+`nn.LayerNorm` and its BatchNorm family, whose running statistics stay
+f32 too) and those marked `no_amp_cast` (GPT's LayerNorm scales
 and shifts), which stay f32 — the reference's `pure_fp16_initialize`.
 Parameters keep their identity (only `.data` changes), so an optimizer
 built before or after holds the same tensors. f32 master weights are
@@ -67,11 +68,12 @@ BLACK_LIST = {"exp", "log", "log2", "log10", "log1p", "mean", "sum", "softmax",
 
 def _norm_layers():
     """The layer types the reference's pure_fp16_initialize skips:
-    torch's norm layers and the port's `nn.LayerNorm`."""
-    from ..nn.layer.norm import LayerNorm
+    torch's norm layers, the port's `nn.LayerNorm` and its BatchNorm
+    family."""
+    from ..nn.layer.norm import LayerNorm, _BatchNormBase
 
     return (nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm,
-            nn.RMSNorm, LayerNorm)
+            nn.RMSNorm, LayerNorm, _BatchNormBase)
 
 
 def _amp_dtype(dtype):

@@ -14,9 +14,10 @@ arrays (numpy's `bfloat16` from ml_dtypes); they load into bf16 port
 parameters unchanged, through an exact f32 round trip.
 
 `load_reference_state_dict(model, flat)` loads a flat {structured
-name: array} dict, as `dict(jax_model.state_dict())` gives it (BERT and
-the other models built from `nn` layers), into a port model whose
-parameters carry the same names (`model.named_parameters()`).
+name: array} dict, as `dict(jax_model.state_dict())` gives it (BERT,
+ResNet and the other models built from `nn` layers), into a port model
+whose parameters and persistent buffers (BatchNorm's running
+statistics) carry the same names.
 
 `optimizer_state_from_numpy` carries a JAX optimizer's slots (moments,
 velocity, beta powers, master weights) into the port's
@@ -81,10 +82,13 @@ def load_reference_params(model, tree):
 @torch.no_grad()
 def load_reference_state_dict(model, flat):
     """Copy a flat {structured name: array} dict (numpy arrays, or
-    anything `np.asarray` takes) into the parameters of the same names
-    of a port model, in place, on the model's device and in each
-    parameter's dtype. A missing, extra or misshapen name raises."""
+    anything `np.asarray` takes) into the parameters and persistent
+    buffers of the same names of a port model, in place, on the model's
+    device and in each tensor's dtype. A missing, extra or misshapen
+    name raises."""
     own = dict(model.named_parameters())
+    keys = set(model.state_dict())
+    own.update((n, b) for n, b in model.named_buffers() if n in keys)
     if set(flat) != set(own):
         raise ValueError(
             f"parameter names differ: missing {sorted(set(own) - set(flat))}"

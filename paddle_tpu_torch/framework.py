@@ -4,10 +4,24 @@
     state = framework.load("run/model.pdparams")     # CPU tensors
 
 A checkpoint is a pickle of the nested dicts, lists and tuples it was
-given. Every torch tensor in them is stored as a `_SavedTensor`: its
-dtype name, its shape and its raw bytes (a uint8 array), so that a
-bf16 tensor round-trips bit for bit without numpy knowing bf16. Other
-leaves (numbers, strings, numpy arrays) are pickled as they are.
+given; other leaves (numbers, strings, numpy arrays) are pickled as
+they are. A torch tensor is stored in one of two forms:
+
+- in the JAX package's form, which that package's `load` and
+  `hapi.Model.load` read: a `paddle_tpu.framework._SavedTensor` whose
+  state is `{"array": ndarray}`. Every tensor numpy can hold (f32,
+  f16, the integers, bool) is written so;
+- as this module's `_SavedTensor`: its dtype name, its shape and its
+  raw bytes (a uint8 array). Only bf16 tensors are written so, since
+  numpy knows no bf16 without the `ml_dtypes` package: a bf16 tensor
+  round-trips bit for bit, but the JAX package cannot read it.
+
+The JAX form names a class of the JAX package, and `pickle`'s own
+`save_global` imports the module it names to check the class, which
+would import `paddle_tpu` and JAX. `_Pickler`, a subclass of the
+pure-Python pickler, writes that one global itself, so saving imports
+nothing of `paddle_tpu`. It also writes the large buffers of protocol 5
+from the arrays' memory, without the copy the pure-Python pickler makes.
 `load` gives the tensors back on the CPU (`return_numpy=True`: numpy
 arrays, which bf16 cannot be).
 
@@ -15,18 +29,19 @@ arrays, which bf16 cannot be).
 the same directory, which is fsynced and then `os.replace`d over the
 path, so a kill mid-write leaves the old file or the new one.
 
-Files the JAX package wrote load too: its `_SavedTensor`
-(`paddle_tpu.framework._SavedTensor`, a numpy array under `.array`) is
-mapped to a class of this module by the unpickler, so nothing of
-`paddle_tpu` is imported. f32 and integer arrays load as tensors. A
-bf16 array in such a file is pickled as numpy's `ml_dtypes.bfloat16`,
-and reading it needs the `ml_dtypes` package: without it, `load`
-raises an error that names it.
+`load` reads all three kinds of file: the raw form, the JAX form this
+module writes and the JAX form the JAX package writes. The unpickler
+maps `paddle_tpu.framework._SavedTensor` to `_JaxSavedTensor`, so
+nothing of `paddle_tpu` is imported. A bf16 array in a file of the JAX
+package is pickled as numpy's `ml_dtypes.bfloat16`, and reading it
+needs the `ml_dtypes` package: without it, `load` raises an error that
+names it.
 """
 from __future__ import annotations
 
 import os
 import pickle
+import struct
 
 import numpy as np
 import torch
@@ -61,8 +76,13 @@ class _SavedTensor:
 
 
 class _JaxSavedTensor:
-    """What the JAX package's `_SavedTensor` unpickles into: its state,
-    `{"array": ndarray}`, lands in `__dict__`."""
+    """The JAX package's `_SavedTensor`: a numpy array under `.array`.
+    A file of that package unpickles its tensors into this class (their
+    state, `{"array": ndarray}`, lands in `__dict__`), and `_Pickler`
+    writes this class under the JAX package's name."""
+
+    def __init__(self, array=None):
+        self.array = array
 
     def tensor(self):
         arr = np.asarray(self.array)
@@ -70,6 +90,41 @@ class _JaxSavedTensor:
             return torch.from_numpy(arr.view(np.int16).copy()).view(
                 torch.bfloat16)
         return torch.from_numpy(np.array(arr))
+
+
+_JAX_CLASS = ("paddle_tpu.framework", "_SavedTensor")
+
+
+class _Pickler(pickle._Pickler):
+    """The pure-Python pickler, writing `_JaxSavedTensor` as the global
+    `paddle_tpu.framework._SavedTensor` without importing that module,
+    and a large protocol-5 buffer straight from its memory."""
+
+    def save_global(self, obj, name=None):
+        if obj is not _JaxSavedTensor:
+            return super().save_global(obj, name)
+        module, qualname = _JAX_CLASS
+        if self.proto >= 4:
+            self.save(module)
+            self.save(qualname)
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL + f"{module}\n{qualname}\n".encode())
+        self.memoize(obj)
+
+    def save_picklebuffer(self, obj):
+        with obj.raw() as m:
+            if not (m.contiguous and self._buffer_callback is None
+                    and m.nbytes >= self.framer._FRAME_SIZE_TARGET):
+                return super().save_picklebuffer(obj)
+            # what the C pickler writes, from the buffer itself; not
+            # memoized (nothing refers to it again)
+            op = pickle.BINBYTES8 if m.readonly else pickle.BYTEARRAY8
+            self._write_large_bytes(op + struct.pack("<Q", m.nbytes),
+                                    m.cast("B"))
+
+    dispatch = dict(pickle._Pickler.dispatch)
+    dispatch[pickle.PickleBuffer] = save_picklebuffer
 
 
 class _Unpickler(pickle.Unpickler):
@@ -87,9 +142,21 @@ class _Unpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+def _saved(t):
+    """The saved form of a tensor: the JAX package's unless numpy cannot
+    hold its dtype (bf16)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        try:
+            return _JaxSavedTensor(t.contiguous().numpy())
+        except TypeError:
+            pass
+    return _SavedTensor.of(t)
+
+
 def _to_saveable(obj):
     if isinstance(obj, torch.Tensor):
-        return _SavedTensor.of(obj.cpu())
+        return _saved(obj)
     if isinstance(obj, dict):
         return {k: _to_saveable(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -140,7 +207,7 @@ def _dump(obj, f, protocol=5):
     """Pickle `obj` (tensors in their saved form) into the open file
     `f`. Under protocol 5 each tensor's bytes go to the file straight
     from its memory."""
-    pickle.dump(_to_saveable(obj), f, protocol=protocol)
+    _Pickler(f, protocol=protocol).dump(_to_saveable(obj))
 
 
 def _load(f, return_numpy=False):

@@ -22,7 +22,11 @@ compiled step's semantics (`one_step`, :1515-1598):
   adds nothing and the cadence runs on schedule (:1534-1547, 1582-1592).
   Its non-finite loss is still returned. `last_skips` counts the trips
   of the last call; reading the verdict costs one host sync per
-  microstep.
+  microstep. A tripped microstep also keeps the model's old floating
+  buffers (BatchNorm's running statistics, which the forward writes in
+  place): they are copied before the forward and written back on a
+  trip, as the JAX step passes the old ones through (:1534-1547,
+  1582-1592). Otherwise every microstep commits its buffers.
 - `grad_scaler=amp.GradScaler(...)`: the backward runs on loss * scale,
   the gradients are unscaled to their own dtype (:1651-1653), the guard
   is implied, and each microstep's verdict feeds the scaler's
@@ -150,6 +154,10 @@ class TrainStepCompiler:
         guard tripped)."""
         opt = self._opt
         opt.clear_grad()
+        # the buffers a tripped microstep must leave as they were
+        bufs = ([b for b in self._model.buffers() if b.is_floating_point()]
+                if self._guard_nonfinite else [])
+        kept = [b.detach().clone() for b in bufs]
         loss = self._loss(batch).float()
         if self._grad_scaler is not None:
             (loss * float(scale)).backward()
@@ -175,6 +183,9 @@ class TrainStepCompiler:
                 finite = [torch.isfinite(loss)] + [
                     torch.isfinite(p.grad).all() for _, p in named]
                 ok = bool(torch.stack(finite).all())   # one host sync
+            if not ok:
+                for b, old in zip(bufs, kept):
+                    b.copy_(old)
             self._commit_comm(ok)
             k = self._accum_steps
             if k == 1:

@@ -1,9 +1,11 @@
 """paddle_tpu_torch.nn.functional — the port of the part of
-`paddle_tpu/nn/functional/__init__.py` the BERT path uses: `linear`
-(W is [in, out], y = x @ W + b), `embedding`, `dropout` and
+`paddle_tpu/nn/functional/__init__.py` the BERT and vision paths use:
+`linear` (W is [in, out], y = x @ W + b), `embedding`, `dropout` and
 `scaled_dot_product_attention` (routed in `incubate.nn.attention`),
-plus the ops of `paddle_tpu_torch.ops` it re-exports (`gelu`, `tanh`,
-`cross_entropy`, `layer_norm`).
+plus the ops of `paddle_tpu_torch.ops` it re-exports (`gelu`, `relu`,
+`tanh`, `cross_entropy`, `layer_norm`, `batch_norm`, `conv1d`,
+`conv2d`, `conv3d`, `max_pool2d`, `avg_pool2d`, `adaptive_avg_pool2d`,
+`flatten`).
 
 Each op hands its tensor inputs to `amp.maybe_cast_inputs` under its
 JAX op name. Mixed dtypes promote as jnp promotes them. Dropout is
@@ -17,13 +19,18 @@ import torch
 import torch.nn.functional as F
 
 from ...amp import maybe_cast_inputs
-from ...ops.activation import gelu, tanh
+from ...ops.activation import gelu, relu, tanh
+from ...ops.conv import (adaptive_avg_pool2d, avg_pool2d, conv1d, conv2d,
+                         conv3d, max_pool2d)
 from ...ops.linalg import promote
 from ...ops.loss_ops import cross_entropy
-from ...ops.norm_ops import layer_norm
+from ...ops.manipulation import flatten
+from ...ops.norm_ops import batch_norm, layer_norm
 
 __all__ = ["linear", "embedding", "dropout", "scaled_dot_product_attention",
-           "gelu", "tanh", "cross_entropy", "layer_norm"]
+           "gelu", "relu", "tanh", "cross_entropy", "layer_norm",
+           "batch_norm", "conv1d", "conv2d", "conv3d", "max_pool2d",
+           "avg_pool2d", "adaptive_avg_pool2d", "flatten"]
 
 
 def linear(x, weight, bias=None):

@@ -1,5 +1,5 @@
 """Parameter initializers: the port of `paddle_tpu/nn/initializer`
-`Constant`, `Normal` and `XavierNormal` (:51-108).
+`Constant`, `Normal`, `Uniform` and `XavierNormal` (:51-108).
 
 An initializer fills a tensor in place: `init(tensor, generator)`. The
 random ones draw from the `torch.Generator` given (one on the tensor's
@@ -22,7 +22,7 @@ import torch.nn as nn
 
 from ...device import resolve_device
 
-__all__ = ["Initializer", "Constant", "Normal", "XavierNormal",
+__all__ = ["Initializer", "Constant", "Normal", "Uniform", "XavierNormal",
            "create_parameter", "init_source"]
 
 
@@ -67,6 +67,21 @@ class Normal(Initializer):
 
     def __call__(self, tensor, generator=None):
         return _normal(tensor, generator, self.mean, self.std)
+
+
+class Uniform(Initializer):
+    """Uniform in [low, high), drawn in f32."""
+
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, tensor, generator=None):
+        v = torch.rand(tuple(tensor.shape), generator=generator,
+                       device=tensor.device, dtype=torch.float32)
+        with torch.no_grad():
+            tensor.copy_((self.low + (self.high - self.low) * v).to(
+                tensor.dtype))
+        return tensor
 
 
 class XavierNormal(Initializer):

@@ -1,5 +1,5 @@
-"""`Linear`, `Embedding` and `Dropout`: the port of
-`paddle_tpu/nn/layer/common.py` (:21-79), as `torch.nn.Module`s.
+"""`Linear`, `Embedding`, `Dropout` and `Flatten`: the port of
+`paddle_tpu/nn/layer/common.py` (:21-79, :113), as `torch.nn.Module`s.
 
 Parameters keep the JAX package's names and layouts (`Linear.weight`
 is [in, out], Xavier-normal; the bias zeros), so a state dict carries
@@ -14,7 +14,7 @@ import torch.nn as nn
 from .. import functional as F
 from ..initializer import create_parameter, init_source
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "Flatten"]
 
 
 class Linear(nn.Module):
@@ -66,3 +66,13 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Flatten(nn.Module):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return F.flatten(x, self.start_axis, self.stop_axis)

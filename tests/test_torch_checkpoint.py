@@ -402,13 +402,22 @@ def test_auto_checkpoint_epoch_range_resumes(tmp_path, monkeypatch):
 
 def test_snapshot_pickle_reads_back_with_plain_pickle_tags(tmp_path):
     """The rank file is a pickle of {"schema", "state"} whose tensors are
-    `_SavedTensor`s: readable by `framework.load` too."""
+    saved tensors: an f32 one in the JAX package's form (its
+    `_SavedTensor`, the array under `.array`), a bf16 one in the port's
+    raw form; readable by `framework.load` too."""
+    import paddle_tpu.framework as jframework
+
     m = _mgr(tmp_path)
-    m.save({"w": torch.arange(3.0)}, global_step=1)
+    h = torch.arange(3.0).to(torch.bfloat16)
+    m.save({"w": torch.arange(3.0), "h": h}, global_step=1)
     path = str(tmp_path / "ck" / "step_1" / "state_rank0.pd")
     got = framework.load(path)
     assert got["schema"] == elastic.SCHEMA
     assert torch.equal(got["state"]["w"], torch.arange(3.0))
+    assert torch.equal(got["state"]["h"], h)
     with open(path, "rb") as f:
         raw = pickle.load(f)
-    assert isinstance(raw["state"]["w"], framework._SavedTensor)
+    assert isinstance(raw["state"]["w"], jframework._SavedTensor)
+    np.testing.assert_array_equal(raw["state"]["w"].array,
+                                  np.arange(3.0, dtype=np.float32))
+    assert isinstance(raw["state"]["h"], framework._SavedTensor)

@@ -409,6 +409,45 @@ def test_optimizer_kernels_bit_identical(cuda, case):
         assert "b.moment1" not in sd[0]
 
 
+def test_momentum_kernel_on_resnet50_o2_set_bit_identical(cuda):
+    """fused_momentum over ResNet-50's own O2 parameter set (161
+    tensors: the convolutions and fc bf16 with f32 masters, the 53
+    BatchNorms' weights and biases f32 without, many of them tiny)
+    against the per-parameter rule, three steps, bit for bit; one
+    launch a step."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.vision.models import resnet50
+
+    named = list(amp.decorate(resnet50(device=cuda)).named_parameters())
+    assert len(named) == 161
+    assert sum(p.dtype == torch.bfloat16 for _, p in named) == 55
+    sets = [[(n, torch.nn.Parameter(p.detach().clone())) for n, p in named]
+            for _ in range(2)]
+    opts = [optim.Momentum(0.01, momentum=0.9, parameters=s,
+                           multi_precision=True, use_kernel=u)
+            for s, u in zip(sets, (True, False))]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for _ in range(3):
+        grads = {n: torch.randn(p.shape, generator=gen, device=cuda)
+                 for n, p in named}
+        for s in sets:
+            for n, p in s:
+                p.grad = grads[n].to(p.dtype)
+        before = kernels.launches()["fused_momentum"]
+        for o in opts:
+            o.step()
+        torch.cuda.synchronize()
+        assert kernels.launches()["fused_momentum"] == before + 1
+    for (n, a), (_, b) in zip(*sets):
+        assert torch.equal(a, b), n
+    sd = [o.state_dict() for o in opts]
+    assert set(sd[0]) == set(sd[1])
+    for key, v in sd[0].items():
+        assert (v == sd[1][key] if key == "@step"
+                else torch.equal(v, sd[1][key])), key
+
+
 def test_optimizer_kernel_wrappers_against_plain_versions(cuda):
     """fused_adam / fused_momentum / fused_sgd vs their plain versions on
     the same tensors, and a list longer than one table (two launches)."""
