@@ -196,6 +196,41 @@ printing one line (or a few):
               image), peak memory, and a profiled step split into
               convolutions, BatchNorm, other elementwise work, the
               optimizer and idle
+ 22. ernie    ERNIE (BASELINE config 5), bench_ernie's on-chip recipe,
+              not cut: vocab 18000, hidden 768, 12 layers, 12 heads, ffn
+              3072, S 512, dropout 0, weights from seed 0, amp.decorate
+              O2 bf16 (whose residual stream is f32, as in the JAX
+              package: the LayerNorm scales stay f32 and promote it),
+              AdamW(1e-4, weight_decay 0.01, multi_precision),
+              DistributedTrainStepCompiler on the mesh {"dp": 1, "pp":
+              1, "mp": -1}, ids and labels (12, 512) int64 from
+              RandomState(0): the flash kernels vs plain at B 12, H 12,
+              S 512, D 64, non-causal, f32 (the path) and bf16 per row;
+              the LayerNorm kernels at 6144 x 768 (phase 8's check);
+              their times against bound, plain and library; fused_adam
+              bit for bit on ERNIE's 152-tensor O2 set after each of 3
+              steps and its time; then 3 warm-up steps and 3 windows of
+              5: the loss falls, exact launches a step (LayerNorm
+              forward and backward 24 each, each flash kernel 12,
+              fused_adam 1), step ms, tokens/s, MFU (6 N tokens), peak
+              memory, a torch.profiler split (the head's products,
+              other GEMMs, flash, LayerNorm, optimizer, elementwise,
+              idle)
+ 23. ernie_mp ERNIE at mp 2: 2 ranks spawned with gloo on the one card,
+              each fleet.init with hybrid_configs {"dp_degree": 1,
+              "mp_degree": 2, "pp_degree": 1}, phase 22's model (full
+              width and depth, bf16 O2, seed 0) and batch, 4 steps
+              through DistributedTrainStepCompiler(mesh=): every loss
+              within 0.01% of phase 22's first 4 from the same weights,
+              the ranks' losses equal, the replicated parameters
+              bit-identical across the ranks (sha256), the f32 master
+              weights gathered after step 1 against phase 22's (each
+              element within 2 lr, no tensor with more than 0.1% of its
+              elements off by > lr / 2), exact launches a rank and every
+              flash launch on the rank's 6 heads; then a planted fault
+              (rank 1 skips its shards' step-1 update, 2 steps) that
+              must fail both the loss and the share gate; step ms, the
+              collectives' host-clock share, peak memory a rank
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -324,14 +359,15 @@ def chain_ms(fn, iters=20):
     return s.elapsed_time(e) / iters, host_ms
 
 
-def profile_ms(fn, reps=3, n_top=5):
+def profile_ms(fn, reps=3, n_top=5, record_shapes=False):
     """Where one call of a long launch chain spends its time: (wall ms
     per call, synchronised, without the profiler; device-busy ms per
     call, the sum of its kernels' device durations under
     torch.profiler; kernels per call; the top `n_top` kernels as (name,
     count per call, ms per call); {kernel name: ms per call} of every
     kernel). Device numbers are None when the profiler saw no device
-    activity."""
+    activity. With `record_shapes` the profiler records operator input
+    shapes and is returned as a sixth item."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -342,18 +378,19 @@ def profile_ms(fn, reps=3, n_top=5):
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    extra = (prof,) if record_shapes else ()
     by = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n, us = by.get(e.name, (0, 0.0))
             by[e.name] = (n + 1, us + e.time_range.elapsed_us())
     if not by:
-        return wall, None, None, [], {}
+        return (wall, None, None, [], {}) + extra
     busy = sum(us for _, us in by.values()) / reps / 1e3
     count = sum(n for n, _ in by.values()) / reps
     top = sorted(by.items(), key=lambda kv: -kv[1][1])[:n_top]
@@ -363,9 +400,9 @@ def profile_ms(fn, reps=3, n_top=5):
             "(anonymous namespace)::", "").split("(")[0]
         return name if len(name) <= 72 else f"{name[:34]}..{name[-36:]}"
 
-    return wall, busy, count, [(short(name), n / reps, us / reps / 1e3)
-                               for name, (n, us) in top], {
-        name: us / reps / 1e3 for name, (_, us) in by.items()}
+    return (wall, busy, count, [(short(name), n / reps, us / reps / 1e3)
+                                for name, (n, us) in top], {
+        name: us / reps / 1e3 for name, (_, us) in by.items()}) + extra
 
 
 def bound_ms(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
@@ -3041,103 +3078,118 @@ def bert_kernel_checks(dev):
     return errs
 
 
-def bert_kernel_times(dev, smi, iters=50):
-    """Logs kernel, plain, library and bound ms of #1-5 at BERT's
-    shapes: flash at B 32, H 12, S 512, D 64, bf16, non-causal, cold L2;
-    the LayerNorm forward and backward at 16384 x 768 bf16, warm L2, with
-    and without the residual, and the forward of the O1 epilogue (bf16
-    x, f32 residual)."""
+def kernel_times(dev, smi, tag, batch, rows, flash_dtypes, ln_dtype,
+                 o1_case=False, iters=50):
+    """Logs kernel, plain, library and bound ms of #1-5 at a model's
+    shapes: flash at B `batch`, H 12, S 512, D 64, non-causal, cold L2,
+    in each of `flash_dtypes`; the LayerNorm forward and backward at
+    `rows` x 768 in `ln_dtype` (f32 w/b), warm L2, with and without the
+    residual, and with `o1_case` the forward of the O1 epilogue (a
+    `ln_dtype` x, an f32 residual). Returns {name: (kernel ms, plain,
+    library or None, bound, bound_by)}."""
     from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
     from paddle_tpu_torch.incubate.nn.kernels import layernorm as ln
 
     rng = np.random.RandomState(19)
-    b, hh, s, d = BERT_BATCH, 12, BERT_SEQ, 64
+    b, hh, s, d = batch, 12, 512, 64
     scale = d ** -0.5
-    q, k, v, do = _flash_inputs(rng, b, hh, s, d, torch.bfloat16, dev)
-    o, lse = fa.flash_attention_fwd(q, k, v, False, scale)
-    delta = (do.float() * o.float()).sum(dim=-1)
+    out = {}
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
-    pit = max(1, iters // 5)
-    ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v, False,
-                                                         scale),
-                         iters, flush)[0],
-          "dq": time_ms(lambda: fa.flash_attention_bwd_dq(
-              q, k, v, do, lse, delta, False, scale), iters, flush)[0],
-          "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv(
-              q, k, v, do, lse, delta, False, scale), iters, flush)[0]}
-    plain = {"fwd": time_ms(lambda: fa.flash_attention_fwd_reference(
-                 q, k, v, False, scale), pit, flush)[0],
-             "dq": time_ms(lambda: fa.flash_attention_bwd_dq_reference(
-                 q, k, v, do, lse, delta, False, scale), pit, flush)[0],
-             "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
-                 q, k, v, do, lse, delta, False, scale), pit, flush)[0]}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = time_ms(lambda: sdpa(q, k, v, scale=scale), iters, flush)[0]
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    out = sdpa(qg, kg, vg, scale=scale)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (qg, kg, vg), do, retain_graph=True), iters, flush)[0]
-    del out, qg, kg, vg, q, k, v, do, o, lse, delta, flush
-    bh = b * hh
-    mm = 2.0 * bh * s * s * d                # one S x S x D product
-    elem = bh * s * d * 2                    # one bf16 [B, H, S, D] tensor
-    row = bh * s * 4                         # one f32 [B, H, S] row stat
-    work = {"fwd": (4 * elem + row, 2 * mm),
-            "dq": (5 * elem + 2 * row, 3 * mm),
-            "dkv": (6 * elem + 2 * row, 4 * mm)}
-    for n, (nb, fl) in work.items():
-        b_ms, b_by = bound_ms(nb, fl, PEAK_BF16_FLOPS)
-        lib = lib_fwd if n == "fwd" else lib_bwd
-        which = "forward" if n == "fwd" else "backward (dq, dk, dv)"
-        log("bert", f"[{smi}] flash {n} B={b} H={hh} S={s} D={d} bf16 "
-            f"non-causal, cold L2: kernel {ms[n]:.5f} ms | plain "
-            f"{plain[n]:.5f} | SDPA {which} {lib:.5f} | bound {b_ms:.5f} "
-            f"({b_by}; {fl / 1e9:.2f} GFLOP, {nb / 1e6:.1f} MB) | "
-            f"{fl / ms[n] / 1e9:.1f} TFLOP/s")
+    pit = max(1, iters // 5)
+    for dtype in flash_dtypes:
+        q, k, v, do = _flash_inputs(rng, b, hh, s, d, dtype, dev)
+        o, lse = fa.flash_attention_fwd(q, k, v, False, scale)
+        delta = (do.float() * o.float()).sum(dim=-1)
+        ms = {"fwd": time_ms(lambda: fa.flash_attention_fwd(
+                  q, k, v, False, scale), iters, flush)[0],
+              "dq": time_ms(lambda: fa.flash_attention_bwd_dq(
+                  q, k, v, do, lse, delta, False, scale), iters, flush)[0],
+              "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv(
+                  q, k, v, do, lse, delta, False, scale), iters, flush)[0]}
+        plain = {"fwd": time_ms(lambda: fa.flash_attention_fwd_reference(
+                     q, k, v, False, scale), pit, flush)[0],
+                 "dq": time_ms(lambda: fa.flash_attention_bwd_dq_reference(
+                     q, k, v, do, lse, delta, False, scale), pit, flush)[0],
+                 "dkv": time_ms(lambda: fa.flash_attention_bwd_dkv_reference(
+                     q, k, v, do, lse, delta, False, scale), pit, flush)[0]}
+        lib_fwd = time_ms(lambda: sdpa(q, k, v, scale=scale), iters,
+                          flush)[0]
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        res = sdpa(qg, kg, vg, scale=scale)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            res, (qg, kg, vg), do, retain_graph=True), iters, flush)[0]
+        del res, qg, kg, vg
+        bh = b * hh
+        mm = 2.0 * bh * s * s * d               # one S x S x D product
+        elem = bh * s * d * q.element_size()    # one [B, H, S, D] tensor
+        row = bh * s * 4                        # one f32 [B, H, S] row stat
+        work = {"fwd": (4 * elem + row, 2 * mm),
+                "dq": (5 * elem + 2 * row, 3 * mm),
+                "dkv": (6 * elem + 2 * row, 4 * mm)}
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        for n, (nb, fl) in work.items():
+            b_ms, b_by = bound_ms(nb, fl, peak)
+            lib = lib_fwd if n == "fwd" else lib_bwd
+            out[f"flash {n} {dname}"] = (ms[n], plain[n], lib, b_ms, b_by)
+            which = "forward" if n == "fwd" else "backward (dq, dk, dv)"
+            log(tag, f"[{smi}] flash {n} B={b} H={hh} S={s} D={d} {dname} "
+                f"non-causal, cold L2: kernel {ms[n]:.5f} ms | plain "
+                f"{plain[n]:.5f} | SDPA {which} {lib:.5f} | bound "
+                f"{b_ms:.5f} ({b_by}; {fl / 1e9:.2f} GFLOP, "
+                f"{nb / 1e6:.1f} MB) | {fl / ms[n] / 1e9:.1f} TFLOP/s")
+        del q, k, v, do, o, lse, delta
+    del flush
 
-    h, n = 768, BERT_ROWS
+    h, n = 768, rows
     x, r, dy, ds = (torch.from_numpy(rng.randn(n, h).astype(np.float32))
-                    .to(dev, torch.bfloat16) for _ in range(4))
-    r32 = r.float()
+                    .to(dev, ln_dtype) for _ in range(4))
     w = (1 + 0.1 * torch.from_numpy(rng.randn(h).astype(np.float32))).to(dev)
     bias = (0.1 * torch.from_numpy(rng.randn(h).astype(np.float32))).to(dev)
-    wl, bl = w.bfloat16(), bias.bfloat16()
+    wl, bl = w.to(ln_dtype), bias.to(ln_dtype)
     lib_f = time_ms(lambda: torch.nn.functional.layer_norm(
         x, (h,), wl, bl, 1e-5), 100)[0]
-    xl = x.detach().requires_grad_()
-    wg, bg = (t_.detach().requires_grad_() for t_ in (wl, bl))
+    xl, wg, bg = (t_.detach().requires_grad_() for t_ in (x, wl, bl))
     yl = torch.nn.functional.layer_norm(xl, (h,), wg, bg, 1e-5)
     lib_b = time_ms(lambda: torch.autograd.grad(
         yl, (xl, wg, bg), dy, retain_graph=True), 100)[0]
     del xl, wg, bg, yl
-    elems = n * h
+    elems, es = n * h, x.element_size()
+    dname = "f32" if ln_dtype == torch.float32 else "bf16"
     _, s_, mu, rs = ln.layer_norm_fwd(x, r, w, bias, 1e-5)
-    for tag, res in (("residual", r), ("no residual", None),
-                     ("f32 residual (O1)", r32)):
+    cases = [("residual", r), ("no residual", None)]
+    if o1_case:
+        cases.append(("f32 residual (O1)", r.float()))
+    for case, res in cases:
         k_ms = time_ms(lambda: ln.layer_norm_fwd(x, res, w, bias, 1e-5),
                        100)[0]
         p_ms = time_ms(lambda: ln.layer_norm_fwd_reference(
             x, res, w, bias, 1e-5), 25)[0]
-        res_bytes = 0 if res is None else elems * (res.element_size() + 2)
-        nbytes = 2 * elems * 2 + res_bytes + 2 * h * 4 + 2 * n * 4
+        # x read, y written; the residual read and the sum written
+        res_bytes = 0 if res is None else elems * (res.element_size() + es)
+        nbytes = 2 * elems * es + res_bytes + 2 * h * 4 + 2 * n * 4
         b_ms, b_by = bound_ms(nbytes, 8 * elems)
         lib = lib_f if res is None else None
-        log("bert", f"[{smi}] LayerNorm forward N={n} H={h} bf16 {tag}, warm "
-            f"L2: kernel {k_ms:.5f} ms | plain {p_ms:.5f} | F.layer_norm "
-            f"{'n/a' if lib is None else f'{lib:.5f}'} | bound {b_ms:.5f} "
-            f"({b_by}, {nbytes} B)")
-    for tag, dsr in (("residual", ds), ("no residual", None)):
+        out[f"ln fwd {case}"] = (k_ms, p_ms, lib, b_ms, b_by)
+        log(tag, f"[{smi}] LayerNorm forward N={n} H={h} {dname} {case}, "
+            f"warm L2: kernel {k_ms:.5f} ms | plain {p_ms:.5f} | "
+            f"F.layer_norm {'n/a' if lib is None else f'{lib:.5f}'} | bound "
+            f"{b_ms:.5f} ({b_by}, {nbytes} B)")
+    for case, dsr in (("residual", ds), ("no residual", None)):
         k_ms = time_ms(lambda: ln.layer_norm_bwd(dy, dsr, s_, w, bias, mu,
                                                  rs), 100)[0]
         p_ms = time_ms(lambda: ln.layer_norm_bwd_reference(
             dy, dsr, s_, w, bias, mu, rs), 25)[0]
-        nbytes = (3 + (dsr is not None)) * elems * 2 + 4 * h * 4 + 2 * n * 4
+        nbytes = (3 + (dsr is not None)) * elems * es + 4 * h * 4 + 2 * n * 4
         b_ms, b_by = bound_ms(nbytes, 12 * elems)
         lib = lib_b if dsr is None else None
-        log("bert", f"[{smi}] LayerNorm backward N={n} H={h} bf16 {tag}, "
+        out[f"ln bwd {case}"] = (k_ms, p_ms, lib, b_ms, b_by)
+        log(tag, f"[{smi}] LayerNorm backward N={n} H={h} {dname} {case}, "
             f"warm L2: kernel {k_ms:.5f} ms | plain {p_ms:.5f} | F.layer_norm"
             f" backward {'n/a' if lib is None else f'{lib:.5f}'} | bound "
             f"{b_ms:.5f} ({b_by}, {nbytes} B)")
+    return out
 
 
 def bert_adam_times(dev, smi, named, iters=20):
@@ -3462,7 +3514,8 @@ def phase_bert(dev, smi):
         f"and 1e-5, w/b f32 and bf16: forward max|err| {errs['ln_fwd']:.3e}"
         f" (y 1e-2 abs + rel, mean/rstd 1e-5, s bit-identical), backward "
         f"{errs['ln_bwd']:.3e} (dx 1e-2 x max|ref|, dw/db 1e-5 x max|ref|)")
-    bert_kernel_times(dev, smi)
+    kernel_times(dev, smi, "bert", BERT_BATCH, BERT_ROWS,
+                 (torch.bfloat16,), torch.bfloat16, o1_case=True)
     model = _bert_model(dev)
     ids, _ = _bert_batch(model.config.vocab_size, dev)
     bert_bf16_grads_check(f"BERT-base {model.config.num_layers}L bf16 O2, "
@@ -4313,6 +4366,482 @@ def phase_resnet(dev, smi):
     del model, opt, step, x, xin
 
 
+# -- phases 22-23 --------------------------------------------------------
+# bench_ernie's on-chip recipe (bench.py:570-616), not cut: ERNIE (vocab
+# 18000, hidden 768, 12 layers, 12 heads, ffn 3072, S 512, dropout 0),
+# bf16 O2, AdamW(1e-4, weight_decay=0.01, multi_precision), the mesh
+# {"dp": 1, "pp": 1, "mp": -1}, ids and labels (12, 512) int64 from
+# RandomState(0), 3 warm-up steps and 3 windows of 5
+ERNIE_BATCH, ERNIE_SEQ = 12, 512
+ERNIE_WARMUP, ERNIE_STEPS, ERNIE_WINDOWS = 3, 5, 3
+ERNIE_ROWS = ERNIE_BATCH * ERNIE_SEQ
+ERNIE_LR, ERNIE_WD = 1e-4, 0.01
+ERNIE_MP, ERNIE_MP_STEPS = 2, 4
+# phase 23's gates, each set between the sound run's reading and the
+# planted fault's on an H100 (PERF.md §6): the relative loss gap to mp
+# 1 over the steps (read 1e-7 sound, 7.2e-3 with the fault), and the
+# largest share of a tensor's f32 weights off mp 1's by more than lr / 2
+# after step 1 (read 3e-6 sound, 0.5 with the fault)
+ERNIE_MP_LOSS_TOL, ERNIE_MP_SHARE_TOL = 1e-4, 1e-3
+
+
+def _ernie_model(dev, seed=0):
+    """ERNIE at bench_ernie's full size, weights from `seed`, bf16 O2;
+    tensor-parallel over fleet's mp group when fleet.init ran."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models.ernie import (ErnieConfig,
+                                                    ErnieForPretraining)
+
+    cfg = ErnieConfig(vocab_size=18000, hidden_size=768, num_layers=12,
+                      num_heads=12, ffn_hidden=3072, max_seq_len=512,
+                      dropout=0.0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = ErnieForPretraining(cfg, device=dev, generator=gen)
+    return amp.decorate(model, level="O2", dtype="bfloat16")
+
+
+def _ernie_batch(vocab, dev):
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, vocab, (ERNIE_BATCH, ERNIE_SEQ)).astype(np.int64)
+    labels = rng.randint(0, vocab, (ERNIE_BATCH, ERNIE_SEQ)).astype(
+        np.int64)
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def _ernie_weights(model, opt):
+    """{name: f32 tensor} of the weights the optimizer updates: an O2
+    parameter's master weight, an f32 (norm) parameter itself."""
+    state = opt.state_dict()
+    return {n: state.get(f"{n}.master_weight", p).detach()
+            for n, p in model.named_parameters()}
+
+
+def _ernie_launches(model):
+    """Kernel launches in one ERNIE training step: the block's two
+    LayerNorms (the fused one before the attention, the fused residual
+    one after it), forward and backward, the embedding's and the head's
+    being plain `nn.LayerNorm`s as in the JAX model; the three flash
+    kernels once a block; fused_adam once for every MAX_TENSORS
+    parameters (once for ERNIE's 152)."""
+    from paddle_tpu_torch.incubate.nn.kernels.optim import MAX_TENSORS
+
+    n_layers = model.config.num_layers
+    n_tensors = len(list(model.parameters()))
+    return {"fused_layer_norm": 2 * n_layers,
+            "fused_layer_norm_bwd": 2 * n_layers,
+            "flash_attention_fwd": n_layers,
+            "flash_attention_bwd_dq": n_layers,
+            "flash_attention_bwd_dkv": n_layers,
+            "fused_adam": -(-n_tensors // MAX_TENSORS)}
+
+
+def _head_gemm_ms(prof, vocab, reps):
+    """Device ms a step of the products whose operands span the
+    vocabulary (the head's forward and its two backward products: no
+    other product of ERNIE has that dimension), or None when the
+    profiler links no kernel to them."""
+    total = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name not in ("aten::mm", "aten::addmm", "aten::bmm"):
+            continue
+        if not any(vocab in shape for shape in (e.input_shapes or [])
+                   if isinstance(shape, (list, tuple))):
+            continue
+        total += (e.device_time_total if hasattr(e, "device_time_total")
+                  else e.cuda_time_total)
+    return total / reps / 1e3 if total else None
+
+
+def _ernie_train(dev, smi, model):
+    """Train to bench_ernie's recipe through DistributedTrainStepCompiler
+    on the mesh {"dp": 1, "pp": 1, "mp": -1}: the loss falls; every
+    kernel's launches exact per step; step ms (median of the windows),
+    tokens/s, MFU, peak memory, a torch.profiler split. Returns (every
+    step's loss, the f32 weights after step 1 on the host)."""
+    from paddle_tpu_torch.distributed import build_mesh, set_mesh
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.jit.distributed import DistributedTrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=ERNIE_LR, parameters=model.named_parameters(),
+                weight_decay=ERNIE_WD, multi_precision=True)
+    mesh = build_mesh({"dp": 1, "pp": 1, "mp": -1})
+    step = DistributedTrainStepCompiler(model, opt, loss_fn=None, mesh=mesh)
+    vocab = model.config.vocab_size
+    ids, labels = _ernie_batch(vocab, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [step(ids, labels).detach()]
+    after1 = {n: t.to("cpu", copy=True)
+              for n, t in _ernie_weights(model, opt).items()}
+    t0 = time.perf_counter()
+    for _ in range(ERNIE_WARMUP - 1):
+        losses.append(step(ids, labels).detach())
+    first = float(losses[-1].item())
+    warm_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    dts = []
+    for _ in range(ERNIE_WINDOWS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(ERNIE_STEPS):
+            losses.append(step(ids, labels).detach())
+        float(losses[-1].item())                 # synchronises
+        dts.append((time.perf_counter() - t0) / ERNIE_STEPS)
+    counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    n_steps = ERNIE_WINDOWS * ERNIE_STEPS
+    per_step = _ernie_launches(model)
+    _only_launches("ernie", counts, {k: v * n_steps
+                                     for k, v in per_step.items()})
+    last = losses[-1]
+    if not (all(map(math.isfinite, losses)) and last < first):
+        raise AssertionError(f"ernie: loss did not decrease ({first:.4f} "
+                             f"-> {last:.4f})")
+    dt = float(np.median(dts))
+    tokens = ERNIE_ROWS
+    n_params = sum(p.numel() for p in model.parameters())
+    mfu = 6 * n_params * tokens / dt / PEAK_BF16_FLOPS
+    log("ernie", f"[{smi}] ERNIE bf16 O2 ({n_params} params, "
+        f"{model.config.num_layers}L, "
+        f"{len(list(model.parameters()))} tensors), AdamW multi_precision, "
+        f"mesh {mesh.shape}, B={ERNIE_BATCH} S={ERNIE_SEQ}: loss "
+        + " -> ".join(f"{x:.4f}" for x in losses[:ERNIE_WARMUP + 1])
+        + f" ... {last:.4f} over {len(losses)} steps; step {dt * 1e3:.3f} ms "
+        f"(median of {ERNIE_WINDOWS} windows of {ERNIE_STEPS}: "
+        + ", ".join(f"{x * 1e3:.3f}" for x in dts) + f") = "
+        f"{tokens / dt:.1f} tokens/s, MFU {100 * mfu:.2f}% of 989 TFLOP/s "
+        f"(6 N tokens); peak memory {peak / 2 ** 30:.2f} GiB; warm-up "
+        f"{warm_s:.2f} s")
+    log("ernie", f"[{smi}] launches over {n_steps} steps: " + ", ".join(
+        f"{n} {counts[n]} = {per} x {n_steps}" for n, per in per_step.items())
+        + "; every other kernel of the port 0")
+    wall, busy, count, top, by, prof = profile_ms(
+        lambda: step(ids, labels), reps=2, n_top=8, record_shapes=True)
+    head = _head_gemm_ms(prof, vocab, 2)
+    del prof
+    if busy is None:
+        log("ernie", f"[{smi}] step wall {wall:.3f} ms; device time not "
+            "measured (the profiler saw no device activity)")
+    else:
+        parts = _bert_step_split(by)
+        if head is not None:
+            parts["GEMMs"] -= head
+            parts = {"head GEMMs": head, **parts}
+        log("ernie", f"[{smi}] where a step goes (torch.profiler, 2 steps): "
+            f"wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall:.1f}%), idle {wall - busy:.3f} ms, "
+            f"{count:.0f} kernels; " + ", ".join(
+                f"{k} {ms:.3f} ms ({100 * ms / wall:.1f}%)"
+                for k, ms in parts.items())
+            + ("" if head is not None else "; the head's products not "
+               "measured (the profiler linked no kernel to them)"))
+        log("ernie", f"[{smi}] top kernels: " + "; ".join(
+            f"{name} x{n:.0f} {t:.3f} ms" for name, n, t in top))
+    set_mesh(None)
+    del step, opt
+    return losses, after1
+
+
+def phase_ernie(dev, smi):
+    """Phase 22: ERNIE at bench_ernie's recipe (see the module
+    docstring). Returns (every step's loss, the f32 weights after step 1
+    on the host) for phase 23."""
+    errs = {}
+    rng = np.random.RandomState(23)
+    scale = 64 ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _flash_inputs(rng, ERNIE_BATCH, 12, ERNIE_SEQ, 64,
+                                    dtype, dev)
+        fe = _flash_check(f"ernie flash B12 H12 S512 D64 {dtype} non-causal",
+                          q, k, v, do, False, scale)
+        errs[dtype] = max(e for e, _ in fe.values())
+        del q, k, v, do
+    ln_fwd, ln_bwd = ln_bwd_checks(dev, rows=ERNIE_ROWS, hidden=768)
+    log("ernie", f"[{smi}] kernels vs plain at ERNIE's shapes: flash B12 H12 "
+        f"S512 D64 non-causal f32 max|err| {errs[torch.float32]:.3e} (o 2e-5,"
+        f" gradients 2e-4) and bf16 {errs[torch.bfloat16]:.3e} (per row, "
+        f"{FLASH_BF16_ROW_TOL} x row max|ref|); LayerNorm 6144x768, f32 and "
+        f"bf16, with and without the residual, no / tanh / erf GeLU: forward"
+        f" {ln_fwd[torch.float32]:.3e} / {ln_fwd[torch.bfloat16]:.3e}, "
+        f"backward {ln_bwd[torch.float32]:.3e} / {ln_bwd[torch.bfloat16]:.3e}"
+        " (phase 8's limits), a second backward bit-identical")
+    kernel_times(dev, smi, "ernie", ERNIE_BATCH, ERNIE_ROWS,
+                 (torch.float32, torch.bfloat16), torch.float32)
+    model = _ernie_model(dev)
+    named = list(model.named_parameters())
+    lr, wd = ERNIE_LR, ERNIE_WD
+    optim_at_shape(
+        dev, smi, "ernie", named, "fused_adam",
+        ("ERNIE's O2 set", "AdamW",
+         dict(learning_rate=lr, weight_decay=wd), {}),
+        dict(lr=lr, beta1=0.9, beta2=0.999, eps=1e-8,
+             decay=[float(np.float32(1) - np.float32(lr) * np.float32(wd))]
+             * len(named)),
+        lambda ps: torch.optim.AdamW(ps, lr=lr, weight_decay=wd,
+                                     fused=True))
+    del named
+    torch.cuda.empty_cache()
+    out = _ernie_train(dev, smi, model)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ernie_mp_rank(out_dir, steps, device, fault=False):
+    """One rank of phase 23 (spawned: gloo, the one card; `device` "cpu"
+    only to rehearse the phase off the card): fleet.init at mp 2, ERNIE
+    from seed 0 at full width, `steps` steps of phase 22's batch through
+    DistributedTrainStepCompiler(mesh=). Writes ernie_mp_r<rank>.json and
+    rank 0 the gathered f32 weights after step 1 (ernie_mp_step1.pt).
+    With `fault`, the planted fault the gates must catch: rank 1's
+    shards keep their weights through step 1, as if their update were
+    skipped."""
+    import hashlib
+
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.core import monitor as cmon
+    from paddle_tpu_torch.distributed import fleet, get_rank, mesh
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
+    from paddle_tpu_torch.jit.distributed import DistributedTrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rank = get_rank()
+    on_card = device == "cuda"
+    if on_card:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        kernels.load()           # the parent built the library
+        sync = torch.cuda.synchronize
+    else:
+        dev, sync = torch.device("cpu"), (lambda: None)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": ERNIE_MP,
+                               "pp_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    model = _ernie_model(dev)
+    opt = AdamW(learning_rate=ERNIE_LR, parameters=model.named_parameters(),
+                weight_decay=ERNIE_WD, multi_precision=True)
+    step = DistributedTrainStepCompiler(model, opt, loss_fn=None,
+                                        mesh=mesh.get_mesh())
+    ids, labels = _ernie_batch(model.config.vocab_size, dev)
+    frozen = ({n: p.detach().clone() for n, p in model.named_parameters()
+               if getattr(p, "mp_group", None) is not None}
+              if fault and rank == 1 else {})
+    heads = []
+    real_fwd = fa.flash_attention_fwd
+
+    def spy(q, *a, **kw):
+        heads.append(int(q.shape[1]))
+        return real_fwd(q, *a, **kw)
+
+    fa.flash_attention_fwd = spy
+    keys = ("comm/all_reduce/host_us", "comm/all_gather/host_us",
+            "comm/all_reduce/calls", "comm/all_gather/calls")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    losses, step_s, comm_us = [], [], []
+    for i in range(steps):
+        before = [cmon.stat_get(k) for k in keys]
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))      # .item() synchronises
+        step_s.append(time.perf_counter() - t0)
+        comm_us.append([cmon.stat_get(k) - b for k, b in zip(keys, before)])
+        if i == 0:
+            launches = kernels.launches()
+            if frozen:
+                state = opt.state_dict()
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        if n in frozen:
+                            p.copy_(frozen[n])
+                            state[f"{n}.master_weight"] = frozen[n].float()
+                opt.set_state_dict(state)
+                del state
+            full = convert.gather_state_dict(model,
+                                             _ernie_weights(model, opt))
+            if rank == 0:
+                torch.save(full, os.path.join(out_dir, "ernie_mp_step1.pt"))
+            del full
+            kernels.reset_launches()
+    fa.flash_attention_fwd = real_fwd
+    launches = {k: launches[k] + v for k, v in kernels.launches().items()}
+    h = hashlib.sha256()
+    n_repl = 0
+    for n, p in model.named_parameters():
+        if getattr(p, "mp_group", None) is None:
+            n_repl += 1
+            h.update(n.encode())
+            h.update(p.detach().float().cpu().numpy().tobytes())
+    out = {"rank": rank, "losses": losses, "step_s": step_s,
+           "comm_us": comm_us, "launches": launches, "heads": heads,
+           "per_step": _ernie_launches(model),
+           "num_heads": model.config.num_heads,
+           "replicated": n_repl, "replicated_sha256": h.hexdigest(),
+           "tensors": len(list(model.parameters())),
+           "elements": sum(p.numel() for p in model.parameters()),
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev) if on_card
+                          else 0)}
+    with open(os.path.join(out_dir, f"ernie_mp_r{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _ernie_mp_run(dev, steps, fault=False):
+    """Spawn phase 23's two ranks: (each rank's record, the gathered f32
+    weights after step 1, spawn-to-join seconds)."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn(_ernie_mp_rank, args=(tmp, steps, dev.type, fault),
+              nprocs=ERNIE_MP, backend="gloo", device=dev.type,
+              join=False).join(timeout=900)
+        wall = time.perf_counter() - t0
+        runs = []
+        for r in range(ERNIE_MP):
+            with open(os.path.join(tmp, f"ernie_mp_r{r}.json")) as f:
+                runs.append(json.load(f))
+        full = torch.load(os.path.join(tmp, "ernie_mp_step1.pt"))
+    return runs, full, wall
+
+
+def _ernie_mp_readings(losses, full, ref_losses, ref_after1):
+    """Phase 23's readings against phase 22's mp 1 run from the same
+    weights and batch: the worst relative loss gap over the steps; of
+    the f32 weights after step 1 (master weights, f32 norm parameters),
+    the worst element's gap over its limit, and the largest share of a
+    tensor's elements off mp 1's by more than lr / 2, with that tensor.
+    AdamW's first step moves an element by lr g / (|g| + eps), never by
+    more than lr, so an element whose tiny gradient takes the other sign
+    at mp 2 is off by up to 2 lr (the element limit, plus f32 rounding),
+    while a skipped or reversed update moves a whole shard by lr or 2 lr.
+    The key third of each qkv bias is held to the element limit only:
+    its true gradient is 0 (a key bias adds the same score to a whole
+    row), so its sign is rounding noise in both runs."""
+    loss = max(abs(got - want) / abs(want)
+               for got, want in zip(losses, ref_losses))
+    if set(full) != set(ref_after1):
+        raise AssertionError("ernie_mp: gathered parameter names differ")
+    elem, share, worst = 0.0, 0.0, None
+    for n, want in ref_after1.items():
+        got = full[n]
+        if got.shape != want.shape or got.dtype != torch.float32 \
+                or want.dtype != torch.float32:
+            raise AssertionError(f"ernie_mp: {n} {got.dtype} "
+                                 f"{tuple(got.shape)} vs {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        err = (got - want).abs()
+        elem = max(elem, float((err / (2 * ERNIE_LR + 2 ** -22
+                                       * want.abs())).max()))
+        if n.endswith("qkv.bias"):
+            third = err.shape[-1] // 3
+            err = torch.cat([err[..., :third], err[..., 2 * third:]], -1)
+        frac = float((err > ERNIE_LR / 2).float().mean())
+        if frac > share:
+            share, worst = frac, n
+    return {"loss": loss, "elem": elem, "share": share, "worst": worst}
+
+
+def _ernie_mp_failures(read):
+    """The gates phase 23's readings fail, as messages."""
+    out = []
+    if not read["loss"] <= ERNIE_MP_LOSS_TOL:
+        out.append(f"loss {100 * read['loss']:.5f}% off mp 1's, over "
+                   f"{100 * ERNIE_MP_LOSS_TOL}%")
+    if not read["elem"] <= 1:
+        out.append(f"an f32 weight after step 1 {read['elem']:.3f} x "
+                   "(2 lr + f32 rounding) off mp 1's")
+    if not read["share"] <= ERNIE_MP_SHARE_TOL:
+        out.append(f"{100 * read['share']:.4f}% of {read['worst']} off mp "
+                   f"1's by more than lr / 2 after step 1, over "
+                   f"{100 * ERNIE_MP_SHARE_TOL}%")
+    return out
+
+
+def phase_ernie_mp(dev, smi, ref_losses, ref_after1,
+                   steps=ERNIE_MP_STEPS):
+    """Phase 23: ERNIE at mp 2 over two gloo ranks on the one card
+    against phase 22's mp 1 run from the same weights and batch, then
+    the planted fault (`_ernie_mp_rank`), which must fail the gates."""
+    runs, full, wall = _ernie_mp_run(dev, steps)
+    a, b = runs
+    if a["losses"] != b["losses"]:
+        raise AssertionError(f"ernie_mp: the ranks' losses differ "
+                             f"{a['losses']} / {b['losses']}")
+    if not all(map(math.isfinite, a["losses"])):
+        raise AssertionError(f"ernie_mp: losses {a['losses']}")
+    if a["replicated_sha256"] != b["replicated_sha256"] or not a[
+            "replicated"]:
+        raise AssertionError("ernie_mp: the replicated parameters differ "
+                             "across the ranks")
+    read = _ernie_mp_readings(a["losses"], full, ref_losses, ref_after1)
+    del full
+    failed = _ernie_mp_failures(read)
+    if failed:
+        raise AssertionError("ernie_mp: " + "; ".join(failed) + f" ({read})")
+    for r in runs:
+        per_step = r["per_step"]
+        _only_launches(f"ernie_mp rank {r['rank']}", r["launches"],
+                       {k: v * steps for k, v in per_step.items()})
+        mine = r["num_heads"] // ERNIE_MP
+        want = [mine] * (per_step["flash_attention_fwd"] * steps)
+        if r["heads"] != want:
+            raise AssertionError(f"ernie_mp rank {r['rank']}: flash heads "
+                                 f"{sorted(set(r['heads']))} x "
+                                 f"{len(r['heads'])}, expected {mine} x "
+                                 f"{len(want)}")
+    log("ernie_mp", f"[{smi}] ERNIE bf16 O2 at mp {ERNIE_MP} over "
+        f"{ERNIE_MP} gloo ranks on one card (12 layers, full width, seed 0; "
+        f"{a['tensors']} tensors, {a['elements']} elements a rank), "
+        f"phase 22's batch, spawn-to-join {wall:.1f} s: loss " + " ".join(
+            f"{x:.6f}" for x in a["losses"]) + " vs mp 1's " + " ".join(
+            f"{x:.6f}" for x in ref_losses[:steps])
+        + f" (worst {100 * read['loss']:.5f}%, gate "
+        f"{100 * ERNIE_MP_LOSS_TOL}%); the two ranks' losses equal; "
+        f"{a['replicated']} replicated parameters bit-identical across the "
+        "ranks (sha256); the gathered f32 weights after step 1: worst "
+        f"element {read['elem']:.3f} of 2 lr + f32 rounding, worst share "
+        f"off by > lr / 2 {100 * read['share']:.4f}% ({read['worst']}; "
+        f"gate {100 * ERNIE_MP_SHARE_TOL}%); every flash launch on "
+        f"{a['num_heads'] // ERNIE_MP} heads")
+    bad_runs, bad_full, bad_wall = _ernie_mp_run(dev, 2, fault=True)
+    bad = _ernie_mp_readings(bad_runs[0]["losses"], bad_full, ref_losses,
+                             ref_after1)
+    del bad_full
+    caught = _ernie_mp_failures(bad)
+    log("ernie_mp", f"[{smi}] planted fault (rank 1 skips its shards' "
+        f"step-1 update; 2 steps, spawn-to-join {bad_wall:.1f} s): loss "
+        + " ".join(f"{x:.6f}" for x in bad_runs[0]["losses"])
+        + f", worst {100 * bad['loss']:.5f}%; worst element "
+        f"{bad['elem']:.3f}; worst share {100 * bad['share']:.4f}% "
+        f"({bad['worst']}); caught: " + "; ".join(caught))
+    if not (bad["loss"] > ERNIE_MP_LOSS_TOL
+            and bad["share"] > ERNIE_MP_SHARE_TOL):
+        raise AssertionError("ernie_mp: the planted fault (rank 1 skips "
+                             "its shards' step-1 update) passed a gate")
+    st = float(np.median(a["step_s"][1:]))
+    shares = []
+    for r in runs:
+        comm = sum(c[0] + c[1] for c in r["comm_us"][1:]) / 1e6
+        shares.append(100 * comm / sum(r["step_s"][1:]))
+    calls = a["comm_us"][1]
+    log("ernie_mp", f"[{smi}] step {st * 1e3:.1f} ms (median of steps "
+        f"2-{steps}) = {ERNIE_ROWS / st:.1f} tokens/s; collectives "
+        f"{calls[2]} all_reduce + {calls[3]} all_gather a step, their "
+        "host-clock share of the step " + " / ".join(
+            f"{x:.1f}%" for x in shares) + " (rank 0 / 1; gloo through the "
+        "host on one shared card, not a wire speed of the port); peak memory "
+        + " / ".join(f"{r['peak_bytes'] / 2 ** 30:.2f}" for r in runs)
+        + " GiB; launches a rank over the steps: " + "; ".join(
+            f"rank {r['rank']} {r['launches']}" for r in runs[:1]))
+
+
 def _paged_ms(by):
     """(T = 1 launches' ms, T > 1 launches' ms) of the paged kernel in a
     profile's {kernel name: ms}: one kernel, told apart by its slot
@@ -4465,6 +4994,10 @@ def main():
     torch.cuda.empty_cache()
     phase_resnet(dev, smi)
     torch.cuda.empty_cache()
+    ernie_losses, ernie_after1 = phase_ernie(dev, smi)
+    torch.cuda.empty_cache()
+    phase_ernie_mp(dev, smi, ernie_losses, ernie_after1)
+    del ernie_after1
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

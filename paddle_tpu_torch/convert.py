@@ -19,6 +19,15 @@ ResNet and the other models built from `nn` layers), into a port model
 whose parameters and persistent buffers (BatchNorm's running
 statistics) carry the same names.
 
+ERNIE and the other models built from fleet's tensor-parallel layers
+keep the JAX package's names too. At mp > 1 each rank holds a shard:
+`shard_state_dict(flat, mp_layout(model), nranks, rank)` cuts a full
+dict to one rank's pieces (each parameter along its `mp_split` axis, in
+its blocks, so the fused qkv weight is cut per head),
+`load_sharded_state_dict(model, flat)` loads a full dict into this
+rank's shards, and its inverse, `gather_state_dict(model)`, gathers the
+model's full parameters from the ranks of its mp group (collective).
+
 `optimizer_state_from_numpy` carries a JAX optimizer's slots (moments,
 velocity, beta powers, master weights) into the port's
 `Optimizer.set_state_dict` keys, so that both packages can go on from
@@ -32,7 +41,9 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_numpy", "load_reference_params",
-           "load_reference_state_dict", "optimizer_state_from_numpy"]
+           "load_reference_state_dict", "optimizer_state_from_numpy",
+           "mp_layout", "shard_state_dict", "load_sharded_state_dict",
+           "gather_state_dict"]
 
 
 def _tensor(arr):
@@ -133,4 +144,69 @@ def optimizer_state_from_numpy(jax_state, names):
     out["@step"] = int(jax_state.get("@step", 0))
     if "LR_Scheduler" in jax_state:
         out["LR_Scheduler"] = dict(jax_state["LR_Scheduler"])
+    return out
+
+
+def mp_layout(model):
+    """{parameter name: (axis, blocks)} of the model's parameters that
+    the tensor-parallel layers cut (`mp_split`)."""
+    return {n: p.mp_split for n, p in model.named_parameters()
+            if getattr(p, "mp_split", None) is not None}
+
+
+def _mp_group(model):
+    """The mp Group the model's sharded parameters share; None at mp 1."""
+    groups = {id(p.mp_group): p.mp_group for p in model.parameters()
+              if getattr(p, "mp_group", None) is not None}
+    if len(groups) > 1:
+        raise ValueError("the model's parameters are sharded over more "
+                         "than one mp group")
+    return next(iter(groups.values()), None)
+
+
+def shard_state_dict(flat, layout, nranks, rank):
+    """Rank `rank`'s pieces of a full {name: array} dict: each name in
+    `layout` cut along its axis in its blocks (`mp_layers.shard`), the
+    rest whole."""
+    from .distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+        shard)
+
+    out = {}
+    for name, arr in flat.items():
+        arr = np.asarray(arr)
+        split = layout.get(name)
+        out[name] = (arr if split is None or nranks == 1
+                     else shard(arr, *split, nranks, rank))
+    return out
+
+
+def load_sharded_state_dict(model, flat):
+    """Load a full {structured name: array} dict into this rank's shards
+    of a tensor-parallel model (the whole dict at mp 1)."""
+    group = _mp_group(model)
+    if group is None:
+        return load_reference_state_dict(model, flat)
+    return load_reference_state_dict(model, shard_state_dict(
+        flat, mp_layout(model), group.nranks, group.rank))
+
+
+@torch.no_grad()
+def gather_state_dict(model, tensors=None):
+    """{name: full CPU tensor} of the model's parameters, or of
+    `tensors` ({parameter name: tensor} laid out as the parameters, such
+    as an optimizer's master weights), each sharded one all-gathered
+    over its mp group (collective: every rank of the group calls it), in
+    its own dtype."""
+    from .distributed import collective
+    from .distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+        unshard)
+
+    out = {}
+    for name, p in model.named_parameters():
+        t = (p if tensors is None else tensors[name]).detach().contiguous()
+        if getattr(p, "mp_group", None) is not None:
+            parts = collective.all_gather([], t,
+                                          group=p.mp_group.process_group)
+            t = unshard(parts, *p.mp_split)
+        out[name] = t.cpu()
     return out

@@ -1,28 +1,39 @@
-"""paddle_tpu_torch.distributed — data parallelism over
-torch.distributed, the port of the multi-process part of
-`paddle_tpu/distributed`:
+"""paddle_tpu_torch.distributed — data, tensor and pipeline
+parallelism over torch.distributed, the port of the multi-process part
+of `paddle_tpu/distributed`:
 
   * `env`          rank, world size, ParallelEnv from the PADDLE_* env
                    contract
   * `parallel`     `init_parallel_env`: the process group (NCCL on the
-                   card, gloo on the CPU or when named)
+                   card, gloo on the CPU or when named); `DataParallel`
+  * `mesh`         `build_mesh`, `set_mesh`, `get_mesh`: the ranks laid
+                   out over named axes (dp, pp, sharding, mp, sp), and
+                   each axis's `Group`
+  * `fleet`        `fleet.init` from a strategy's hybrid_configs, the
+                   topology and its groups, the tensor-parallel layers,
+                   `PipelineLayer`, `distributed_model`
   * `spawn`        `spawn(func, args, nprocs, backend=, device=)`
   * `collective`   `all_reduce` (with `compress=`), `all_gather`,
                    `broadcast`, `barrier`, with comm/<op>/* counters
   * `compress`     the two-phase quantized allreduce with error
                    feedback and its int8 kernels (csrc/compress.cu)
 
-The train step over it is `jit.distributed.DistributedTrainStepCompiler`.
-Meshes, fleet, `DataParallel`, sharding and pipelines are not ported.
+The train step over it is `jit.distributed.DistributedTrainStepCompiler`
+(`mesh=` reduces over the mesh's dp group). Not ported (ROADMAP queue 1
+item 2): the multi-process pipeline schedule (pp > 1), sharding
+(`ShardingParallel`, `distributed/sharding`), `DataParallel`'s buckets
+and overlap, `new_group`, `scatter` / `alltoall`, the parameter server.
 """
 from __future__ import annotations
 
 from . import compress
 from .collective import ReduceOp, all_gather, all_reduce, barrier, broadcast
 from .env import ParallelEnv, get_rank, get_world_size
-from .parallel import init_parallel_env
+from .mesh import Mesh, build_mesh, get_mesh, set_mesh
+from .parallel import DataParallel, init_parallel_env
 from .spawn import ProcessContext, spawn
 
 __all__ = ["compress", "ReduceOp", "all_reduce", "all_gather", "broadcast",
            "barrier", "ParallelEnv", "get_rank", "get_world_size",
-           "init_parallel_env", "spawn", "ProcessContext"]
+           "init_parallel_env", "spawn", "ProcessContext", "DataParallel",
+           "Mesh", "build_mesh", "get_mesh", "set_mesh"]

@@ -1,10 +1,23 @@
 """Data-parallel train step over torch.distributed, the port of
-`paddle_tpu/jit/distributed.py` `DistributedTrainStepCompiler` for a
-pure data-parallel layout.
+`paddle_tpu/jit/distributed.py` `DistributedTrainStepCompiler`.
 
     init_parallel_env()            # or inside distributed.spawn(...)
     step = DistributedTrainStepCompiler(model, opt, comm_compress="int8:ef")
     loss = step(ids, labels)       # every rank passes the GLOBAL batch
+
+    mesh = build_mesh({"dp": 1, "pp": 1, "mp": -1})
+    step = DistributedTrainStepCompiler(model, opt, mesh=mesh)
+
+The group the step reduces over is `group` (a torch.distributed group;
+None: the world) or, with `mesh=` (a `distributed.mesh.Mesh`), the
+mesh's dp group: this rank's line along "dp", the ranks that hold the
+same parameter shards. `mesh=` also sets the mesh as the current one,
+as the JAX class does. The batch split, the first-call broadcast and
+the gradient and loss reductions below all run over that group, so
+under model parallelism (an "mp" axis, whose layers reduce over their
+own group) nothing is reduced or broadcast across the mp ranks. The
+JAX class shards the batch over "dp" by default (`_batch_sharding`) and
+GSPMD reduces the gradients of replicated parameters over it.
 
 The JAX class compiles one program over a mesh, where GSPMD inserts the
 gradient psum over the data axis, or, with `comm_compress`, an explicit
@@ -37,9 +50,10 @@ before the non-finite guard and the gradient merge.
   package. `restore_state(..., comm=)` (or `adopt_state_from`) before
   the first call sets the residual the first call then keeps.
 - Validation at the first call (`_resolve_compress` :153-203): fewer
-  than 2 ranks disables compression; a parameter that carries a
-  `dist_spec` (a sharded layout, which has no single flat gradient)
-  raises for an explicit spec and disables an env spec.
+  than 2 ranks disables compression; a mesh axis other than "dp" of
+  size > 1, or a parameter that carries a `dist_spec` (a sharded
+  layout, which has no single flat gradient), raises for an explicit
+  spec and disables an env spec.
 - Accounting (`compress.account`, called by `reduce_tree`:
   comm/all_reduce/{calls,bytes,wire_bytes}) runs once per microstep
   that reduces; the JAX package prices it once per program build.
@@ -55,6 +69,7 @@ import torch
 import torch.distributed as dist
 
 from ..distributed import compress as C
+from ..distributed import mesh as mesh_mod
 from ..distributed.env import group_rank, group_size
 from . import TrainStepCompiler
 
@@ -63,8 +78,15 @@ __all__ = ["DistributedTrainStepCompiler"]
 
 class DistributedTrainStepCompiler(TrainStepCompiler):
     def __init__(self, model, optimizer, loss_fn=None, group=None,
-                 comm_compress=True, **kwargs):
+                 comm_compress=True, mesh=None, **kwargs):
         super().__init__(model, optimizer, loss_fn=loss_fn, **kwargs)
+        if mesh is not None:
+            if group is not None:
+                raise ValueError("DistributedTrainStepCompiler: pass a "
+                                 "mesh or a group, not both")
+            mesh_mod.set_mesh(mesh)
+            group = mesh.group(("dp",)).process_group
+        self._mesh = mesh
         self._group = group
         self._compress = C.resolve(comm_compress)
         # an env config disables itself on an incompatible layout; an
@@ -80,16 +102,25 @@ class DistributedTrainStepCompiler(TrainStepCompiler):
             return None
         if self._nranks < 2:
             return None              # nothing to compress
+
+        def incompatible(why):
+            if not self._compress_from_env:
+                raise ValueError(f"comm_compress={cfg.spec()!r}: {why}")
+            warnings.warn(f"comm_compress={cfg.spec()} "
+                          f"(PADDLE_COMM_COMPRESS): {why} — disabled "
+                          "for this compiler", stacklevel=4)
+
+        others = ([a for a, n in self._mesh.shape.items()
+                   if a != "dp" and n > 1] if self._mesh is not None else [])
+        if others:
+            incompatible(f"needs a pure data-parallel mesh, but axes "
+                         f"{others} are also > 1")
+            return None
         for name, p in self._model.named_parameters():
             spec = getattr(p, "dist_spec", None)
             if spec is not None:
-                why = (f"needs replicated parameters, but {name!r} "
-                       f"carries dist_spec={spec!r}")
-                if not self._compress_from_env:
-                    raise ValueError(f"comm_compress={cfg.spec()!r}: {why}")
-                warnings.warn(f"comm_compress={cfg.spec()} "
-                              f"(PADDLE_COMM_COMPRESS): {why} — disabled "
-                              "for this compiler", stacklevel=3)
+                incompatible(f"needs replicated parameters, but {name!r} "
+                             f"carries dist_spec={spec!r}")
                 return None
         return cfg
 

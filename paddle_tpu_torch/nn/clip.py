@@ -19,6 +19,13 @@ computes the clips in XLA, outside any Pallas kernel):
 `need_clip=False` on a parameter keeps its grad out of the global norm
 and unclipped, in `ClipGradByGlobalNorm` only, as in the JAX package
 (ROADMAP.md queue 3: Paddle's other two clips honour it as well).
+
+Under model parallelism (`fleet`'s mp layers at mp > 1) a parameter
+with an `mp_group` holds one rank's shard of a logical tensor.
+The JAX package takes the global norm over the logical tensors; here
+the squared norms of the sharded gradients are summed, all-reduced
+over their `mp_group` and added to those of the replicated ones, which
+every rank holds whole and counts once: the same norm on every rank.
 """
 from __future__ import annotations
 
@@ -71,8 +78,21 @@ class ClipGradByGlobalNorm(ClipGradBase):
         def clipped(p, g):
             return g is not None and getattr(p, "need_clip", True)
 
-        sq = [torch.sum(torch.square(g.float()))
-              for p, g in params_grads if clipped(p, g)]
+        sq, shards, group = [], [], None
+        for p, g in params_grads:
+            if clipped(p, g):
+                s = torch.sum(torch.square(g.float()))
+                if getattr(p, "mp_group", None) is not None:
+                    shards.append(s)
+                    group = p.mp_group
+                else:
+                    sq.append(s)
+        if shards:
+            from ..distributed import collective
+
+            part = sum(shards)
+            collective.all_reduce(part, group=group.process_group)
+            sq.append(part)
         if not sq:
             return params_grads
         global_norm = torch.sqrt(sum(sq))

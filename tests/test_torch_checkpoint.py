@@ -125,16 +125,31 @@ def test_jax_written_pdparams_and_pdopt_load(tmp_path):
     assert ids.tolist() == [0, 1, 2, 3, 4]
 
 
-def test_jax_written_bf16_needs_ml_dtypes(tmp_path, monkeypatch):
+def test_jax_written_bf16_needs_ml_dtypes(tmp_path):
+    """The JAX package writes a bf16 array as an ndarray of
+    `ml_dtypes.bfloat16`, by name: its file needs `ml_dtypes` to be read
+    as numpy reads it. The port reads it bit for bit."""
+    arr = np.arange(6, dtype=np.float32).reshape(2, 3) / 3
+    paddle.save({"w": paddle.to_tensor(arr).astype("bfloat16")},
+                str(tmp_path / "b.pd"))
+    with open(tmp_path / "b.pd", "rb") as f:
+        assert b"ml_dtypes" in f.read()
+    got = framework.load(str(tmp_path / "b.pd"))["w"]
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, torch.from_numpy(arr).bfloat16())
+
+
+def test_jax_written_bf16_loads_without_ml_dtypes(tmp_path, monkeypatch):
+    """The same file reads bit for bit with `ml_dtypes` not importable:
+    the port maps the dtype's name to raw 2-byte storage."""
     arr = np.arange(6, dtype=np.float32).reshape(2, 3) / 3
     paddle.save({"w": paddle.to_tensor(arr).astype("bfloat16")},
                 str(tmp_path / "b.pd"))
     got = framework.load(str(tmp_path / "b.pd"))["w"]
-    assert got.dtype == torch.bfloat16
-    assert torch.equal(got, torch.from_numpy(arr).bfloat16())
     monkeypatch.setitem(sys.modules, "ml_dtypes", None)   # not installed
-    with pytest.raises(ImportError, match="ml_dtypes"):
-        framework.load(str(tmp_path / "b.pd"))
+    again = framework.load(str(tmp_path / "b.pd"))["w"]
+    assert again.dtype == torch.bfloat16
+    assert torch.equal(again.view(torch.int16), got.view(torch.int16))
 
 
 # -- CheckpointManager ----------------------------------------------------
@@ -403,8 +418,8 @@ def test_auto_checkpoint_epoch_range_resumes(tmp_path, monkeypatch):
 def test_snapshot_pickle_reads_back_with_plain_pickle_tags(tmp_path):
     """The rank file is a pickle of {"schema", "state"} whose tensors are
     saved tensors: an f32 one in the JAX package's form (its
-    `_SavedTensor`, the array under `.array`), a bf16 one in the port's
-    raw form; readable by `framework.load` too."""
+    `_SavedTensor`, the array under `.array`), a bf16 one too, as an
+    `ml_dtypes.bfloat16` array; readable by `framework.load` too."""
     import paddle_tpu.framework as jframework
 
     m = _mgr(tmp_path)
@@ -420,4 +435,7 @@ def test_snapshot_pickle_reads_back_with_plain_pickle_tags(tmp_path):
     assert isinstance(raw["state"]["w"], jframework._SavedTensor)
     np.testing.assert_array_equal(raw["state"]["w"].array,
                                   np.arange(3.0, dtype=np.float32))
-    assert isinstance(raw["state"]["h"], framework._SavedTensor)
+    assert isinstance(raw["state"]["h"], jframework._SavedTensor)
+    np.testing.assert_array_equal(
+        raw["state"]["h"].array.view(np.int16),
+        h.view(torch.int16).numpy())

@@ -1006,3 +1006,103 @@ def test_bert_on_card_kernel_path_vs_plain(cuda):
         torch.testing.assert_close(a, b_, rtol=0,
                                    atol=1e-4 * float(b_.abs().max()),
                                    msg=name)
+
+
+def _ernie_small(cuda, o2=False):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models.ernie import (ErnieConfig,
+                                                    ErnieForPretraining)
+
+    cfg = ErnieConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                      num_heads=2, ffn_hidden=256, max_seq_len=128,
+                      dropout=0.0)
+    model = ErnieForPretraining(cfg, device=cuda)
+    return amp.decorate(model, level="O2") if o2 else model
+
+
+def test_ernie_on_card_kernel_path_vs_plain(cuda):
+    """A 2-layer ERNIE at head_dim 64 on the card, f32 and bf16 O2 (whose
+    residual stream is f32, as in the JAX package): loss and every
+    gradient through the kernels vs through their plain versions (f32:
+    summation order only, 1e-5 and 1e-4 x max|g|; O2: the same f32
+    activations and bf16 weight gradients, 1e-5 and 1e-2 x max|g|, one
+    bf16 ulp), and the launches of one forward and backward: 2
+    LayerNorm forwards and backwards a block (the embedding's and the
+    head's are plain), 1 of each flash kernel a block, on f32 q."""
+    from paddle_tpu_torch.incubate.nn import set_use_kernel
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fk
+
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (2, 128))).to(cuda)
+    labels = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 512, (2, 128))).to(cuda)
+    for o2, gtol in ((False, 1e-4), (True, 1e-2)):
+        model = _ernie_small(cuda, o2)
+        named = list(model.named_parameters())
+        seen = []
+        real = fk.flash_attention_fwd
+
+        def spy(q, *a, **kw):
+            seen.append(q.dtype)
+            return real(q, *a, **kw)
+
+        out = []
+        fk.flash_attention_fwd = spy
+        try:
+            for use_kernel in (True, False):
+                set_use_kernel(model, use_kernel)
+                before = kernels.launches()
+                loss = model(ids, labels)
+                grads = torch.autograd.grad(loss, [p for _, p in named])
+                torch.cuda.synchronize()
+                after = kernels.launches()
+                out.append((loss, grads,
+                            {n: after[n] - before[n] for n in after}))
+        finally:
+            fk.flash_attention_fwd = real
+        (lk, gk, ck), (lp, gp, cp) = out
+        assert ck["fused_layer_norm"] == ck["fused_layer_norm_bwd"] == 4
+        assert ck["flash_attention_fwd"] == ck["flash_attention_bwd_dq"] \
+            == ck["flash_attention_bwd_dkv"] == 2
+        assert not any(cp.values())
+        assert seen == [torch.float32] * 2
+        torch.testing.assert_close(lk, lp, rtol=1e-5, atol=0)
+        for (name, p), a, b_ in zip(named, gk, gp):
+            assert a.dtype == p.dtype, name
+            torch.testing.assert_close(
+                a.float(), b_.float(), rtol=0,
+                atol=gtol * float(b_.float().abs().max()), msg=name)
+
+
+def test_fused_adam_on_ernie_o2_set_bit_identical(cuda):
+    """AdamW (multi_precision) through the kernel against the
+    per-parameter rule on a small ERNIE's O2 set (bf16 weights with f32
+    masters, f32 LayerNorm parameters), three steps: parameters, masters,
+    moments and beta powers bit for bit; one launch a step."""
+    from paddle_tpu_torch.optimizer import AdamW
+
+    base = list(_ernie_small(cuda, o2=True).named_parameters())
+    sets = [[(n, torch.nn.Parameter(p.detach().clone())) for n, p in base]
+            for _ in range(2)]
+    assert {p.dtype for _, p in sets[0]} == {torch.bfloat16, torch.float32}
+    opts = [AdamW(1e-4, parameters=s, weight_decay=0.01,
+                  multi_precision=True, use_kernel=u)
+            for s, u in zip(sets, (True, False))]
+    rng = np.random.RandomState(2)
+    for _ in range(3):
+        grads = {n: rng.randn(*p.shape).astype(np.float32) * 1e-2
+                 for n, p in sets[0]}
+        for s in sets:
+            for n, p in s:
+                p.grad = torch.from_numpy(grads[n]).to(cuda, p.dtype)
+        before = kernels.launches()["fused_adam"]
+        for o in opts:
+            o.step()
+        torch.cuda.synchronize()
+        assert kernels.launches()["fused_adam"] == before + 1
+        for (n, a), (_, b) in zip(*sets):
+            assert torch.equal(a, b), n
+    sd = [o.state_dict() for o in opts]
+    for key, v in sd[0].items():
+        assert (v == sd[1][key] if key == "@step"
+                else torch.equal(v, sd[1][key])), key
