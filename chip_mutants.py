@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
-"""Planted faults in the bf16 flash-attention kernels, the LayerNorm
-forward and backward kernels, the multi-tensor optimizer kernel, the
+"""Planted faults in the bf16 and f32 flash-attention kernels, the
+LayerNorm forward and backward kernels, the multi-tensor optimizer kernel, the
 paged-attention kernel and the int8 quantize kernel, and which of
 `chip_smoke.py`'s checks catch them.
 
     python3 chip_mutants.py
 
 Needs one CUDA card and `nvcc`. The source files are not touched: each
-mutant is one source of `csrc/` with one edit, written and compiled
+mutant is one source of `csrc/` with its edits, written and compiled
 (one `nvcc` per mutant, all started together) under
 `paddle_tpu_torch/_build/mutants/`, and linked with the other kernels
 into a library of its own. The wrappers then run on that library in
-turn. Every flash mutant breaks only late causal rows or keys (query
+turn. Every bf16 flash mutant breaks only late causal rows or keys (query
 rows or keys >= 512 of 1024), or one tile: the faults a limit set by a
 tensor's first rows would miss. Of the eight, four target the forward
 kernel (KV tile 0 skipped, the diagonal masked, the diagonal tile run
@@ -41,7 +41,11 @@ BERT's shapes: the forward and dq kernels skip the last KV tile and the
 dk/dv kernel the last q tile when not causal (every other check is
 causal), and the LayerNorm forward (variance) and backward (means and
 dw/db) leave out a lane's last vector when a row does not fill its
-lanes' vectors, as 768 does and 1024 does not.
+lanes' vectors, as 768 does and 1024 does not. Five target the f32
+backward kernels (3xTF32 on the tensor cores): one-pass TF32 in the dq
+kernel's three products (their lo terms dropped), the same in the dk/dv
+kernel's four, dq skipping the last KV tile and dk/dv the last q tile
+when not causal, and dq with the causal diagonal masked.
 
 For the unmutated library (the control) and each flash mutant, three
 checks:
@@ -78,6 +82,13 @@ check:
              bf16, with and without the residual, no / tanh / erf GeLU
              (dx within 1e-5 / 1e-2 x max|ref|, dw and db within 1e-5 x
              max|ref|), and a second call bit-identical
+For the control and each f32 mutant, one check:
+  f32        chip_smoke's phase 7 f32 cases (S 256, S 129, S 1000 D 128
+             causal; S 256, Sq 100 Sk 333 D 128 not), both gates apart:
+             the JAX-parity gate (kernels vs plain versions, o 2e-5,
+             gradients 2e-4) and gate 1 (every output within 1e-5 x
+             max|ref| of a float64 oracle, per row where causal); the
+             verdict names the cases each gate failed
 For the control and each of the four BERT-shape mutants, one more check:
   bert       chip_smoke's phase 18 kernel check: the flash kernels vs
              their plain versions at B 32, H 12, S 512, D 64, bf16,
@@ -95,7 +106,8 @@ Exits non-zero when the control fails a check, a BERT-shape mutant
 passes the bert check, another flash mutant passes the
 per-row flash check, another LayerNorm mutant passes the lnbwd check,
 an optimizer mutant passes the optim check, a multi-query mutant passes
-the multi check, or a quantize mutant passes the compress check.
+the multi check, a quantize mutant passes the compress check, or an
+f32 mutant passes the f32 check.
 """
 from __future__ import annotations
 
@@ -112,6 +124,48 @@ PAGED = "paged_attention.cu"
 COMPRESS = "compress.cu"
 LN = "layernorm.cu"
 BERT = "bert"   # the check of the mutants only BERT's shapes show
+F32 = "f32"     # the check of the f32 flash mutants
+# one-pass TF32 products (the lo terms dropped), for the f32 mutants to
+# call in place of `mma_abt` and `mma_xb`
+ONE_PASS = """// one-pass TF32: the products without their lo terms
+template <int D, int N>
+__device__ __forceinline__ void mma_abt1(float (&d)[N / 8][4],
+                                         const float* a, const float* b) {
+  for (int nt = 0; nt < N / 8; ++nt)
+    for (int i = 0; i < 4; ++i) d[nt][i] = 0.f;
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    frag_a<D + 4>(ah, al, a, 8 * kk);
+    for (int nt = 0; nt < N / 8; nt += 2) {
+      uint32_t bh[2][2], bl[2][2];
+      frag_bt2<D + 4>(bh, bl, b + 8 * nt * (D + 4), 8 * kk);
+      mma_tf32(d[nt], ah, bh[0]);
+      mma_tf32(d[nt + 1], ah, bh[1]);
+    }
+  }
+}
+
+template <int D, int N>
+__device__ __forceinline__ void mma_xb1(float (&d)[D / 8][4],
+                                        const float (&x)[N / 8][4],
+                                        const float* b) {
+  for (int kt = 0; kt < N / 8; ++kt) {
+    uint32_t ah[4], al[4];
+    split(x[kt][0], ah[0], al[0]);
+    split(x[kt][2], ah[1], al[1]);
+    split(x[kt][1], ah[2], al[2]);
+    split(x[kt][3], ah[3], al[3]);
+    for (int nd = 0; nd < D / 8; ++nd) {
+      uint32_t bh[2], bl[2];
+      frag_bp<D + 4>(bh, bl, b + 8 * kt * (D + 4) + 8 * nd);
+      mma_tf32(d[nd], ah, bh);
+    }
+  }
+}
+
+"""
+ONE_PASS_AT = ("// rows [row0, row0 + R) of a [rows, D] f32 matrix into a "
+               "shared tile of")
 # (name, source in csrc/, [(unique text of the source, replacement)]
 #  [, the check that must catch it; default: the source's own])
 MUTANTS = [
@@ -244,6 +298,37 @@ MUTANTS = [
      [("  it.n_t = (sq + kDkvRows - 1) / kDkvRows - it.t0;\n",
        "  it.n_t = (sq + kDkvRows - 1) / kDkvRows - it.t0;\n"
        "  if (!kCausal && it.n_t > 1) it.n_t -= 1;\n")], BERT),
+    # the f32 backward kernels (3xTF32)
+    ("f32 dq: one-pass TF32 (the lo terms dropped)", FLASH,
+     [(ONE_PASS_AT, ONE_PASS + ONE_PASS_AT),
+      ("    mma_abt<D, kKeys>(s, sQ, sK);\n"
+       "    mma_abt<D, kKeys>(dps, sDO, sV);\n",
+       "    mma_abt1<D, kKeys>(s, sQ, sK);\n"
+       "    mma_abt1<D, kKeys>(dps, sDO, sV);\n"),
+      ("    mma_xb<D, kKeys>(acc, dps, sK);",
+       "    mma_xb1<D, kKeys>(acc, dps, sK);")], F32),
+    ("f32 dk/dv: one-pass TF32 (the lo terms dropped)", FLASH,
+     [(ONE_PASS_AT, ONE_PASS + ONE_PASS_AT),
+      ("    mma_abt<D, R>(st, sK, sQ);\n"
+       "    mma_abt<D, R>(dpt, sV, sDO);\n",
+       "    mma_abt1<D, R>(st, sK, sQ);\n"
+       "    mma_abt1<D, R>(dpt, sV, sDO);\n"),
+      ("    mma_xb<D, R>(dv_acc, st, sDO);",
+       "    mma_xb1<D, R>(dv_acc, st, sDO);"),
+      ("    mma_xb<D, R>(dk_acc, dpt, sQ);",
+       "    mma_xb1<D, R>(dk_acc, dpt, sQ);")], F32),
+    ("f32 dq: the last KV tile skipped when not causal", FLASH,
+     [("  const int n_kv = (kv_end + kKeys - 1) / kKeys;\n",
+       "  const int n_kv = (kv_end + kKeys - 1) / kKeys -\n"
+       "                   (!kCausal && kv_end > kKeys);\n")], F32),
+    ("f32 dk/dv: the last q tile skipped when not causal", FLASH,
+     [("  const int n_t = (sq + R - 1) / R - t0;\n",
+       "  const int n_t = (sq + R - 1) / R - t0 - (!kCausal && sq > R);\n")],
+     F32),
+    ("f32 dq: the causal diagonal masked", FLASH,
+     [("      dq_tile<true, kCausal>(s, dps, lse2, dl, r0, k0, sk, sl2, scale);",
+       "      dq_tile<true, kCausal>(s, dps, lse2, dl, r0 - 1, k0, sk, sl2,\n"
+       "                             scale);")], F32),
     ("lnfwd: a row that does not fill its lanes' vectors (768) leaves its "
      "last vector out of the variance", LN,
      [("    // the variance from the registers: mean((s - mean)^2)\n"
@@ -362,6 +447,34 @@ def run_checks(model, batch, inputs):
     return res
 
 
+def f32_check(dev):
+    """chip_smoke's phase 7 f32 cases with each gate apart: "passes", or
+    "FAILS (...)" with the messages of every case each gate failed."""
+    import chip_smoke as cs
+    import numpy as np
+
+    rng = np.random.RandomState(2)
+    fails = {"JAX parity": [], "gate 1": []}
+    for tag, b, h, sq, d, dtype, causal, sk in cs.FLASH_CASES:
+        q, k, v, do = cs._flash_inputs(rng, b, h, sq, d, dtype, dev, sk)
+        if dtype != torch.float32:
+            continue
+        scale = d ** -0.5
+        got, want = cs.flash_outputs(q, k, v, do, causal, scale)
+        try:
+            cs.flash_parity(tag, got, want)
+        except AssertionError as e:
+            fails["JAX parity"].append(str(e))
+        try:
+            cs.flash_f64_gate(tag, got, cs.flash_f64_oracle(
+                q, k, v, do, causal, scale), causal)
+        except AssertionError as e:
+            fails["gate 1"].append(str(e))
+    bad = "; ".join(f"{gate}: " + " | ".join(msgs)
+                    for gate, msgs in fails.items() if msgs)
+    return f"FAILS ({bad})" if bad else "passes"
+
+
 def optim_check(named, grads):
     import chip_smoke as cs
 
@@ -454,7 +567,9 @@ def main():
         K._lib = lib
         try:
             res = {}
-            if src in (None, FLASH):
+            if src is None or check == F32:
+                res[F32] = f32_check(dev)
+            if src is None or (src == FLASH and check != F32):
                 res.update(run_checks(model, batch, inputs))
             if src in (None, OPTIM):
                 res["optim"] = optim_check(named, grads)
@@ -479,9 +594,8 @@ def main():
         ok &= res[check].startswith("FAILS")
     print(f"[mutant] {caught}/{len(MUTANTS)} mutants caught; "
           f"{'every' if ok else 'NOT every'} mutant fails its check "
-          "(per-row flash, optim, multi, compress, lnbwd, bert) and the "
-          "control "
-          "passes every check")
+          "(per-row flash, f32, optim, multi, compress, lnbwd, bert) and "
+          "the control passes every check")
     return 0 if ok else 1
 
 

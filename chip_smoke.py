@@ -8,8 +8,9 @@
 
 Needs one CUDA card and `nvcc`; exits non-zero, printing no result,
 without them. `--measure` runs phases 1-2 and then only the times the
-paged-attention and LayerNorm-forward kernels are judged by and the
-decode-step, speculative-round and training-step profiles (`measure`;
+paged-attention, LayerNorm-forward and f32 flash kernels are judged by
+and the decode-step, speculative-round and training-step profiles
+(`measure`;
 `--kernels`: the kernel times alone), with `paddle_tpu_torch` imported
 from DIR when given: a comparison of
 two source trees runs it on each in turns in one call. `--bert-grads`
@@ -20,7 +21,7 @@ printing one line (or a few):
 
   1. device   card name and power limit (nvidia-smi), torch's name
   2. build    the port's CUDA kernels compiled from paddle_tpu_torch/csrc;
-              registers, spills and stack frames of the bf16 flash, the
+              registers, spills and stack frames of the flash, the
               LayerNorm forward and backward and the paged-attention
               kernels' instantiations
   3. paged    paged-attention decode (the kernel's one-slot launch) vs
@@ -39,7 +40,9 @@ printing one line (or a few):
   7. flash    flash-attention forward, dq and dk/dv kernels vs their
               plain versions: the training shape (B 4, H 16, S 1024,
               D 64, bf16, causal), f32, ragged S, D 128, non-causal;
-              times against the bound, SDPA forward and SDPA backward
+              every f32 case also against a float64 oracle (gate 1,
+              FLASH_F32_ORACLE_TOL; as in phases 18 and 22); times
+              against the bound, SDPA forward and SDPA backward
   8. lnbwd    LayerNorm forward, then backward kernel vs its plain
               version at the training shape (4096 x 1024), f32 and bf16,
               with and without residual, no / tanh / erf GeLU, and a
@@ -126,8 +129,8 @@ printing one line (or a few):
               x S 512, the ids as MLM labels, token types 0, no mask,
               random weights from seed 0): the flash kernels vs their
               plain versions at B 32, H 12, S 512, D 64, bf16,
-              non-causal, per row (and f32 at B 2); the LayerNorm
-              kernels at 16384 x 768 bf16 with no, a bf16 and an f32
+              non-causal, per row (and f32 at B 2, with gate 1); the
+              LayerNorm kernels at 16384 x 768 bf16 with no, a bf16 and an f32
               residual (O1's first epilogue), eps 1e-12 and 1e-5, f32
               and bf16 weight and bias, forward, backward and the
               autograd Function; each kernel's time against its bound,
@@ -205,7 +208,8 @@ printing one line (or a few):
               DistributedTrainStepCompiler on the mesh {"dp": 1, "pp":
               1, "mp": -1}, ids and labels (12, 512) int64 from
               RandomState(0): the flash kernels vs plain at B 12, H 12,
-              S 512, D 64, non-causal, f32 (the path) and bf16 per row;
+              S 512, D 64, non-causal, f32 (the path; and gate 1) and
+              bf16 per row;
               the LayerNorm kernels at 6144 x 768 (phase 8's check);
               their times against bound, plain and library; fused_adam
               bit for bit on ERNIE's 152-tensor O2 set after each of 3
@@ -262,6 +266,7 @@ import torch
 # H100 SXM data-sheet peaks (dense); the bound is stated against them
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
 # bench_gpt2's on-chip training config (bench.py:540-545)
@@ -486,9 +491,9 @@ def phase_build():
         f"{len(regs)} kernel instantiations, registers "
         f"{min(regs, default=0)}..{max(regs, default=0)}; non-zero spills:"
         f" {spills or 'none'}")
-    log("build", "bf16 flash kernels, registers (at launch; setmaxnreg "
-        "moves the producer warpgroup to 40, consumers to 232) and "
-        "spills: " + "; ".join(
+    log("build", "flash kernels, registers (at launch; in the bf16 "
+        "kernels setmaxnreg moves the producer warpgroup to 40, consumers "
+        "to 232) and spills: " + "; ".join(
             f"{k}: {r} registers, {s}" for k, (r, s) in
             flash_registers(info["log"]).items()))
     for kind in ("fwd", "bwd"):
@@ -549,8 +554,8 @@ def paged_registers(log_text):
 
 def flash_registers(log_text):
     """{"fa_fwd_wgmma<64, causal>": (registers, "N bytes spill stores, N
-    bytes spill loads")} of the bf16 flash kernels, from nvcc's
-    `-Xptxas=-v` output."""
+    bytes spill loads")} of the flash kernels (bf16 `_wgmma`, `_f32`),
+    from nvcc's `-Xptxas=-v` output."""
     out, fn, spill = {}, None, ""
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -561,7 +566,7 @@ def flash_registers(log_text):
             spill = ln.strip().split(", ", 1)[1]
         m = re.search(r"Used (\d+) registers", ln)
         if fn and m:
-            k = re.search(r"(fa_(?:fwd|bwd_dq|bwd_dkv)_wgmma)"
+            k = re.search(r"(fa_(?:fwd|bwd_dq|bwd_dkv)_(?:wgmma|f32))"
                           r"ILi(\d+)ELb([01])E", fn)
             if k:
                 name = (f"{k.group(1)}<{k.group(2)}, "
@@ -997,79 +1002,196 @@ def _flash_inputs(rng, b, h, sq, d, dtype, dev, sk=None):
 # passes a late row or key that lost a tile (chip_mutants.py).
 FLASH_BF16_ROW_TOL = 1e-2
 
+# Gate 1 of the f32 flash kernels: o, lse, dq, dk and dv each within
+# FLASH_F32_ORACLE_TOL x max|ref| of a float64 oracle, and, causal, each
+# row of o, dq, dk and dv within it x the row's max|ref|, floored at
+# FLASH_F32_ROW_FLOOR x the tensor's max|ref| as `assert_close_rows`
+# floors it (a late causal key's dk and dv are 3e-4 of the largest). The
+# JAX-parity limits (2e-5 / 2e-4) pass a non-causal kernel whose
+# products run in one-pass TF32 (10-bit mantissas); this one does not.
+# dq's first FLASH_F32_DQ_FIRST_ROWS causal rows are held by the
+# per-tensor limit only: row i sums the terms of i + 1 keys, which
+# cancel (row 0: exactly, p = 1 and dp - delta = 0) or by chance nearly
+# do, and the row's error is then the f32 rounding of the terms, not a
+# share of the row (phase 7's S129: row 2 of one head is 0.008 x
+# max|dq|, and with only row 0 left out the plain f32 version and a
+# 3xTF32 emulation read past half the limit on the CPU). A tile the
+# kernels drop or mask touches at least 8 rows. On the CPU
+# (tests/test_torch_flash_f32.py: B 1 H 2, S 256 and 129, D 64 and 128,
+# causal and not) the plain f32 version and a 3xTF32 emulation pass at
+# half the limit or less and a one-pass-TF32 emulation fails it by 10x
+# or more on each of dq, dk and dv. Readings as the gate takes them
+# (worst max|err| / scale over the outputs) on an H100 at the f32 shapes
+# of phases 7, 18 and 22: the plain version 7.5e-7 to 2.7e-6, the 3xTF32
+# kernels 1.2e-6 to 4.2e-6 (the tensor cores truncate as they
+# accumulate), chip_mutants.py's one-pass-TF32 kernels 2.8e-4 or more.
+# 1e-5 passes the f32 grades at 2.3x or more and fails one pass by 27x
+# or more.
+FLASH_F32_ORACLE_TOL = 1e-5
+FLASH_F32_ROW_FLOOR = 1e-3
+FLASH_F32_DQ_FIRST_ROWS = 8
+FLASH_OUTPUTS = ("o", "lse", "dq", "dk", "dv")
 
-def _flash_check(tag, q, k, v, do, causal, scale):
-    """Kernels vs plain versions, each side from its own forward.
-    Returns {name: (max |err|, max |err| / row max|ref|)}. f32: o within
-    2e-5 and the gradients within 2e-4, abs + rel, the JAX package's
-    tolerances for its flash kernel (test_flash_attention.py:34, 53);
-    bf16: per row, FLASH_BF16_ROW_TOL."""
+
+def flash_f64_oracle(q, k, v, do, causal, scale):
+    """(o, lse, dq, dk, dv) of attention in float64, a dense composition
+    with the kernels' mask: q_pos >= k_pos from the top left, -1e30."""
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.matmul(p, v)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (do * o).sum(dim=-1, keepdim=True)) * scale
+    return (o, lse, torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+            torch.matmul(p.transpose(-1, -2), do))
+
+
+def flash_f64_gate(tag, outs, ref, causal, tol=FLASH_F32_ORACLE_TOL):
+    """Gate 1: raises unless each of `outs` (o, lse, dq, dk, dv) is
+    within tol x its max|ref| of the float64 oracle `ref`, per tensor
+    and, causal, per row (floored, FLASH_F32_ROW_FLOOR; dq's first
+    FLASH_F32_DQ_FIRST_ROWS rows per tensor only). Returns {name:
+    worst max|err| / scale}, the reading the gate holds under tol."""
+    read = {}
+    for name, got, want in zip(FLASH_OUTPUTS, outs, ref):
+        err = (got.double() - want).abs()
+        top = float(want.abs().max())
+        r = float(err.max()) / max(top, 1e-30)
+        if causal and name != "lse":
+            row = want.abs().amax(dim=-1).clamp_min(
+                max(FLASH_F32_ROW_FLOOR * top, 1e-30))
+            ratio = err.amax(dim=-1) / row
+            if name == "dq":
+                ratio = ratio[..., FLASH_F32_DQ_FIRST_ROWS:]
+            r = max(r, float(ratio.max()))
+        read[name] = r
+    bad = {n: r for n, r in read.items() if not r <= tol}
+    if bad:
+        raise AssertionError(
+            f"{tag}: off the float64 oracle (gate 1, {tol} x max|ref|"
+            f"{', per row' if causal else ''}): " + ", ".join(
+                f"{n} {r:.3e}" for n, r in bad.items()))
+    return read
+
+
+def flash_outputs(q, k, v, do, causal, scale):
+    """((o, lse, dq, dk, dv) of the kernels, the same of the plain
+    versions), each side from its own forward."""
     from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
 
     o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
-    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    got = (o, lse) + fa.flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                            scale)
     o0, lse0 = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
-    dq0, dk0, dv0 = fa.flash_attention_bwd_reference(q, k, v, o0, lse0, do,
-                                                     causal, scale)
+    want = (o0, lse0) + fa.flash_attention_bwd_reference(
+        q, k, v, o0, lse0, do, causal, scale)
+    return got, want
+
+
+def flash_parity(tag, got, want):
+    """Kernel outputs `got` vs the plain versions' `want` (o, lse, dq,
+    dk, dv). Returns {name: (max |err|, max |err| / row max|ref|)}; raises
+    past the limits. f32: o within 2e-5 and the gradients within 2e-4,
+    abs + rel, the JAX package's tolerances for its flash kernel
+    (test_flash_attention.py:34, 53); bf16: per row, FLASH_BF16_ROW_TOL."""
+    dtype = got[0].dtype
     # lse is f32 from the same inputs: summation order only
-    errs = {"lse": (assert_close(f"{tag} lse", lse, lse0, 1e-4, 1e-5),
+    errs = {"lse": (assert_close(f"{tag} lse", got[1], want[1], 1e-4, 1e-5),
                     None)}
-    for name, got, want in (("o", o, o0), ("dq", dq, dq0), ("dk", dk, dk0),
-                            ("dv", dv, dv0)):
-        if got.dtype != q.dtype or got.shape != want.shape \
-                or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{tag} {name}: {got.dtype} "
-                                 f"{tuple(got.shape)} or non-finite")
-        if q.dtype == torch.float32:
+    for name, g, w in zip(FLASH_OUTPUTS, got, want):
+        if name == "lse":
+            continue
+        if g.dtype != dtype or g.shape != w.shape \
+                or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{tag} {name}: {g.dtype} "
+                                 f"{tuple(g.shape)} or non-finite")
+        if dtype == torch.float32:
             t = 2e-5 if name == "o" else 2e-4
-            errs[name] = (assert_close(f"{tag} {name}", got, want, t, t),
-                          None)
+            errs[name] = (assert_close(f"{tag} {name}", g, w, t, t), None)
         else:
-            errs[name] = assert_close_rows(f"{tag} {name}", got, want,
+            errs[name] = assert_close_rows(f"{tag} {name}", g, w,
                                            FLASH_BF16_ROW_TOL)
     return errs
+
+
+def _flash_check(tag, q, k, v, do, causal, scale):
+    """Kernels vs plain versions (`flash_parity`), and in f32 kernels and
+    plain versions both through gate 1 (`flash_f64_gate`, logged).
+    Returns `flash_parity`'s errors."""
+    got, want = flash_outputs(q, k, v, do, causal, scale)
+    errs = flash_parity(tag, got, want)
+    if q.dtype == torch.float32:
+        ref = flash_f64_oracle(q, k, v, do, causal, scale)
+        kern = flash_f64_gate(f"{tag} kernels", got, ref, causal)
+        plain = flash_f64_gate(f"{tag} plain", want, ref, causal)
+        del ref
+        log("oracle", f"{tag}: max|err| / max|ref| against float64 (gate 1:"
+            f" {FLASH_F32_ORACLE_TOL}{', per row' if causal else ''}): "
+            "kernels " + ", ".join(f"{n} {r:.2e}" for n, r in kern.items())
+            + "; plain " + ", ".join(f"{n} {r:.2e}"
+                                     for n, r in plain.items()))
+    return errs
+
+
+FLASH_CASES = [  # phase 7's: tag, B, H, Sq, D, dtype, causal, Sk
+    ("training shape", TRAIN_BATCH, 16, TRAIN_SEQ, 64, torch.bfloat16, True,
+     None),
+    ("S256", 2, 4, 256, 64, torch.float32, True, None),
+    ("S129", 2, 4, 129, 64, torch.float32, True, None),
+    ("S1000", 1, 4, 1000, 64, torch.bfloat16, True, None),
+    ("S1000 D128", 1, 4, 1000, 128, torch.float32, True, None),
+    ("S129 D128", 2, 4, 129, 128, torch.bfloat16, True, None),
+    ("non-causal S256", 2, 4, 256, 64, torch.float32, False, None),
+    ("non-causal Sq100 Sk333", 1, 4, 100, 64, torch.bfloat16, False, 333),
+    ("non-causal Sq100 Sk333 D128", 1, 4, 100, 128, torch.float32, False,
+     333),
+]
+
+
+def flash_checks(dev):
+    """Phase 7's check: `_flash_check` on each of FLASH_CASES. Returns
+    ({dtype: {name: (worst max|err|, worst row ratio or None)}}, the
+    first case's {name: max|err|})."""
+    rng = np.random.RandomState(2)
+    worst = {torch.float32: {}, torch.bfloat16: {}}
+    first = None
+    for tag, bb, hh, sq, dd, dtype, causal, sk in FLASH_CASES:
+        q, k, v, do = _flash_inputs(rng, bb, hh, sq, dd, dtype, dev, sk)
+        errs = _flash_check(f"flash {tag} {dtype}", q, k, v, do, causal,
+                            dd ** -0.5)
+        first = first or {n: e for n, (e, _) in errs.items()}
+        for n, (e, r) in errs.items():
+            e0, r0 = worst[dtype].get(n, (0.0, None))
+            worst[dtype][n] = (max(e0, e),
+                               None if r is None else max(r0 or 0.0, r))
+    return worst, first
 
 
 def phase_flash(dev, shape=(TRAIN_BATCH, 16, TRAIN_SEQ, 64), iters=50):
     from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
 
-    rng = np.random.RandomState(2)
-    b, h, s, d = shape
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # tag, B, H, Sq, D, dtype, causal, Sk
-        ("training shape", b, h, s, d, bf16, True, None),
-        ("S256", 2, 4, 256, 64, f32, True, None),
-        ("S129", 2, 4, 129, 64, f32, True, None),
-        ("S1000", 1, 4, 1000, 64, bf16, True, None),
-        ("S1000 D128", 1, 4, 1000, 128, f32, True, None),
-        ("S129 D128", 2, 4, 129, 128, bf16, True, None),
-        ("non-causal S256", 2, 4, 256, 64, f32, False, None),
-        ("non-causal Sq100 Sk333", 1, 4, 100, 64, bf16, False, 333),
-        ("non-causal Sq100 Sk333 D128", 1, 4, 100, 128, f32, False, 333),
-    ]
-    worst = {f32: {}, bf16: {}}
-    slice_err = None
-    for tag, bb, hh, sq, dd, dtype, causal, sk in cases:
-        q, k, v, do = _flash_inputs(rng, bb, hh, sq, dd, dtype, dev, sk)
-        errs = _flash_check(f"flash {tag} {dtype}", q, k, v, do, causal,
-                            dd ** -0.5)
-        slice_err = slice_err or {n: e for n, (e, _) in errs.items()}
-        for n, (e, r) in errs.items():
-            e0, r0 = worst[dtype].get(n, (0.0, None))
-            worst[dtype][n] = (max(e0, e),
-                               None if r is None else max(r0 or 0.0, r))
-    for dtype in (f32, bf16):
+    worst, slice_err = flash_checks(dev)
+    for dtype, w in worst.items():
         log("flash", f"kernels vs plain, {dtype}, worst of "
-            f"{sum(c[5] == dtype for c in cases)} cases, max|err| (/ row "
-            "max|ref|): " + ", ".join(
+            f"{sum(c[5] == dtype for c in FLASH_CASES)} cases, max|err| (/ "
+            "row max|ref|): " + ", ".join(
                 f"{n} {e:.3e}" + ("" if r is None else f" ({r:.3e})")
-                for n, (e, r) in worst[dtype].items()))
-    log("flash", "tolerances: f32 o 2e-5, grads 2e-4 (abs + rel); bf16 "
-        f"per row: {FLASH_BF16_ROW_TOL} x row max|ref| (floored at 1e-3 x "
+                for n, (e, r) in w.items()))
+    log("flash", "tolerances: f32 o 2e-5, grads 2e-4 (abs + rel), and gate "
+        f"1 ({FLASH_F32_ORACLE_TOL} x max|ref| of float64); bf16 per row: "
+        f"{FLASH_BF16_ROW_TOL} x row max|ref| (floored at 1e-3 x "
         "max|ref|); lse 1e-4 abs + 1e-5 rel")
 
     # times at the training shape, bf16, causal; L2 flushed before each
     # call (34 MB of inputs, most of which a step has evicted by then)
+    rng = np.random.RandomState(7)
+    b, h, s, d = shape
+    bf16 = torch.bfloat16
     scale = d ** -0.5
     q, k, v, do = _flash_inputs(rng, b, h, s, d, bf16, dev)
     o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
@@ -3078,26 +3200,37 @@ def bert_kernel_checks(dev):
     return errs
 
 
-def kernel_times(dev, smi, tag, batch, rows, flash_dtypes, ln_dtype,
-                 o1_case=False, iters=50):
-    """Logs kernel, plain, library and bound ms of #1-5 at a model's
-    shapes: flash at B `batch`, H 12, S 512, D 64, non-causal, cold L2,
-    in each of `flash_dtypes`; the LayerNorm forward and backward at
-    `rows` x 768 in `ln_dtype` (f32 w/b), warm L2, with and without the
-    residual, and with `o1_case` the forward of the O1 epilogue (a
-    `ln_dtype` x, an f32 residual). Returns {name: (kernel ms, plain,
-    library or None, bound, bound_by)}."""
-    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
-    from paddle_tpu_torch.incubate.nn.kernels import layernorm as ln
+def flash_bounds(work, dtype):
+    """{name: (bound ms, bound_by, how)} of flash work {name: (bytes,
+    FLOP)}. bf16: the bf16 tensor cores. f32: 3xTF32, three tf32
+    products for each f32 one at 495 TFLOP/s, the least time f32-grade
+    work could take on the card (the f32 SIMT cores at 67 TFLOP/s, also
+    logged, take 2.5x as long)."""
+    out = {}
+    for n, (nb, fl) in work.items():
+        if dtype != torch.float32:
+            out[n] = bound_ms(nb, fl, PEAK_BF16_FLOPS) + ("bf16",)
+        else:
+            out[n] = bound_ms(nb, 3 * fl, PEAK_TF32_FLOPS) + (
+                f"3xTF32; f32 SIMT {bound_ms(nb, fl)[0]:.5f}",)
+    return out
 
-    rng = np.random.RandomState(19)
+
+def flash_times(dev, smi, tag, batch, dtypes, iters=50, rng=None):
+    """Logs kernel, plain, library and bound ms of #1-3 at B `batch`, H
+    12, S 512, D 64, non-causal, cold L2, in each of `dtypes` (the f32
+    rows with both bounds, `flash_bounds`). Returns {"flash <n> <dtype>":
+    (kernel ms, plain, library, bound, bound_by)}."""
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
+
+    rng = np.random.RandomState(19) if rng is None else rng
     b, hh, s, d = batch, 12, 512, 64
     scale = d ** -0.5
     out = {}
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pit = max(1, iters // 5)
-    for dtype in flash_dtypes:
+    for dtype in dtypes:
         q, k, v, do = _flash_inputs(rng, b, hh, s, d, dtype, dev)
         o, lse = fa.flash_attention_fwd(q, k, v, False, scale)
         delta = (do.float() * o.float()).sum(dim=-1)
@@ -3128,19 +3261,37 @@ def kernel_times(dev, smi, tag, batch, rows, flash_dtypes, ln_dtype,
                 "dq": (5 * elem + 2 * row, 3 * mm),
                 "dkv": (6 * elem + 2 * row, 4 * mm)}
         dname = "f32" if dtype == torch.float32 else "bf16"
-        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        bounds = flash_bounds(work, dtype)
         for n, (nb, fl) in work.items():
-            b_ms, b_by = bound_ms(nb, fl, peak)
+            b_ms, b_by, how = bounds[n]
             lib = lib_fwd if n == "fwd" else lib_bwd
             out[f"flash {n} {dname}"] = (ms[n], plain[n], lib, b_ms, b_by)
             which = "forward" if n == "fwd" else "backward (dq, dk, dv)"
             log(tag, f"[{smi}] flash {n} B={b} H={hh} S={s} D={d} {dname} "
                 f"non-causal, cold L2: kernel {ms[n]:.5f} ms | plain "
                 f"{plain[n]:.5f} | SDPA {which} {lib:.5f} | bound "
-                f"{b_ms:.5f} ({b_by}; {fl / 1e9:.2f} GFLOP, "
+                f"{b_ms:.5f} ({b_by}, {how}; {fl / 1e9:.2f} GFLOP, "
                 f"{nb / 1e6:.1f} MB) | {fl / ms[n] / 1e9:.1f} TFLOP/s")
+        log(tag, f"[{smi}] flash {dname}: dq + dk/dv "
+            f"{ms['dq'] + ms['dkv']:.5f} ms against the SDPA backward's "
+            f"{lib_bwd:.5f}")
         del q, k, v, do, o, lse, delta
-    del flush
+    return out
+
+
+def kernel_times(dev, smi, tag, batch, rows, flash_dtypes, ln_dtype,
+                 o1_case=False, iters=50):
+    """Logs kernel, plain, library and bound ms of #1-5 at a model's
+    shapes: flash at B `batch`, H 12, S 512, D 64, non-causal, cold L2,
+    in each of `flash_dtypes` (`flash_times`); the LayerNorm forward and
+    backward at `rows` x 768 in `ln_dtype` (f32 w/b), warm L2, with and
+    without the residual, and with `o1_case` the forward of the O1
+    epilogue (a `ln_dtype` x, an f32 residual). Returns {name: (kernel
+    ms, plain, library or None, bound, bound_by)}."""
+    from paddle_tpu_torch.incubate.nn.kernels import layernorm as ln
+
+    rng = np.random.RandomState(19)
+    out = flash_times(dev, smi, tag, batch, flash_dtypes, iters, rng)
 
     h, n = 768, rows
     x, r, dy, ds = (torch.from_numpy(rng.randn(n, h).astype(np.float32))
@@ -4562,7 +4713,7 @@ def phase_ernie(dev, smi):
     ln_fwd, ln_bwd = ln_bwd_checks(dev, rows=ERNIE_ROWS, hidden=768)
     log("ernie", f"[{smi}] kernels vs plain at ERNIE's shapes: flash B12 H12 "
         f"S512 D64 non-causal f32 max|err| {errs[torch.float32]:.3e} (o 2e-5,"
-        f" gradients 2e-4) and bf16 {errs[torch.bfloat16]:.3e} (per row, "
+        f" gradients 2e-4; gate 1 logged above) and bf16 {errs[torch.bfloat16]:.3e} (per row, "
         f"{FLASH_BF16_ROW_TOL} x row max|ref|); LayerNorm 6144x768, f32 and "
         f"bf16, with and without the residual, no / tanh / erf GeLU: forward"
         f" {ln_fwd[torch.float32]:.3e} / {ln_fwd[torch.bfloat16]:.3e}, "
@@ -4856,7 +5007,9 @@ def _paged_ms(by):
 
 
 def measure(dev, smi, kernels_only=False):
-    """`--measure`: the times the redesigned kernels are judged by, and
+    """`--measure`: the times the redesigned kernels are judged by (the
+    LayerNorm forward, paged attention, and the f32 flash kernels at
+    ERNIE's shape with the f32 SDPA and both bounds), and
     (unless `kernels_only`, `--kernels`) where the decode step, the
     speculative round and the training step spend their device time, on
     whichever `paddle_tpu_torch` is imported (`--tree`). A
@@ -4878,6 +5031,7 @@ def measure(dev, smi, kernels_only=False):
         f"shape), device ms: kernel {k_ms:.5f}")
     paged_times(dev, tag="measure")
     multi_times(dev, tag="measure")
+    flash_times(dev, smi, "measure", ERNIE_BATCH, (torch.float32,))
     if kernels_only:
         return
 

@@ -54,9 +54,37 @@
 // before exp2f, and the forward writes the natural-log lse. Only tiles
 // that cross the causal diagonal or a ragged end run the mask.
 //
-// f32, the comparison dtype: no tensor-core route keeps f32 exact, so
-// 8 warps share shared-memory tiles of 32 rows and compute the products
-// on SIMT cores; scores and accumulators are f32 in shared memory.
+// f32 forward (`fa_fwd_f32`): 8 warps share shared-memory tiles of 32
+// rows and compute the products on SIMT cores; scores and accumulators
+// are f32 in shared memory.
+//
+// f32 dq and dk/dv (`fa_bwd_dq_f32`, `fa_bwd_dkv_f32`; ERNIE's path, whose
+// O2 stream is f32): every product on the tensor cores at f32 grade,
+// 3xTF32 (CUTLASS's fast f32): each operand x split as hi = x rounded to
+// tf32 and lo = x - hi, and a.b = lo_a.hi_b + hi_a.lo_b + hi_a.hi_b by
+// `mma.sync` m16n8k8 (`mma_tf32`, hopper.cuh). Not `wgmma`: on tf32 it
+// takes only K-major operands, and dQ += dS.K, dV += P^T.dO and dK +=
+// dS^T.Q reduce along the rows of K, dO and Q, which would need
+// transposed hi and lo copies of every streamed tile in shared memory. A
+// CTA of 4 warps owns 64 rows (dq: q rows; dk/dv: keys), a warp 16, and
+// streams the other side in tiles (dq: K and V, 64 keys; dk/dv: Q and dO
+// with the rows' lse and delta, 64 rows, 32 at D 128) through a two-stage
+// cp.async ring, the next tile loading while this one computes; at D 64
+// two CTAs share an SM. S = Q.K^T and dP = dO.V^T (dk/dv: S^T = K.Q^T,
+// dP^T = V.dO^T) stay in registers, and so do p and ds, which are the A
+// operand of the next product: an m16n8 accumulator's lane holds columns
+// 2t and 2t + 1 where the tf32 A fragment wants k = t and t + 4, so k is
+// permuted and B's rows are loaded in the same order (`mma_xb`), with no
+// shuffles. Operands are split as their fragments load (ldmatrix for the
+// tiles read along their rows), not once a tile into hi and lo tiles in
+// shared memory, which would double the tiles and their reads and leave
+// one CTA an SM. The tensor cores truncate as they accumulate, so each
+// tile's dQ, dK and dV products are summed from 0 and added to the
+// accumulators in f32. Bound at ERNIE's shape (B 12, H 12, S 512, D 64):
+// three tf32 products for each f32 one, dq 43.5 and dk/dv 58.0 GFLOP,
+// 0.088 and 0.117 ms at the 495 TFLOP/s of `wgmma` (`mma.sync`'s own
+// tf32 ceiling is not measured). The kernels also spend issue slots on
+// the splits, the fragment loads and the softmax (PERF.md §6).
 //
 // All follow the TPU kernel's casts: the un-normalised p = exp(s - m) is
 // rounded to v's dtype before P.V (:137-139), ds to k's dtype before
@@ -466,18 +494,18 @@ __device__ __forceinline__ bool dkv_item(int round, int n_bh, int n_kt,
 }
 
 // p^T = exp2(s^T * sl2 - lse2) and ds^T = p^T * (dp^T - delta) * scale
-// over one 64-key x 64-row tile (:283-295), columns the q rows. kMask:
+// over a tile of keys x 8NT q rows (:283-295), columns the q rows. kMask:
 // the tile crosses the causal diagonal or the end of q; masked p is 0
 // (the -1e30 score's weight), so rows past the end of q add exactly 0.
-template <bool kMask, bool kCausal>
-__device__ __forceinline__ void dkv_tile(float (&st)[8][4],
-                                         float (&dpt)[8][4],
+template <bool kMask, bool kCausal, int NT>
+__device__ __forceinline__ void dkv_tile(float (&st)[NT][4],
+                                         float (&dpt)[NT][4],
                                          const float* s_lse2,
                                          const float* s_delta, int key0,
                                          int q0, int sq, float sl2,
                                          float scale) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = frag_col(nt, i);
@@ -893,7 +921,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ---------------------------------------------------------------------
-// f32: SIMT products over shared-memory tiles
+// f32 forward: SIMT products over shared-memory tiles
 // ---------------------------------------------------------------------
 
 constexpr int kThreads = 256;  // 8 warps
@@ -918,18 +946,6 @@ __device__ __forceinline__ void gemm(float* c, int ldc, const float* a,
       acc = fmaf(kTransA ? a[kk * lda + m] : a[m * lda + kk],
                  kTransB ? b[n * ldb + kk] : b[kk * ldb + n], acc);
     c[m * ldc + n] = accumulate ? c[m * ldc + n] + acc : acc;
-  }
-}
-
-// the first `rows - row0` rows of a shared tile into a [rows, D]
-// row-major matrix
-template <int D>
-__device__ __forceinline__ void store_tile(float* dst, const float* src,
-                                           int ld, int row0, int rows) {
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    if (row0 + r < rows)
-      dst[static_cast<size_t>(row0 + r) * D + d] = src[r * ld + d];
   }
 }
 
@@ -1016,155 +1032,367 @@ __global__ void __launch_bounds__(kThreads)
       lse[bh * sq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
 }
 
-// shared-memory layout of the f32 backward kernels, in floats: the dq
-// kernel uses one accumulator, the dk/dv kernel two and p
-template <int D>
-struct BwdSmem {
-  static constexpr int LDT = D + kPad, LDS = kRows + kPad;
-  static constexpr int q = 0;
-  static constexpr int dO = q + kRows * LDT;
-  static constexpr int k = dO + kRows * LDT;
-  static constexpr int v = k + kRows * LDT;
-  static constexpr int s = v + kRows * LDT;
-  static constexpr int dp = s + kRows * LDS;
-  static constexpr int ds = dp + kRows * LDS;
-  static constexpr int lse = ds + kRows * LDS;
-  static constexpr int delta = lse + kRows;
-  static constexpr int acc = delta + kRows;
-  static constexpr int acc2 = acc + kRows * LDT;
-  static constexpr size_t dq_bytes = sizeof(float) * acc2;
-  static constexpr int p = acc2 + kRows * LDT;
-  static constexpr size_t dkv_bytes = sizeof(float) * (p + kRows * LDS);
-};
+// ---------------------------------------------------------------------
+// f32 backward: 3xTF32 products on the tensor cores (mma.sync)
+// ---------------------------------------------------------------------
 
-// per-row lse and delta of q rows [q0, q0 + kRows) into shared memory;
-// rows past the end get 0
-__device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,
-                                          const float* lse,
-                                          const float* delta, int q0,
-                                          int sq) {
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    const bool ok = q0 + r < sq;
-    s_lse[r] = ok ? lse[q0 + r] : 0.f;
-    s_delta[r] = ok ? delta[q0 + r] : 0.f;
+constexpr int kTcThreads = 128;  // 4 warps
+constexpr int kTcRows = 64;      // a CTA's stationary rows, 16 a warp
+
+// x as hi + lo: hi = x rounded to tf32, lo = x - hi (exact in f32,
+// |lo| <= 2^-11 |x|), left unrounded: `mma_tf32` reads its top 19 bits,
+// which truncates it to within 2^-21 of |x|, one instruction for what
+// rounding it first would take two
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += A . B at f32 grade from three tf32 products (3xTF32, CUTLASS's
+// fast f32): the two small terms first, the large one last; lo . lo,
+// under 2^-22 of |a b|, is dropped
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// Fragments from shared f32 tiles of pitch P (D + 4 floats: the rows of
+// an 8 x 4 block fall on 32 distinct banks), split as they load.
+// A: rows [0, 16), columns [c0, c0 + 8) of a row-major tile, one
+// ldmatrix: blocks (rows 0-7, columns c0..c0 + 3), (8-15, same), (0-7,
+// c0 + 4..), (8-15, c0 + 4..) are the fragment's four registers
+template <int P>
+__device__ __forceinline__ void frag_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                       const float* a, int c0) {
+  const int l = threadIdx.x & 31;
+  uint32_t r[4];
+  ldsm_x4(r, a + ((l & 7) + 8 * ((l >> 3) & 1)) * P + c0 + 4 * (l >> 4));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(__uint_as_float(r[i]), hi[i], lo[i]);
+}
+
+// B(k, n) = b[n * P + c0 + k] for n tiles nt and nt + 1 (rows [0, 16) of
+// the tile, which are B's columns: K in Q.K^T), one ldmatrix
+template <int P>
+__device__ __forceinline__ void frag_bt2(uint32_t (&hi)[2][2],
+                                         uint32_t (&lo)[2][2], const float* b,
+                                         int c0) {
+  const int l = threadIdx.x & 31;
+  uint32_t r[4];
+  ldsm_x4(r, b + ((l & 7) + 8 * (l >> 4)) * P + c0 + 4 * ((l >> 3) & 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    split(__uint_as_float(r[i]), hi[i >> 1][i & 1], lo[i >> 1][i & 1]);
+}
+
+// B(k, n) = b[r(k) * P + n] with k = t read from row 2t and k = t + 4
+// from row 2t + 1: the k order of an accumulator taken as A (`mma_xb`)
+template <int P>
+__device__ __forceinline__ void frag_bp(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                        const float* b) {
+  const float* p = b + 2 * (threadIdx.x & 3) * P + ((threadIdx.x & 31) >> 2);
+  split(p[0], hi[0], lo[0]);
+  split(p[P], hi[1], lo[1]);
+}
+
+// d = A . B^T over D columns: A the warp's 16 rows of one shared tile, B
+// N rows of another
+template <int D, int N>
+__device__ __forceinline__ void mma_abt(float (&d)[N / 8][4], const float* a,
+                                        const float* b) {
+  constexpr int P = D + 4;
+#pragma unroll
+  for (int nt = 0; nt < N / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[nt][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    frag_a<P>(ah, al, a, 8 * kk);
+#pragma unroll
+    for (int nt = 0; nt < N / 8; nt += 2) {
+      uint32_t bh[2][2], bl[2][2];
+      frag_bt2<P>(bh, bl, b + 8 * nt * P, 8 * kk);
+      mma3(d[nt], ah, al, bh[0], bl[0]);
+      mma3(d[nt + 1], ah, al, bh[1], bl[1]);
+    }
   }
 }
 
+// d += X . B: X the warp's 16 x N accumulator (p or ds) as A, B rows [0,
+// N) by D columns of a shared tile. An accumulator's lane holds columns
+// 2t and 2t + 1 of an n8 tile where the A fragment wants t and t + 4, so
+// k is permuted: X's column 2t is k = t, 2t + 1 is k = t + 4, and B's
+// rows are read in the same order (`frag_bp`); no shuffles. The tensor
+// cores truncate as they accumulate, which over a whole sequence's tiles
+// drifts past f32 grade (2e-5 of max|dk| at S 1000 on the card), so the
+// tile's product is summed from 0, 64 columns at a time, and added to d
+// in f32
+template <int D, int N>
+__device__ __forceinline__ void mma_xb(float (&d)[D / 8][4],
+                                       const float (&x)[N / 8][4],
+                                       const float* b) {
+  constexpr int P = D + 4;
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    float part[8][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < N / 8; ++kt) {
+      uint32_t ah[4], al[4];
+      split(x[kt][0], ah[0], al[0]);
+      split(x[kt][2], ah[1], al[1]);
+      split(x[kt][1], ah[2], al[2]);
+      split(x[kt][3], ah[3], al[3]);
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd) {
+        uint32_t bh[2], bl[2];
+        frag_bp<P>(bh, bl, b + 8 * kt * P + 64 * c + 8 * nd);
+        mma3(part[nd], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[8 * c + nd][i] += part[nd][i];
+  }
+}
+
+// rows [row0, row0 + R) of a [rows, D] f32 matrix into a shared tile of
+// pitch D + 4 by cp.async, 16 bytes a thread step; rows past the end are
+// zero-filled (source size 0), never read
+template <int R, int D>
+__device__ __forceinline__ void cp_tile(float* dst, const float* src,
+                                        int row0, int rows) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < R * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = row0 + r < rows;
+    asm volatile(
+        "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+            smem_u32(dst + r * (D + 4) + c)),
+        "l"(src + static_cast<size_t>(ok ? row0 + r : 0) * D + c),
+        "r"(ok ? 16 : 0)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the warp's 16 x D accumulator into rows [row0, row0 + 16) of a [rows,
+// D] f32 matrix; rows past the end are not written
+template <int D>
+__device__ __forceinline__ void store_f32(float* dst,
+                                          const float (&x)[D / 8][4],
+                                          int row0, int rows) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + frag_row(2 * half);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(dst + static_cast<size_t>(r) * D +
+                                 frag_col(nt, 0)) =
+          make_float2(x[nt][2 * half], x[nt][2 * half + 1]);
+  }
+}
+
+// dq: a CTA owns 64 q rows of a batch*head (a warp 16) and streams K and
+// V in tiles of 64 keys through a two-stage ring; shared memory in floats
+template <int D>
+struct DqF32 {
+  static constexpr int P = D + 4;
+  static constexpr int keys = 64;
+  static constexpr int q = 0;                  // Q [64][P]
+  static constexpr int dO = q + kTcRows * P;   // dO [64][P]
+  static constexpr int kv = dO + kTcRows * P;  // stage s: K, V [keys][P]
+  static constexpr int stage = 2 * keys * P;
+  static constexpr size_t bytes = sizeof(float) * (kv + 2 * stage);
+};
+
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTcThreads)
     fa_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v,
                   const float* __restrict__ dout,
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq,
-                  int sq, int sk, float scale) {
-  using L = BwdSmem<D>;
-  constexpr int R = kRows;
-  extern __shared__ __align__(128) float fsmem[];
-  float* sQ = fsmem + L::q;
-  float* sDO = fsmem + L::dO;
-  float* sK = fsmem + L::k;
-  float* sV = fsmem + L::v;
-  float* sS = fsmem + L::s;
-  float* sDP = fsmem + L::dp;
-  float* sDS = fsmem + L::ds;
-  float* sLse = fsmem + L::lse;
-  float* sDelta = fsmem + L::delta;
-  float* sAcc = fsmem + L::acc;
-
-  const int q0 = blockIdx.x * R;
-  const size_t bh = blockIdx.y;
-  const float* kb = k + bh * sk * D;
-  const float* vb = v + bh * sk * D;
-  load_tile<kThreads, float, R, D>(sQ, L::LDT, q + bh * sq * D, q0, sq);
-  load_tile<kThreads, float, R, D>(sDO, L::LDT, dout + bh * sq * D, q0, sq);
-  load_rows(sLse, sDelta, lse + bh * sq, delta + bh * sq, q0, sq);
-  for (int i = threadIdx.x; i < R * D; i += kThreads)
-    sAcc[(i / D) * L::LDT + i % D] = 0.f;
-  const int kv_end = kCausal ? min(sk, q0 + R) : sk;
-  for (int k0 = 0; k0 < kv_end; k0 += R) {
-    __syncthreads();
-    load_tile<kThreads, float, R, D>(sK, L::LDT, kb, k0, sk);
-    load_tile<kThreads, float, R, D>(sV, L::LDT, vb, k0, sk);
-    __syncthreads();
-    gemm<false, true, R, R, D>(sS, L::LDS, sQ, L::LDT, sK, L::LDT, false);
-    gemm<false, true, R, R, D>(sDP, L::LDS, sDO, L::LDT, sV, L::LDT, false);
-    __syncthreads();
-    // p = exp(s - lse); ds = p * (dp - delta) * scale (:243-247)
-    for (int i = threadIdx.x; i < R * R; i += kThreads) {
-      const int r = i / R, c = i % R, kp = k0 + c;
-      const bool ok = kp < sk && (!kCausal || q0 + r >= kp);
-      const float s = ok ? sS[r * L::LDS + c] * scale : kNegInf;
-      const float p = expf(s - sLse[r]);
-      sDS[r * L::LDS + c] = p * (sDP[r * L::LDS + c] - sDelta[r]) * scale;
-    }
-    __syncthreads();
-    gemm<false, false, R, D, R>(sAcc, L::LDT, sDS, L::LDS, sK, L::LDT, true);
+                  int sq, int sk, float sl2, float scale) {
+  using L = DqF32<D>;
+  constexpr int P = L::P, kKeys = L::keys;
+  extern __shared__ __align__(16) float fsmem[];
+  const int bh = blockIdx.x;
+  const int qt = static_cast<int>(blockIdx.y);
+  // causal: the q tiles with the most KV tiles launch first
+  const int q0 =
+      (kCausal ? static_cast<int>(gridDim.y) - 1 - qt : qt) * kTcRows;
+  const int r0 = q0 + 16 * (threadIdx.x >> 5);  // the warp's rows
+  const size_t qo = static_cast<size_t>(bh) * sq * D;
+  const float* kb = k + static_cast<size_t>(bh) * sk * D;
+  const float* vb = v + static_cast<size_t>(bh) * sk * D;
+  // causal: KV tiles past the q tile's last row are all masked
+  const int kv_end = kCausal ? min(sk, q0 + kTcRows) : sk;
+  const int n_kv = (kv_end + kKeys - 1) / kKeys;
+  cp_tile<kTcRows, D>(fsmem + L::q, q + qo, q0, sq);
+  cp_tile<kTcRows, D>(fsmem + L::dO, dout + qo, q0, sq);
+  cp_tile<kKeys, D>(fsmem + L::kv, kb, 0, sk);
+  cp_tile<kKeys, D>(fsmem + L::kv + kKeys * P, vb, 0, sk);
+  cp_commit();
+  // the rows' lse (in base 2) and delta; rows past the end get 0
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qp = r0 + frag_row(2 * h);
+    const size_t at = static_cast<size_t>(bh) * sq + qp;
+    lse2[h] = qp < sq ? lse[at] * kLog2e : 0.f;
+    dl[h] = qp < sq ? delta[at] : 0.f;
   }
-  __syncthreads();
-  store_tile<D>(dq + bh * sq * D, sAcc, L::LDT, q0, sq);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  const float* sQ = fsmem + L::q + (r0 - q0) * P;
+  const float* sDO = fsmem + L::dO + (r0 - q0) * P;
+  for (int t = 0; t < n_kv; ++t) {
+    if (t + 1 < n_kv) {
+      // the next tile into the other stage, free since the last sync
+      float* nxt = fsmem + L::kv + ((t + 1) & 1) * L::stage;
+      cp_tile<kKeys, D>(nxt, kb, (t + 1) * kKeys, sk);
+      cp_tile<kKeys, D>(nxt + kKeys * P, vb, (t + 1) * kKeys, sk);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // tile t has landed, for every thread
+    const float* sK = fsmem + L::kv + (t & 1) * L::stage;
+    const float* sV = sK + kKeys * P;
+    const int k0 = t * kKeys;
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
+    float s[kKeys / 8][4], dps[kKeys / 8][4];
+    mma_abt<D, kKeys>(s, sQ, sK);
+    mma_abt<D, kKeys>(dps, sDO, sV);
+    if ((kCausal && k0 + kKeys - 1 > r0) || k0 + kKeys > sk)
+      dq_tile<true, kCausal>(s, dps, lse2, dl, r0, k0, sk, sl2, scale);
+    else
+      dq_tile<false, kCausal>(s, dps, lse2, dl, r0, k0, sk, sl2, scale);
+    mma_xb<D, kKeys>(acc, dps, sK);  // dQ += dS K
+    __syncthreads();  // the stage may be refilled
+  }
+  store_f32<D>(dq + qo, acc, r0, sq);
+}
+
+// dk/dv: a CTA owns 64 keys of a batch*head (a warp 16) and streams Q and
+// dO in tiles of 64 rows (32 at D 128, where two D-wide accumulators fill
+// the registers) with the rows' lse and delta through a two-stage ring;
+// shared memory in floats
+template <int D>
+struct DkvF32 {
+  static constexpr int P = D + 4;
+  static constexpr int rows = D == 64 ? 64 : 32;
+  static constexpr int k = 0;                  // K [64][P]
+  static constexpr int v = k + kTcRows * P;    // V [64][P]
+  // stage s: Q, dO [rows][P], lse * log2(e) [rows], delta [rows]
+  static constexpr int ring = v + kTcRows * P;
+  static constexpr int stage = 2 * rows * P + 2 * rows;
+  static constexpr size_t bytes = sizeof(float) * (ring + 2 * stage);
+};
+
+// q rows [q0, q0 + rows) into stage `at` of the dk/dv ring: Q and dO by
+// cp.async, lse (in base 2) and delta by the threads (rows past the end
+// get 0)
+template <int D>
+__device__ __forceinline__ void dkv_stage(float* at, const float* q,
+                                          const float* dout,
+                                          const float* lse,
+                                          const float* delta, int q0,
+                                          int sq) {
+  using L = DkvF32<D>;
+  cp_tile<L::rows, D>(at, q, q0, sq);
+  cp_tile<L::rows, D>(at + L::rows * L::P, dout, q0, sq);
+  float* sl = at + 2 * L::rows * L::P;
+  for (int r = threadIdx.x; r < L::rows; r += kTcThreads) {
+    const bool ok = q0 + r < sq;
+    sl[r] = ok ? lse[q0 + r] * kLog2e : 0.f;
+    sl[L::rows + r] = ok ? delta[q0 + r] : 0.f;
+  }
 }
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTcThreads)
     fa_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const float* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dk,
-                   float* __restrict__ dv, int sq, int sk, float scale) {
-  using L = BwdSmem<D>;
-  constexpr int R = kRows;
-  extern __shared__ __align__(128) float fsmem[];
-  float* sQ = fsmem + L::q;
-  float* sDO = fsmem + L::dO;
-  float* sK = fsmem + L::k;
-  float* sV = fsmem + L::v;
-  float* sS = fsmem + L::s;
-  float* sDP = fsmem + L::dp;
-  float* sDS = fsmem + L::ds;
-  float* sLse = fsmem + L::lse;
-  float* sDelta = fsmem + L::delta;
-  float* sDK = fsmem + L::acc;
-  float* sDV = fsmem + L::acc2;
-  float* sP = fsmem + L::p;
-
-  const int k0 = blockIdx.x * R;
-  const size_t bh = blockIdx.y;
-  const float* qb = q + bh * sq * D;
-  const float* dob = dout + bh * sq * D;
-  load_tile<kThreads, float, R, D>(sK, L::LDT, k + bh * sk * D, k0, sk);
-  load_tile<kThreads, float, R, D>(sV, L::LDT, v + bh * sk * D, k0, sk);
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    sDK[(i / D) * L::LDT + i % D] = 0.f;
-    sDV[(i / D) * L::LDT + i % D] = 0.f;
-  }
-  // causal: q tiles that end at or before this KV tile are all masked
-  for (int q0 = kCausal ? k0 : 0; q0 < sq; q0 += R) {
-    __syncthreads();
-    load_tile<kThreads, float, R, D>(sQ, L::LDT, qb, q0, sq);
-    load_tile<kThreads, float, R, D>(sDO, L::LDT, dob, q0, sq);
-    load_rows(sLse, sDelta, lse + bh * sq, delta + bh * sq, q0, sq);
-    __syncthreads();
-    gemm<false, true, R, R, D>(sS, L::LDS, sQ, L::LDT, sK, L::LDT, false);
-    gemm<false, true, R, R, D>(sDP, L::LDS, sDO, L::LDT, sV, L::LDT, false);
-    __syncthreads();
-    // rows past the end of q score -1e30 too, so they add exactly 0
-    for (int i = threadIdx.x; i < R * R; i += kThreads) {
-      const int r = i / R, c = i % R, qp = q0 + r, kp = k0 + c;
-      const bool ok = kp < sk && qp < sq && (!kCausal || qp >= kp);
-      const float s = ok ? sS[r * L::LDS + c] * scale : kNegInf;
-      const float p = expf(s - sLse[r]);
-      sP[r * L::LDS + c] = p;
-      sDS[r * L::LDS + c] = p * (sDP[r * L::LDS + c] - sDelta[r]) * scale;
+                   float* __restrict__ dv, int sq, int sk, float sl2,
+                   float scale) {
+  using L = DkvF32<D>;
+  constexpr int P = L::P, R = L::rows;
+  extern __shared__ __align__(16) float fsmem[];
+  const int bh = blockIdx.x;
+  // key tiles in order: causal, the first see the most q tiles
+  const int k0 = static_cast<int>(blockIdx.y) * kTcRows;
+  const int key0 = k0 + 16 * (threadIdx.x >> 5);  // the warp's keys
+  const size_t qo = static_cast<size_t>(bh) * sq * D;
+  const size_t ko = static_cast<size_t>(bh) * sk * D;
+  const float* lb = lse + static_cast<size_t>(bh) * sq;
+  const float* db = delta + static_cast<size_t>(bh) * sq;
+  // causal: q tiles that end before this key tile are all masked
+  const int t0 = kCausal ? k0 / R : 0;
+  const int n_t = (sq + R - 1) / R - t0;
+  cp_tile<kTcRows, D>(fsmem + L::k, k + ko, k0, sk);
+  cp_tile<kTcRows, D>(fsmem + L::v, v + ko, k0, sk);
+  dkv_stage<D>(fsmem + L::ring, q + qo, dout + qo, lb, db, t0 * R, sq);
+  cp_commit();
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk_acc[nt][i] = dv_acc[nt][i] = 0.f;
+  const float* sK = fsmem + L::k + (key0 - k0) * P;
+  const float* sV = fsmem + L::v + (key0 - k0) * P;
+  for (int t = 0; t < n_t; ++t) {
+    if (t + 1 < n_t) {
+      // the next tile into the other stage, free since the last sync
+      dkv_stage<D>(fsmem + L::ring + ((t + 1) & 1) * L::stage, q + qo,
+                   dout + qo, lb, db, (t0 + t + 1) * R, sq);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    __syncthreads();
-    gemm<true, false, R, D, R>(sDV, L::LDT, sP, L::LDS, sDO, L::LDT, true);
-    gemm<true, false, R, D, R>(sDK, L::LDT, sDS, L::LDS, sQ, L::LDT, true);
+    __syncthreads();  // tile t has landed, for every thread
+    const float* sQ = fsmem + L::ring + (t & 1) * L::stage;
+    const float* sDO = sQ + R * P;
+    const float* sl = sDO + R * P;
+    const int q0 = (t0 + t) * R;
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x R q rows a warp
+    float st[R / 8][4], dpt[R / 8][4];
+    mma_abt<D, R>(st, sK, sQ);
+    mma_abt<D, R>(dpt, sV, sDO);
+    if ((kCausal && q0 < key0 + 16) || q0 + R > sq)
+      dkv_tile<true, kCausal>(st, dpt, sl, sl + R, key0, q0, sq, sl2, scale);
+    else
+      dkv_tile<false, kCausal>(st, dpt, sl, sl + R, key0, q0, sq, sl2,
+                               scale);
+    mma_xb<D, R>(dv_acc, st, sDO);  // dV += P^T dO
+    mma_xb<D, R>(dk_acc, dpt, sQ);  // dK += dS^T Q
+    __syncthreads();  // the stage may be refilled
   }
-  __syncthreads();
-  store_tile<D>(dk + bh * sk * D, sDK, L::LDT, k0, sk);
-  store_tile<D>(dv + bh * sk * D, sDV, L::LDT, k0, sk);
+  store_f32<D>(dk + ko, dk_acc, key0, sk);
+  store_f32<D>(dv + ko, dv_acc, key0, sk);
 }
 
 // ---------------------------------------------------------------------
@@ -1202,7 +1430,7 @@ int sm_count() {
   return n;
 }
 
-// (row tile, batch*head): the f32 kernels
+// (row tile, batch*head): the f32 forward
 dim3 tiles(int rows, int tile, int bh) { return dim3(cdiv(rows, tile), bh); }
 
 template <int D, bool kCausal>
@@ -1249,10 +1477,10 @@ cudaError_t bwd_dq(int dtype, const void* q, const void* k, const void* v,
         static_cast<bf16*>(dq), bh, sq, sk, scale * kLog2e, scale);
   }
   return launch<fa_bwd_dq_f32<D, kCausal>>(
-      tiles(sq, kRows, bh), kThreads, BwdSmem<D>::dq_bytes, st,
+      dim3(bh, cdiv(sq, kTcRows)), kTcThreads, DqF32<D>::bytes, st,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-      static_cast<float*>(dq), sq, sk, scale);
+      static_cast<float*>(dq), sq, sk, scale * kLog2e, scale);
 }
 
 template <int D, bool kCausal>
@@ -1276,10 +1504,11 @@ cudaError_t bwd_dkv(int dtype, const void* q, const void* k, const void* v,
         scale * kLog2e, scale);
   }
   return launch<fa_bwd_dkv_f32<D, kCausal>>(
-      tiles(sk, kRows, bh), kThreads, BwdSmem<D>::dkv_bytes, st,
+      dim3(bh, cdiv(sk, kTcRows)), kTcThreads, DkvF32<D>::bytes, st,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), l, dl,
-      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk,
+      scale * kLog2e, scale);
 }
 
 // one call of F<D, kCausal> for the run-time head_dim (64, 128) and

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised
 // kernels: mbarriers, TMA tensor loads, wgmma descriptors and products,
-// register reallocation, and the host-side encoding of a TMA tensor map.
+// register reallocation, and the host-side encoding of a TMA tensor map;
+// and the tf32 rounding and `mma.sync` product of the f32 flash backward.
 //
 // Layout contract. Every tile a kernel stages through TMA is a box of
 // 64 bf16 columns (128 bytes) by `rows` rows of a [B*H, S, D] tensor,
@@ -206,6 +207,39 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
+}
+
+// -- mma.sync on tf32 ------------------------------------------------------
+// x rounded to tf32 (10 explicit mantissa bits), to nearest with ties
+// away from zero: a half unit added at bit 12 of the pattern, the low 13
+// bits cleared. For finite x this is `cvt.rna.tf32.f32`, two
+// instructions where ptxas makes that four (its Inf and NaN checks).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// four 8 x 8 b16 matrices from shared memory (lanes 8i..8i + 7 give
+// the row addresses of matrix i, each 16-byte aligned); lane l receives
+// row l / 4, 32-bit column l % 4 of each: of an 8 x 4 f32 block, the
+// element an m16n8k8 tf32 fragment wants
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row))
+               : "memory");
+}
+
+// d += A . B for one m16n8k8 step, tf32 operands, f32 accumulator. Lane
+// (g, t) = (lane / 4, lane % 4) holds A (16 x 8) at (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); B (8 x 8) at (t, g), (t + 4, g); and d as
+// an m16n8 accumulator: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // -- host: tensor maps ---------------------------------------------------
