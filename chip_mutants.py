@@ -45,7 +45,10 @@ lanes' vectors, as 768 does and 1024 does not. Five target the f32
 backward kernels (3xTF32 on the tensor cores): one-pass TF32 in the dq
 kernel's three products (their lo terms dropped), the same in the dk/dv
 kernel's four, dq skipping the last KV tile and dk/dv the last q tile
-when not causal, and dq with the causal diagonal masked.
+when not causal, and dq with the causal diagonal masked. Four target the
+f32 forward kernel (3xTF32): one-pass TF32 in S = Q.K^T alone, the same
+in O += P.V alone, the last KV tile skipped when not causal, and O not
+rescaled when a tile raises the running maximum.
 
 For the unmutated library (the control) and each flash mutant, three
 checks:
@@ -329,6 +332,26 @@ MUTANTS = [
      [("      dq_tile<true, kCausal>(s, dps, lse2, dl, r0, k0, sk, sl2, scale);",
        "      dq_tile<true, kCausal>(s, dps, lse2, dl, r0 - 1, k0, sk, sl2,\n"
        "                             scale);")], F32),
+    # the f32 forward kernel (3xTF32)
+    ("f32 fwd: one-pass TF32 on S = Q.K^T (its lo terms dropped)", FLASH,
+     [(ONE_PASS_AT, ONE_PASS + ONE_PASS_AT),
+      ("    mma_abt<D, kKeys>(sc, sQ, sK);\n",
+       "    mma_abt1<D, kKeys>(sc, sQ, sK);\n")], F32),
+    ("f32 fwd: one-pass TF32 on O += P.V (its lo terms dropped)", FLASH,
+     [(ONE_PASS_AT, ONE_PASS + ONE_PASS_AT),
+      ("    mma_xb<D, kKeys>(acc, sc, sV);\n",
+       "    mma_xb1<D, kKeys>(acc, sc, sV);\n")], F32),
+    ("f32 fwd: the last KV tile skipped when not causal", FLASH,
+     [("  const int n_tiles = (kv_end + kKeys - 1) / kKeys;\n",
+       "  const int n_tiles = (kv_end + kKeys - 1) / kKeys -\n"
+       "                      (!kCausal && kv_end > kKeys);\n")], F32),
+    ("f32 fwd: O not rescaled by alpha when the running max moves", FLASH,
+     [("    // O = alpha O + P V; p is not rounded, v being f32 (:137-139)\n"
+       "#pragma unroll\n"
+       "    for (int nt = 0; nt < D / 8; ++nt)\n"
+       "#pragma unroll\n"
+       "      for (int i = 0; i < 4; ++i) acc[nt][i] *= alpha[i >> 1];\n",
+       "    // O += P V, O not rescaled\n")], F32),
     ("lnfwd: a row that does not fill its lanes' vectors (768) leaves its "
      "last vector out of the variance", LN,
      [("    // the variance from the registers: mean((s - mean)^2)\n"

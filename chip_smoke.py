@@ -8,7 +8,8 @@
 
 Needs one CUDA card and `nvcc`; exits non-zero, printing no result,
 without them. `--measure` runs phases 1-2 and then only the times the
-paged-attention, LayerNorm-forward and f32 flash kernels are judged by
+paged-attention, LayerNorm-forward and flash kernels (f32 at ERNIE's
+shape, bf16 at BERT's) are judged by
 and the decode-step, speculative-round and training-step profiles
 (`measure`;
 `--kernels`: the kernel times alone), with `paddle_tpu_torch` imported
@@ -1020,13 +1021,16 @@ FLASH_BF16_ROW_TOL = 1e-2
 # (tests/test_torch_flash_f32.py: B 1 H 2, S 256 and 129, D 64 and 128,
 # causal and not) the plain f32 version and a 3xTF32 emulation pass at
 # half the limit or less and a one-pass-TF32 emulation fails it by 10x
-# or more on each of dq, dk and dv. Readings as the gate takes them
-# (worst max|err| / scale over the outputs) on an H100 at the f32 shapes
-# of phases 7, 18 and 22: the plain version 7.5e-7 to 2.7e-6, the 3xTF32
-# kernels 1.2e-6 to 4.2e-6 (the tensor cores truncate as they
-# accumulate), chip_mutants.py's one-pass-TF32 kernels 2.8e-4 or more.
-# 1e-5 passes the f32 grades at 2.3x or more and fails one pass by 27x
-# or more.
+# or more on each of dq, dk and dv; so does the forward's tiled
+# emulation, one pass on S alone failing by 8.5x or more on o. Readings
+# as the gate takes them (worst max|err| / scale over the outputs) on an
+# H100 at the f32 shapes of phases 7, 18 and 22: the plain version 7.5e-7
+# to 2.7e-6, the 3xTF32 kernels 9.9e-7 to 5.0e-6 (the tensor cores
+# truncate as they accumulate; the backward takes the kernel forward's o
+# and lse), chip_mutants.py's one-pass-TF32 kernels 8.5e-5 or more (the
+# forward's S alone, not causal; every other 1.6e-4 or more). 1e-5
+# passes the f32 grades at 2.0x or more and fails one pass by 8.5x or
+# more.
 FLASH_F32_ORACLE_TOL = 1e-5
 FLASH_F32_ROW_FLOOR = 1e-3
 FLASH_F32_DQ_FIRST_ROWS = 8
@@ -5008,8 +5012,9 @@ def _paged_ms(by):
 
 def measure(dev, smi, kernels_only=False):
     """`--measure`: the times the redesigned kernels are judged by (the
-    LayerNorm forward, paged attention, and the f32 flash kernels at
-    ERNIE's shape with the f32 SDPA and both bounds), and
+    LayerNorm forward, paged attention, the f32 flash kernels at
+    ERNIE's shape with the f32 SDPA and both bounds, and the bf16 flash
+    kernels at BERT's), and
     (unless `kernels_only`, `--kernels`) where the decode step, the
     speculative round and the training step spend their device time, on
     whichever `paddle_tpu_torch` is imported (`--tree`). A
@@ -5032,6 +5037,7 @@ def measure(dev, smi, kernels_only=False):
     paged_times(dev, tag="measure")
     multi_times(dev, tag="measure")
     flash_times(dev, smi, "measure", ERNIE_BATCH, (torch.float32,))
+    flash_times(dev, smi, "measure", BERT_BATCH, (torch.bfloat16,))
     if kernels_only:
         return
 

@@ -3,7 +3,7 @@
 // 128, over [B*H, S, D] row-major tensors.
 //
 // Replaces: paddle_tpu/incubate/nn/attention_pallas.py
-//   `_fa_fwd_kernel` (:97), launched by `_flash_fwd_impl` (:159):
+//   `_fa_fwd_kernel` (:97), launched by `_flash_fwd_impl` (:179):
 //     `fa_fwd_wgmma` (bf16), `fa_fwd_f32`;
 //   `_fa_bwd_dq_kernel` (:215), launched by `_flash_bwd_impl` (:345):
 //     `fa_bwd_dq_wgmma` (bf16), `fa_bwd_dq_f32`;
@@ -54,37 +54,38 @@
 // before exp2f, and the forward writes the natural-log lse. Only tiles
 // that cross the causal diagonal or a ragged end run the mask.
 //
-// f32 forward (`fa_fwd_f32`): 8 warps share shared-memory tiles of 32
-// rows and compute the products on SIMT cores; scores and accumulators
-// are f32 in shared memory.
-//
-// f32 dq and dk/dv (`fa_bwd_dq_f32`, `fa_bwd_dkv_f32`; ERNIE's path, whose
-// O2 stream is f32): every product on the tensor cores at f32 grade,
-// 3xTF32 (CUTLASS's fast f32): each operand x split as hi = x rounded to
-// tf32 and lo = x - hi, and a.b = lo_a.hi_b + hi_a.lo_b + hi_a.hi_b by
-// `mma.sync` m16n8k8 (`mma_tf32`, hopper.cuh). Not `wgmma`: on tf32 it
-// takes only K-major operands, and dQ += dS.K, dV += P^T.dO and dK +=
-// dS^T.Q reduce along the rows of K, dO and Q, which would need
-// transposed hi and lo copies of every streamed tile in shared memory. A
-// CTA of 4 warps owns 64 rows (dq: q rows; dk/dv: keys), a warp 16, and
-// streams the other side in tiles (dq: K and V, 64 keys; dk/dv: Q and dO
-// with the rows' lse and delta, 64 rows, 32 at D 128) through a two-stage
-// cp.async ring, the next tile loading while this one computes; at D 64
-// two CTAs share an SM. S = Q.K^T and dP = dO.V^T (dk/dv: S^T = K.Q^T,
-// dP^T = V.dO^T) stay in registers, and so do p and ds, which are the A
-// operand of the next product: an m16n8 accumulator's lane holds columns
-// 2t and 2t + 1 where the tf32 A fragment wants k = t and t + 4, so k is
-// permuted and B's rows are loaded in the same order (`mma_xb`), with no
-// shuffles. Operands are split as their fragments load (ldmatrix for the
-// tiles read along their rows), not once a tile into hi and lo tiles in
-// shared memory, which would double the tiles and their reads and leave
-// one CTA an SM. The tensor cores truncate as they accumulate, so each
-// tile's dQ, dK and dV products are summed from 0 and added to the
-// accumulators in f32. Bound at ERNIE's shape (B 12, H 12, S 512, D 64):
-// three tf32 products for each f32 one, dq 43.5 and dk/dv 58.0 GFLOP,
-// 0.088 and 0.117 ms at the 495 TFLOP/s of `wgmma` (`mma.sync`'s own
-// tf32 ceiling is not measured). The kernels also spend issue slots on
-// the splits, the fragment loads and the softmax (PERF.md §6).
+// f32 forward, dq and dk/dv (`fa_fwd_f32`, `fa_bwd_dq_f32`,
+// `fa_bwd_dkv_f32`; ERNIE's path, whose O2 stream is f32): every product
+// on the tensor cores at f32 grade, 3xTF32 (CUTLASS's fast f32): each
+// operand x split as hi = x rounded to tf32 and lo = x - hi, and a.b =
+// lo_a.hi_b + hi_a.lo_b + hi_a.hi_b by `mma.sync` m16n8k8 (`mma_tf32`,
+// hopper.cuh). Not `wgmma`: on tf32 it takes only K-major operands, and
+// O += P.V, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q reduce along the
+// rows of V, K, dO and Q, which would need transposed hi and lo copies
+// of every streamed tile in shared memory. A CTA of 4 warps owns 64 rows
+// (forward and dq: q rows; dk/dv: keys), a warp 16, and streams the
+// other side in tiles (forward and dq: K and V, 64 keys; dk/dv: Q and dO
+// with the rows' lse and delta, 64 rows, 32 at D 128) through a
+// two-stage cp.async ring, the next tile loading while this one
+// computes; at D 64 two CTAs share an SM. Causal, the q tiles with the
+// most KV tiles launch first. S = Q.K^T and dP = dO.V^T (dk/dv: S^T =
+// K.Q^T, dP^T = V.dO^T) stay in registers, and so do p and ds, which
+// are the A operand of the next product: an m16n8 accumulator's lane
+// holds columns 2t and 2t + 1 where the tf32 A fragment wants k = t and
+// t + 4, so k is permuted and B's rows are loaded in the same order
+// (`mma_xb`), with no shuffles. The forward's online softmax is the bf16
+// forward's (`softmax_tile`, in registers, base 2) and rescales O in
+// registers. Operands are split as their fragments load (ldmatrix for
+// the tiles read along their rows), not once a tile into hi and lo
+// tiles in shared memory, which would double the tiles and their reads
+// and leave one CTA an SM. The tensor cores truncate as they accumulate,
+// so each tile's P.V, dQ, dK and dV products are summed from 0 and added
+// to the accumulators in f32. Bound at ERNIE's shape (B 12, H 12, S 512,
+// D 64): three tf32 products for each f32 one, forward 29.0, dq 43.5
+// and dk/dv 58.0 GFLOP, 0.0586, 0.088 and 0.117 ms at the 495 TFLOP/s
+// of `wgmma` (`mma.sync`'s own tf32 ceiling is not measured). The
+// kernels also spend issue slots on the splits, the fragment loads and
+// the softmax (PERF.md §6).
 //
 // All follow the TPU kernel's casts: the un-normalised p = exp(s - m) is
 // rounded to v's dtype before P.V (:137-139), ds to k's dtype before
@@ -112,36 +113,6 @@ using namespace hopper;
 constexpr float kNegInf = -1e30f;  // `_NEG_INF`: exp underflows to 0
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [row0, row0 + kRows) of a [rows, D] row-major matrix into a
-// shared tile of pitch `ld`, 16 bytes per thread step; rows past the
-// end are zeros
-template <int kThreads, typename T, int kRows, int D>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          int row0, int rows) {
-  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks, ch = i % kChunks;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      v = reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row0 + r) * D)[ch];
-    reinterpret_cast<uint4*>(dst + r * ld)[ch] = v;
-  }
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // RNE
@@ -259,19 +230,20 @@ __device__ __forceinline__ bool fwd_item(int round, int n_bh, int n_qt,
   return true;
 }
 
-// online softmax over one 64 x 128 score tile of a consumer warpgroup
-// (:130-141) in base 2: m is the running max of s * scale * log2(e);
-// leaves p = exp2(s * sl2 - m) in s, and the rescale of the running
-// sums in alpha. kMask: the tile crosses the causal diagonal or the end
-// of k, so masked scores become -1e30 first.
-template <bool kMask, bool kCausal>
-__device__ __forceinline__ void softmax_tile(float (&s)[16][4],
+// online softmax over a warp's 16 x 8NT score tile, an m16n8
+// accumulator (:130-141), in base 2: m is the running max of s * scale *
+// log2(e); leaves p = exp2(s * sl2 - m) in s, and the rescale of the
+// running sums in alpha. kMask: the tile crosses the causal diagonal or
+// the end of k, so masked scores become -1e30 first. The bf16 forward
+// takes 128 keys a tile (NT 16), the f32 forward 64 (NT 8).
+template <bool kMask, bool kCausal, int NT>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
                                              float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int row0,
                                              int k0, int sk, float sl2) {
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (kMask) {
@@ -282,7 +254,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4],
     }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    // a row's 128 scores are spread over the 4 lanes of a quad
+    // a row's 8NT scores are spread over the 4 lanes of a quad
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
     const float m_new = fmaxf(m[h], mx[h] * sl2);
@@ -291,12 +263,28 @@ __device__ __forceinline__ void softmax_tile(float (&s)[16][4],
     l[h] *= alpha[h];
   }
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       s[nt][i] = exp2f(fmaf(s[nt][i], sl2, -m[i >> 1]));
       l[i >> 1] += s[nt][i];  // this lane's part of the row sum
     }
+}
+
+// the online softmax's end for the warp's rows g and g + 8 (:143-149):
+// l summed over the quad and floored at 1e-30, lse = m + log(l) (m back
+// from base 2) into lse[row] for the rows before sq
+__device__ __forceinline__ void finish_rows(float (&l)[2],
+                                            const float (&m)[2], float* lse,
+                                            int row0, int sq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = fmaxf(l[h], 1e-30f);
+    const int qp = row0 + frag_row(2 * h);
+    if ((threadIdx.x & 3) == 0 && qp < sq) lse[qp] = m[h] * kLn2 + logf(l[h]);
+  }
 }
 
 template <int D, bool kCausal>
@@ -435,18 +423,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       if (lane0) mbar_arrive(&empty[s]);  // the stage may be refilled
     }
     if (lane0) mbar_arrive(&q_empty[n & 1]);  // and the Q slot
-    // acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)) (:143-149),
-    // m back from base 2
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-      l[h] = fmaxf(l[h], 1e-30f);
-      const int qp = wrow0 + frag_row(2 * h);
-      if ((threadIdx.x & 3) == 0 && qp < sq)
-        lse[static_cast<size_t>(item.bh) * sq + qp] =
-            m[h] * kLn2 + logf(l[h]);
-    }
+    // o = acc / l, and lse
+    finish_rows(l, m, lse + static_cast<size_t>(item.bh) * sq, wrow0, sq);
     store_rows<D>(o + static_cast<size_t>(item.bh) * sq * D, acc, wrow0, sq,
                   l[0], l[1]);
   }
@@ -921,119 +899,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ---------------------------------------------------------------------
-// f32 forward: SIMT products over shared-memory tiles
-// ---------------------------------------------------------------------
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;      // rows of every tile
-constexpr int kPad = 4;        // f32 row padding: 16 bytes
-
-// C[M][N] = (C +) op(A)[M][K] . op(B)[K][N], all in shared memory:
-//   A(m, k) = kTransA ? a[k * lda + m] : a[m * lda + k]
-//   B(k, n) = kTransB ? b[n * ldb + k] : b[k * ldb + n]
-// one output element per thread step, summed in k order and then added
-// to C (the TPU kernel's `acc + dot(...)`)
-template <bool kTransA, bool kTransB, int M, int N, int K>
-__device__ __forceinline__ void gemm(float* c, int ldc, const float* a,
-                                     int lda, const float* b, int ldb,
-                                     bool accumulate) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int m = i / N, n = i % N;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int kk = 0; kk < K; ++kk)
-      acc = fmaf(kTransA ? a[kk * lda + m] : a[m * lda + kk],
-                 kTransB ? b[n * ldb + kk] : b[kk * ldb + n], acc);
-    c[m * ldc + n] = accumulate ? c[m * ldc + n] + acc : acc;
-  }
-}
-
-// shared-memory layout of the f32 forward kernel, in floats
-template <int D>
-struct FwdSmem {
-  static constexpr int LDT = D + kPad, LDS = kRows + kPad;
-  static constexpr int q = 0;
-  static constexpr int k = q + kRows * LDT;
-  static constexpr int v = k + kRows * LDT;
-  static constexpr int s = v + kRows * LDT;  // scores, then p
-  static constexpr int o = s + kRows * LDS;
-  static constexpr int m = o + kRows * LDT;
-  static constexpr int l = m + kRows;
-  static constexpr size_t bytes = sizeof(float) * (l + kRows);
-};
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-    fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, int sq, int sk, float scale) {
-  using L = FwdSmem<D>;
-  constexpr int R = kRows;
-  extern __shared__ __align__(128) float fsmem[];
-  float* sQ = fsmem + L::q;
-  float* sK = fsmem + L::k;
-  float* sV = fsmem + L::v;
-  float* sS = fsmem + L::s;
-  float* sO = fsmem + L::o;
-  float* sM = fsmem + L::m;
-  float* sL = fsmem + L::l;
-
-  const int q0 = blockIdx.x * R;
-  const size_t bh = blockIdx.y;
-  const float* kb = k + bh * sk * D;
-  const float* vb = v + bh * sk * D;
-  load_tile<kThreads, float, R, D>(sQ, L::LDT, q + bh * sq * D, q0, sq);
-  for (int i = threadIdx.x; i < R * D; i += kThreads)
-    sO[(i / D) * L::LDT + i % D] = 0.f;
-  for (int i = threadIdx.x; i < R; i += kThreads) {
-    sM[i] = kNegInf;
-    sL[i] = 0.f;
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kv_end = kCausal ? min(sk, q0 + R) : sk;
-  for (int k0 = 0; k0 < kv_end; k0 += R) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<kThreads, float, R, D>(sK, L::LDT, kb, k0, sk);
-    load_tile<kThreads, float, R, D>(sV, L::LDT, vb, k0, sk);
-    __syncthreads();
-    gemm<false, true, R, R, D>(sS, L::LDS, sQ, L::LDT, sK, L::LDT, false);
-    __syncthreads();
-    // online softmax, one warp per row, one score per lane (:130-141)
-    for (int r = warp; r < R; r += kWarps) {
-      const int kp = k0 + lane;
-      const bool ok = kp < sk && (!kCausal || q0 + r >= kp);
-      const float sv = ok ? sS[r * L::LDS + lane] * scale : kNegInf;
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, warp_max(sv));
-      const float p = expf(sv - m_new);
-      sS[r * L::LDS + lane] = p;
-      const float sum = warp_sum(p);
-      const float alpha = expf(m_prev - m_new);
-      for (int d = lane; d < D; d += 32) sO[r * L::LDT + d] *= alpha;
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-      }
-    }
-    __syncthreads();
-    gemm<false, false, R, D, R>(sO, L::LDT, sS, L::LDS, sV, L::LDT, true);
-  }
-  __syncthreads();
-  // acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)) (:143-149)
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    if (q0 + r < sq)
-      o[(bh * sq + q0 + r) * D + d] =
-          sO[r * L::LDT + d] / fmaxf(sL[r], 1e-30f);
-  }
-  for (int r = threadIdx.x; r < R; r += kThreads)
-    if (q0 + r < sq)
-      lse[bh * sq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
-}
-
-// ---------------------------------------------------------------------
-// f32 backward: 3xTF32 products on the tensor cores (mma.sync)
+// f32 forward and backward: 3xTF32 products on the tensor cores
+// (mma.sync)
 // ---------------------------------------------------------------------
 
 constexpr int kTcThreads = 128;  // 4 warps
@@ -1205,6 +1072,91 @@ __device__ __forceinline__ void store_f32(float* dst,
                                  frag_col(nt, 0)) =
           make_float2(x[nt][2 * half], x[nt][2 * half + 1]);
   }
+}
+
+// forward: a CTA owns 64 q rows of a batch*head (a warp 16) and streams K
+// and V in tiles of 64 keys through a two-stage ring, as dq does without
+// dO; shared memory in floats (85 KB at D 64: two CTAs an SM; 165 KB at
+// D 128)
+template <int D>
+struct FwdF32 {
+  static constexpr int P = D + 4;
+  static constexpr int keys = 64;
+  static constexpr int q = 0;                 // Q [64][P]
+  static constexpr int kv = q + kTcRows * P;  // stage s: K, V [keys][P]
+  static constexpr int stage = 2 * keys * P;
+  static constexpr size_t bytes = sizeof(float) * (kv + 2 * stage);
+};
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kTcThreads)
+    fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int sq, int sk, float sl2) {
+  using L = FwdF32<D>;
+  constexpr int P = L::P, kKeys = L::keys;
+  extern __shared__ __align__(16) float fsmem[];
+  const int bh = blockIdx.x;
+  const int qt = static_cast<int>(blockIdx.y);
+  // causal: the q tiles with the most KV tiles launch first
+  const int q0 =
+      (kCausal ? static_cast<int>(gridDim.y) - 1 - qt : qt) * kTcRows;
+  const int r0 = q0 + 16 * (threadIdx.x >> 5);  // the warp's rows
+  const size_t qo = static_cast<size_t>(bh) * sq * D;
+  const float* kb = k + static_cast<size_t>(bh) * sk * D;
+  const float* vb = v + static_cast<size_t>(bh) * sk * D;
+  // causal: KV tiles past the q tile's last row are all masked
+  const int kv_end = kCausal ? min(sk, q0 + kTcRows) : sk;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  cp_tile<kTcRows, D>(fsmem + L::q, q + qo, q0, sq);
+  cp_tile<kKeys, D>(fsmem + L::kv, kb, 0, sk);
+  cp_tile<kKeys, D>(fsmem + L::kv + kKeys * P, vb, 0, sk);
+  cp_commit();
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // rows g, g + 8
+  const float* sQ = fsmem + L::q + (r0 - q0) * P;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      // the next tile into the other stage, free since the last sync
+      float* nxt = fsmem + L::kv + ((t + 1) & 1) * L::stage;
+      cp_tile<kKeys, D>(nxt, kb, (t + 1) * kKeys, sk);
+      cp_tile<kKeys, D>(nxt + kKeys * P, vb, (t + 1) * kKeys, sk);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // tile t has landed, for every thread
+    const float* sK = fsmem + L::kv + (t & 1) * L::stage;
+    const float* sV = sK + kKeys * P;
+    const int k0 = t * kKeys;
+    // S = Q K^T: 16 rows x 64 keys a warp, in registers
+    float sc[kKeys / 8][4];
+    mma_abt<D, kKeys>(sc, sQ, sK);
+    float alpha[2];
+    if ((kCausal && k0 + kKeys - 1 > r0) || k0 + kKeys > sk)
+      softmax_tile<true, kCausal>(sc, m, l, alpha, r0, k0, sk, sl2);
+    else
+      softmax_tile<false, kCausal>(sc, m, l, alpha, r0, k0, sk, sl2);
+    // O = alpha O + P V; p is not rounded, v being f32 (:137-139)
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] *= alpha[i >> 1];
+    mma_xb<D, kKeys>(acc, sc, sV);
+    __syncthreads();  // the stage may be refilled
+  }
+  // o = acc / l, and lse
+  finish_rows(l, m, lse + static_cast<size_t>(bh) * sq, r0, sq);
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] /= l[i >> 1];
+  store_f32<D>(o + qo, acc, r0, sq);
 }
 
 // dq: a CTA owns 64 q rows of a batch*head (a warp 16) and streams K and
@@ -1430,9 +1382,6 @@ int sm_count() {
   return n;
 }
 
-// (row tile, batch*head): the f32 forward
-dim3 tiles(int rows, int tile, int bh) { return dim3(cdiv(rows, tile), bh); }
-
 template <int D, bool kCausal>
 cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
                 void* o, void* lse, int bh, int sq, int sk, float scale,
@@ -1450,10 +1399,10 @@ cudaError_t fwd(int dtype, const void* q, const void* k, const void* v,
         sq, sk, scale * kLog2e);
   }
   return launch<fa_fwd_f32<D, kCausal>>(
-      tiles(sq, kRows, bh), kThreads, FwdSmem<D>::bytes, st,
+      dim3(bh, cdiv(sq, kTcRows)), kTcThreads, FwdF32<D>::bytes, st,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), l, sq, sk,
-      scale);
+      scale * kLog2e);
 }
 
 template <int D, bool kCausal>

@@ -20,8 +20,8 @@ and dq, a key of dk and dv) within 1e-2 x its own max|ref|, one bf16
 ulp of its largest value (a final rounding that falls the other way)
 and a quarter ulp for the f32 sums before it: the kernel rounds p
 against per-tile running maxima, the plain version against the row
-maximum. The f32 dq and dk/dv kernels (3xTF32 on the tensor cores) are
-also held to `chip_smoke.py`'s gate 1: every output within 1e-5 x
+maximum. The f32 forward, dq and dk/dv kernels (3xTF32 on the tensor
+cores) are also held to `chip_smoke.py`'s gate 1: every output within 1e-5 x
 max|ref| of a float64 oracle (per row where causal). The LayerNorm
 backward: f32 within 1e-5 x max|ref| (dw, db sum over rows in another
 order); bf16 dx within one bf16 ulp (1e-2), dw and db (f32 sums of the
@@ -216,24 +216,31 @@ def _chip_smoke():
     (1, 4, 1000, 128, True, None), (2, 4, 256, 64, False, None),
     (1, 4, 100, 128, False, 333), (12, 12, 512, 64, False, None)])
 def test_flash_f32_backward_kernels_gate_1(cuda, b, h, sq, d, causal, sk):
-    """The f32 dq and dk/dv kernels at phase 7's f32 shapes and ERNIE's
-    (B 12, H 12, S 512, D 64, non-causal), on the plain forward's o and
-    lse: within 2e-4 of their plain versions (the JAX-parity gate) and,
-    with that o and lse, through gate 1 against the float64 oracle."""
+    """The f32 forward, dq and dk/dv kernels (3xTF32) at phase 7's f32
+    shapes and ERNIE's (B 12, H 12, S 512, D 64, non-causal): the
+    forward's o and lse within 2e-5 (lse 1e-4 + 1e-5 relative) of the
+    plain forward's, the backward kernels, on the kernel's o and lse,
+    within 2e-4 of their plain versions on the same (the JAX-parity
+    gate); and all five outputs through gate 1 against the float64
+    oracle."""
     cs = _chip_smoke()
     rng = np.random.RandomState(sq + d)
     q, k, v, do = cs._flash_inputs(rng, b, h, sq, d, torch.float32, cuda, sk)
     scale = d ** -0.5
-    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
-    delta = (do * o).sum(dim=-1)
     before = kernels.launches()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    delta = (do * o).sum(dim=-1)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
                                         scale)
     torch.cuda.synchronize()
     after = kernels.launches()
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
         assert after[name] == before[name] + 1, name
+    o0, lse0 = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    torch.testing.assert_close(o, o0, rtol=2e-5, atol=2e-5, msg="o")
+    torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-4, msg="lse")
     dq0 = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                               causal, scale)
     dk0, dv0 = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -243,8 +250,7 @@ def test_flash_f32_backward_kernels_gate_1(cuda, b, h, sq, d, causal, sk):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4,
                                    msg=name)
     ref = cs.flash_f64_oracle(q, k, v, do, causal, scale)
-    cs.flash_f64_gate("f32 backward kernels", (o, lse, dq, dk, dv), ref,
-                      causal)
+    cs.flash_f64_gate("f32 kernels", (o, lse, dq, dk, dv), ref, causal)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
