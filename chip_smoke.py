@@ -236,6 +236,41 @@ printing one line (or a few):
               (rank 1 skips its shards' step-1 update, 2 steps) that
               must fail both the loss and the share gate; step ms, the
               collectives' host-clock share, peak memory a rank
+ 24. ernie_pp ERNIE and GPT at pp 2 over gloo ranks on the one card.
+     gpt_pp   First GPT-2 345M (bf16 O2, AdamW, B 4 x S 1024) at pp 1
+              for 3 steps in this process, the reference. Then 2 ranks
+              spawned once, each fleet.init with hybrid_configs
+              {"dp_degree": 1, "mp_degree": 1, "pp_degree": 2}: phase
+              22's model (full width and depth, seed 0, bf16 O2; each
+              rank builds it whole and keeps its stage: the embedding
+              and 6 blocks, or 6 blocks and the head) and batch through
+              fleet.distributed_model's PipelineParallel.train_batch,
+              accumulate_steps 4 (micro-batches of 3), 4 steps under
+              "F-then-B" and again from the same weights under "1F1B":
+              each within phase 23's gates (losses 0.01%, the gathered
+              f32 weights after step 1 within 2 lr, no tensor with more
+              than 0.1% off by > lr / 2) against phase 22 and against a
+              pp 1 run of the same micro-batches in this process (the
+              share against phase 22 leaves out the elements where that
+              pp 1 run lies off phase 22's by > lr / 2: gradients whose
+              sign the micro-batch sums flip), each bit-identical to
+              that pp 1 run (losses, f32 weights after step 1), the two
+              modes bit for bit (losses, weights and masters by sha256),
+              exact launches a stage (its blocks x 4 for the LayerNorm
+              and flash kernels, 1 fused_adam), 1F1B's stage-0 peak
+              memory below F-then-B's; two planted faults, 2 steps each,
+              that must fail a gate (stage 1 sends back zeros for its
+              input gradient; every stage skips the last micro-batch's
+              backward); GPT-2 345M with pp_num_stages 2 and 4
+              micro-batches through DistributedTrainStepCompiler(mesh=
+              {"pp": 2}), gpipe and 1f1b, 3 steps each: each loss within
+              0.1% of the pp 1 run, the loss falls, gpipe = 1f1b bit for
+              bit, the tied wte bit-identical on both stages after every
+              step, exact launches. Then 4 ranks at mp 2 x pp 2, 1F1B,
+              the same gates. Step ms (host clock; the stages share the
+              card, so no bubble or overlap shows), comm/send, recv,
+              all_reduce calls, bytes and host-clock share, parameters
+              and peak memory a rank
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -1446,9 +1481,10 @@ def ln_fwd_times(dev, rows=TRAIN_BATCH * TRAIN_SEQ, hidden=1024, iters=100,
 
 
 # -- phase 9 -----------------------------------------------------------
-def _train_model(dev, num_layers=24, o2=True):
+def _train_model(dev, num_layers=24, o2=True, **pp):
     """bench_gpt2's on-chip GPT-2 345M (bench.py:540-545), weights from
-    seed 0; bf16 O2 unless `o2` is False."""
+    seed 0; bf16 O2 unless `o2` is False; `pp`: GPTConfig's pipeline
+    fields."""
     import dataclasses
 
     from paddle_tpu_torch import amp
@@ -1456,7 +1492,7 @@ def _train_model(dev, num_layers=24, o2=True):
 
     cfg = dataclasses.replace(
         gpt2_345m(max_seq_len=TRAIN_SEQ, dropout=0.0, remat=False,
-                  use_flash_attention=True), num_layers=num_layers)
+                  use_flash_attention=True, **pp), num_layers=num_layers)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = GPTForCausalLM(cfg, device=dev, generator=gen)
     return amp.decorate(model, level="O2", dtype="bfloat16") if o2 else model
@@ -4866,7 +4902,8 @@ def _ernie_mp_run(dev, steps, fault=False):
     return runs, full, wall
 
 
-def _ernie_mp_readings(losses, full, ref_losses, ref_after1):
+def _ernie_mp_readings(losses, full, ref_losses, ref_after1,
+                       share_mask=None):
     """Phase 23's readings against phase 22's mp 1 run from the same
     weights and batch: the worst relative loss gap over the steps; of
     the f32 weights after step 1 (master weights, f32 norm parameters),
@@ -4878,7 +4915,8 @@ def _ernie_mp_readings(losses, full, ref_losses, ref_after1):
     while a skipped or reversed update moves a whole shard by lr or 2 lr.
     The key third of each qkv bias is held to the element limit only:
     its true gradient is 0 (a key bias adds the same score to a whole
-    row), so its sign is rounding noise in both runs."""
+    row), so its sign is rounding noise in both runs. `share_mask`
+    ({name: bool tensor}) limits the share to the elements it marks."""
     loss = max(abs(got - want) / abs(want)
                for got, want in zip(losses, ref_losses))
     if set(full) != set(ref_after1):
@@ -4894,6 +4932,8 @@ def _ernie_mp_readings(losses, full, ref_losses, ref_after1):
         err = (got - want).abs()
         elem = max(elem, float((err / (2 * ERNIE_LR + 2 ** -22
                                        * want.abs())).max()))
+        if share_mask is not None:
+            err = torch.where(share_mask[n], err, 0.0)
         if n.endswith("qkv.bias"):
             third = err.shape[-1] // 3
             err = torch.cat([err[..., :third], err[..., 2 * third:]], -1)
@@ -4995,6 +5035,524 @@ def phase_ernie_mp(dev, smi, ref_losses, ref_after1,
         + " / ".join(f"{r['peak_bytes'] / 2 ** 30:.2f}" for r in runs)
         + " GiB; launches a rank over the steps: " + "; ".join(
             f"rank {r['rank']} {r['launches']}" for r in runs[:1]))
+
+
+# -- phase 24 ------------------------------------------------------------
+# ERNIE at pp 2 (and mp 2 x pp 2) over gloo ranks on the one card, at
+# phase 22's recipe with accumulate_steps 4 (micro-batches of 3), held to
+# phase 23's gates against phase 22's run; GPT-2 345M at pp 2 with 4
+# micro-batches, held within GPT_PP_TOL of a pp 1 run
+ERNIE_PP_ACC, ERNIE_PP_STEPS = 4, 4
+GPT_PP_M, GPT_PP_STEPS, GPT_PP_TOL = 4, 3, 1e-3
+PP_COMM = ("comm/send/calls", "comm/send/bytes", "comm/send/host_us",
+           "comm/recv/calls", "comm/recv/bytes", "comm/recv/host_us",
+           "comm/all_reduce/calls", "comm/all_reduce/bytes",
+           "comm/all_reduce/host_us", "comm/broadcast/host_us")
+
+
+def _pp_stage_launches(n_blocks, micro, ln_extra=0):
+    """Launches a step of a pipeline stage of `n_blocks` transformer
+    blocks over `micro` micro-batches: each block's two LayerNorms
+    forward and backward and its three flash kernels once a micro-batch
+    (`ln_extra` more LayerNorms a micro-batch: GPT's last LayerNorm on
+    its last stage), and one fused_adam (a stage's parameters fill one
+    table)."""
+    ln = (2 * n_blocks + ln_extra) * micro
+    return {"fused_layer_norm": ln, "fused_layer_norm_bwd": ln,
+            "flash_attention_fwd": n_blocks * micro,
+            "flash_attention_bwd_dq": n_blocks * micro,
+            "flash_attention_bwd_dkv": n_blocks * micro,
+            "fused_adam": 1}
+
+
+def _sha(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(tensors):
+        h.update(n.encode())
+        h.update(tensors[n].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _pp_steps(train, steps, sync, after_first=None):
+    """`steps` calls of `train()` (each returns the loss), timed on the
+    host clock with the comm counters read around each: (losses,
+    seconds, comm deltas)."""
+    from paddle_tpu_torch.core import monitor as cmon
+
+    losses, step_s, comm = [], [], []
+    for i in range(steps):
+        before = [cmon.stat_get(k) for k in PP_COMM]
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(train()))
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        comm.append([cmon.stat_get(k) - b for k, b in zip(PP_COMM, before)])
+        if i == 0 and after_first is not None:
+            after_first()
+    return losses, step_s, comm
+
+
+def _pp_ernie(out_dir, dev, sync, mp, modes, fault=None):
+    """ERNIE at mp x pp 2 through fleet's PipelineParallel, once for
+    each schedule mode in `modes` from the same start weights: losses,
+    times, comm, launches, peak memory and the weights' hash; rank 0
+    saves the gathered f32 weights after step 1. `fault`: "no_grad_back"
+    (stage 1 sends back zeros for its input gradient) or
+    "skip_backward" (every stage skips the last micro-batch's
+    backward), 2 steps."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import fleet, get_rank, pipeline
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.ernie import ErnieBlock
+
+    rank = get_rank()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": mp,
+                               "pp_degree": 2}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    model = _ernie_model(dev)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    blocks = sum(isinstance(m, ErnieBlock) for m in model.ernie._layers.values())
+    ids, labels = _ernie_batch(model.config.vocab_size, dev)
+    real_order, real_grad = pipeline.schedule_order, pipeline._input_grad
+    if fault == "skip_backward":
+        pipeline.schedule_order = lambda *a: [
+            o for o in real_order(*a) if o != ("B", a[-1] - 1)]
+    if fault == "no_grad_back" and hcg.get_stage_id() == 1:
+        pipeline._input_grad = lambda x: torch.zeros_like(x)
+    steps = 2 if fault else ERNIE_PP_STEPS
+    out = {}
+    for mode in modes:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        strategy.pipeline_configs = {"accumulate_steps": ERNIE_PP_ACC,
+                                     "schedule_mode": mode}
+        pp = fleet.distributed_model(model.ernie)
+        opt = AdamW(learning_rate=ERNIE_LR,
+                    parameters=model.named_parameters(),
+                    weight_decay=ERNIE_WD, multi_precision=True)
+        tag = f"{mode}{'_' + fault if fault else ''}"
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        held = {}
+
+        def first():
+            held["launches"] = kernels.launches()
+            full = convert.gather_state_dict(
+                model, _ernie_weights(model, opt), all_ranks=False)
+            if rank == 0:
+                torch.save(full, os.path.join(out_dir,
+                                              f"ernie_pp_{tag}_step1.pt"))
+            del full
+            kernels.reset_launches()
+
+        losses, step_s, comm = _pp_steps(
+            lambda: pp.train_batch((ids, labels), opt), steps, sync, first)
+        counts = kernels.launches()
+        out[tag] = {
+            "losses": losses, "step_s": step_s, "comm": comm,
+            "launches": {k: held["launches"][k] + v
+                         for k, v in counts.items()},
+            "per_step": _pp_stage_launches(blocks, ERNIE_PP_ACC),
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else 0),
+            "max_stash": pp._schedule.max_stash,
+            "sha256": _sha({**dict(model.named_parameters()),
+                            **{f"{n}.master": t for n, t in
+                               _ernie_weights(model, opt).items()}})}
+        del pp, opt
+    pipeline.schedule_order, pipeline._input_grad = real_order, real_grad
+    return {"stage": hcg.get_stage_id(), "mp_rank": hcg.get_model_parallel_rank(),
+            "blocks": blocks,
+            "tensors": len(list(model.parameters())),
+            "elements": sum(p.numel() for p in model.parameters()),
+            "runs": out}
+
+
+def _pp_gpt(dev, sync, schedule):
+    """GPT-2 345M at pp 2 (`pp_microbatches` GPT_PP_M) through
+    DistributedTrainStepCompiler(mesh=): losses, times, comm, launches,
+    peak memory, the tied wte's hash after every step and the weights'
+    hash after the last."""
+    from paddle_tpu_torch.distributed import build_mesh, set_mesh
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.jit.distributed import DistributedTrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    mesh = set_mesh(build_mesh({"pp": 2}))
+    model = _train_model(dev, pp_num_stages=2, pp_microbatches=GPT_PP_M,
+                         pp_schedule=schedule)
+    gpt = model.gpt
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = DistributedTrainStepCompiler(model, opt, mesh=mesh)
+    ids, labels = _train_batch(model.config.vocab_size, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    wte = []
+
+    def train():
+        loss = step(ids, labels)
+        wte.append(_sha({"wte": gpt.wte}))
+        return loss
+
+    losses, step_s, comm = _pp_steps(train, GPT_PP_STEPS, sync)
+    n_blocks = gpt.blocks["ln1_w"].shape[0]
+    rec = {"losses": losses, "step_s": step_s, "comm": comm,
+           "launches": kernels.launches(),
+           "per_step": _pp_stage_launches(n_blocks, GPT_PP_M,
+                                          int(gpt.is_last_stage)),
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                          if dev.type == "cuda" else 0),
+           "max_stash": step._pp[1].max_stash, "wte": wte,
+           "tensors": len(list(model.parameters())),
+           "elements": sum(p.numel() for p in model.parameters()),
+           "sha256": _sha(dict(model.named_parameters()))}
+    set_mesh(None)
+    del step, opt, model
+    return rec
+
+
+def _pp_rank(out_dir, device, mp, jobs):
+    """One rank of phase 24 (spawned: gloo, the one card; `device` "cpu"
+    only to rehearse the phase off the card): the `jobs` in order, each
+    from a fresh fleet; writes pp_r<rank>.json."""
+    from paddle_tpu_torch.distributed import fleet, get_rank, mesh
+    from paddle_tpu_torch.incubate.nn import kernels
+
+    if device == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        kernels.load()           # the parent built the library
+        sync = torch.cuda.synchronize
+    else:
+        dev, sync = torch.device("cpu"), (lambda: None)
+
+    def fresh():
+        mesh.set_mesh(None)
+        fleet._fleet_state.update(initialized=False, strategy=None,
+                                  hcg=None, role_maker=None)
+
+    out = {"rank": get_rank()}
+    for job in jobs:
+        fresh()
+        if job == "ernie":
+            out["ernie"] = _pp_ernie(out_dir, dev, sync, mp,
+                                     ("F-then-B", "1F1B"))
+        elif job == "ernie_1f1b":
+            out["ernie"] = _pp_ernie(out_dir, dev, sync, mp, ("1F1B",))
+        elif job in ("no_grad_back", "skip_backward"):
+            out[job] = _pp_ernie(out_dir, dev, sync, mp, ("1F1B",),
+                                 fault=job)
+        else:
+            out[job] = _pp_gpt(dev, sync, job.split("_", 1)[1])
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"pp_r{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _pp_run(dev, nprocs, mp, jobs):
+    """Spawn phase 24's ranks: (each rank's record, {tag: the gathered
+    f32 ERNIE weights after step 1}, spawn-to-join seconds)."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn(_pp_rank, args=(tmp, dev.type, mp, jobs), nprocs=nprocs,
+              backend="gloo", device=dev.type, join=False).join(timeout=900)
+        wall = time.perf_counter() - t0
+        runs = []
+        for r in range(nprocs):
+            with open(os.path.join(tmp, f"pp_r{r}.json")) as f:
+                runs.append(json.load(f))
+        full = {name[len("ernie_pp_"):-len("_step1.pt")]:
+                torch.load(os.path.join(tmp, name))
+                for name in os.listdir(tmp) if name.startswith("ernie_pp_")}
+    return runs, full, wall
+
+
+def _pp_comm_line(recs):
+    """Each rank's comm calls, bytes and host-clock share over the steps
+    after the first."""
+    parts = []
+    for r, rec in recs:
+        tot = [sum(c[i] for c in rec["comm"][1:]) for i in range(len(PP_COMM))]
+        k = dict(zip(PP_COMM, tot))
+        n = max(len(rec["comm"]) - 1, 1)
+        wall = sum(rec["step_s"][1:]) or 1.0
+        share = {op: 100 * k[f"comm/{op}/host_us"] / 1e6 / wall
+                 for op in ("send", "recv", "all_reduce", "broadcast")}
+        parts.append(
+            f"rank {r}: send {k['comm/send/calls'] / n:.0f} calls "
+            f"{k['comm/send/bytes'] / n / 2 ** 20:.2f} MiB "
+            f"{share['send']:.1f}%, recv {k['comm/recv/calls'] / n:.0f} "
+            f"{k['comm/recv/bytes'] / n / 2 ** 20:.2f} MiB "
+            f"{share['recv']:.1f}%, all_reduce "
+            f"{k['comm/all_reduce/calls'] / n:.0f} "
+            f"{k['comm/all_reduce/bytes'] / n / 2 ** 20:.2f} MiB "
+            f"{share['all_reduce']:.1f}%, broadcast {share['broadcast']:.1f}%")
+    return "; ".join(parts) + " a step (host clock)"
+
+
+def _pp_ernie_micro(dev):
+    """Phase 22's model and batch at pp 1 through PipelineParallel's
+    micro-batch path (accumulate_steps ERNIE_PP_ACC, the pipeline's
+    arithmetic in one process): (every step's loss, the f32 weights
+    after step 1 on the host)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = _ernie_model(dev)
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline_configs = {"accumulate_steps": ERNIE_PP_ACC}
+    pp = fleet.meta_parallel.PipelineParallel(model.ernie, None, strategy)
+    opt = AdamW(learning_rate=ERNIE_LR, parameters=model.named_parameters(),
+                weight_decay=ERNIE_WD, multi_precision=True)
+    ids, labels = _ernie_batch(model.config.vocab_size, dev)
+    losses = [float(pp.train_batch((ids, labels), opt))]
+    after1 = {n: t.to("cpu", copy=True)
+              for n, t in _ernie_weights(model, opt).items()}
+    losses += [float(pp.train_batch((ids, labels), opt))
+               for _ in range(ERNIE_PP_STEPS - 1)]
+    return losses, after1
+
+
+def _pp_refs(ref_losses, ref_after1, micro_losses, micro_after1):
+    """Phase 24's references: phase 22 (`"22"`) and the pp 1
+    micro-batched run (`"micro"`), each (losses, f32 weights after step
+    1, share mask). Against phase 22 the share counts only the elements
+    where the micro-batched run's weights after step 1 lie within lr / 2
+    of phase 22's: the micro-batches' gradient sums round otherwise than
+    one batch's, which flips the sign of some near-zero gradients at pp
+    1 already, and AdamW's first step turns each flip into 2 lr, a
+    visible share of a 768-element bias (phase 23's 0.1% is under one
+    element there). The count left out is returned as `"flipped"`."""
+    keep = {n: (micro_after1[n] - w).abs() <= ERNIE_LR / 2
+            for n, w in ref_after1.items()}
+    flipped = sum(int((~k).sum()) for k in keep.values())
+    return {"22": (ref_losses, ref_after1, keep),
+            "micro": (micro_losses, micro_after1, None)}, flipped
+
+
+def _pp_readings(losses, full, refs):
+    """Phase 23's readings against each of `_pp_refs`'s references."""
+    return {k: _ernie_mp_readings(losses, full, *ref)
+            for k, ref in refs.items()}
+
+
+def _pp_failures(read):
+    """The gates phase 24's readings fail, as messages: phase 23's
+    loss, element and share gates against phase 22 and against the pp 1
+    micro-batched run."""
+    return [f"vs {'phase 22' if k == '22' else 'pp 1 micro-batched'}: {f}"
+            for k, r in read.items() for f in _ernie_mp_failures(r)]
+
+
+def _pp_ernie_gates(tag, runs, mode, full, refs):
+    """Phase 24's gates on one ERNIE pipeline run; the ranks' launches
+    exact. Returns the readings."""
+    recs = [r["ernie"]["runs"][mode] for r in runs]
+    losses = recs[0]["losses"]
+    if any(r["losses"] != losses for r in recs):
+        raise AssertionError(f"{tag}: the ranks' losses differ")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    read = _pp_readings(losses, full, refs)
+    failed = _pp_failures(read)
+    if failed:
+        raise AssertionError(f"{tag}: " + "; ".join(failed) + f" ({read})")
+    for r, rec in zip(runs, recs):
+        _only_launches(f"{tag} rank {r['rank']}", rec["launches"],
+                       {k: v * len(losses)
+                        for k, v in rec["per_step"].items()})
+    return read
+
+
+def _pp_read_text(r):
+    return "; ".join(
+        f"vs {'phase 22' if k == '22' else 'pp 1 micro-batched'}: worst "
+        f"loss {100 * x['loss']:.5f}%, f32 weights after step 1 worst "
+        f"element {x['elem']:.3f} of 2 lr + f32 rounding, worst share "
+        f"{100 * x['share']:.4f}% ({x['worst']})" for k, x in r.items())
+
+
+def phase_ernie_pp(dev, smi, ref_losses, ref_after1):
+    """Phase 24: ERNIE at pp 2 and mp 2 x pp 2 and GPT-2 345M at pp 2
+    over gloo ranks on the one card (see the module docstring)."""
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    # GPT-2 345M at pp 1 from the same weights and batch: the reference
+    model = _train_model(dev)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStepCompiler(model, opt)
+    ids, labels = _train_batch(model.config.vocab_size, dev)
+    gpt_ref = [float(step(ids, labels)) for _ in range(GPT_PP_STEPS)]
+    del model, opt, step, ids, labels
+    micro_losses, micro_after1 = _pp_ernie_micro(dev)
+    refs, flipped = _pp_refs(ref_losses, ref_after1, micro_losses,
+                             micro_after1)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    runs, full, wall = _pp_run(dev, 2, 1, [
+        "ernie", "no_grad_back", "skip_backward", "gpt_gpipe", "gpt_1f1b"])
+    reads = {}
+    for mode in ("F-then-B", "1F1B"):
+        reads[mode] = _pp_ernie_gates(f"ernie_pp {mode}", runs, mode,
+                                      full[mode], refs)
+    same = {m: (runs[0]["ernie"]["runs"][m]["losses"] == micro_losses
+                and all(torch.equal(full[m][n], micro_after1[n])
+                        for n in micro_after1))
+            for m in ("F-then-B", "1F1B")}
+    if not all(same.values()):
+        raise AssertionError(f"ernie_pp: pp 2 is not bit-identical to pp 1 "
+                             f"micro-batched (losses, f32 weights after "
+                             f"step 1): {same}")
+    st = [r["ernie"] for r in runs]
+    a, b = st[0]["runs"]["F-then-B"], st[0]["runs"]["1F1B"]
+    for r in st:
+        x, y = r["runs"]["F-then-B"], r["runs"]["1F1B"]
+        if x["losses"] != y["losses"] or x["sha256"] != y["sha256"]:
+            raise AssertionError("ernie_pp: 1F1B and F-then-B differ")
+    peaks = {m: [r["runs"][m]["peak_bytes"] for r in st]
+             for m in ("F-then-B", "1F1B")}
+    stash = {m: [r["runs"][m]["max_stash"] for r in st]
+             for m in ("F-then-B", "1F1B")}
+    if dev.type == "cuda" and not peaks["1F1B"][0] < peaks["F-then-B"][0]:
+        raise AssertionError(f"ernie_pp: stage 0's peak under 1F1B "
+                             f"{peaks['1F1B'][0]} is not below F-then-B's "
+                             f"{peaks['F-then-B'][0]}")
+    med = {m: float(np.median(st[0]["runs"][m]["step_s"][1:]))
+           for m in ("F-then-B", "1F1B")}
+    log("ernie_pp", f"[{smi}] ERNIE bf16 O2 at pp 2 over 2 gloo ranks on "
+        f"one card (12 layers, full width, seed 0; stage 0: "
+        f"{st[0]['blocks']} blocks + the embedding, {st[0]['tensors']} "
+        f"tensors, {st[0]['elements']} elements; stage 1: "
+        f"{st[1]['blocks']} blocks + the head, {st[1]['tensors']} tensors, "
+        f"{st[1]['elements']} elements), phase 22's batch, "
+        f"accumulate_steps {ERNIE_PP_ACC}, spawn-to-join {wall:.1f} s "
+        "(with the faults and GPT below): loss " + " ".join(
+            f"{x:.6f}" for x in b["losses"]) + " vs phase 22's " + " ".join(
+            f"{x:.6f}" for x in ref_losses[:ERNIE_PP_STEPS])
+        + " and pp 1 micro-batched " + " ".join(
+            f"{x:.6f}" for x in micro_losses) + "; " + "; ".join(
+            f"{m}: {_pp_read_text(r)}; bit-identical to pp 1 micro-batched "
+            f"(losses, f32 weights after step 1): {same[m]}"
+            for m, r in reads.items())
+        + f" (gates: loss {100 * ERNIE_MP_LOSS_TOL}%, element 1, share "
+        f"{100 * ERNIE_MP_SHARE_TOL}% against both, the share against "
+        f"phase 22 leaving out the {flipped} elements where pp 1 "
+        "micro-batched lies off phase 22's by > lr / 2; bit-identical to "
+        "pp 1 micro-batched)"
+        + "; 1F1B = F-then-B bit for bit (losses, weights and masters by "
+        f"sha256); launches a step a rank exact: stage 0 "
+        f"{a['per_step']}, stage 1 {st[1]['runs']['1F1B']['per_step']}")
+    log("ernie_pp", f"[{smi}] step (host clock, median of steps 2-"
+        f"{ERNIE_PP_STEPS}) F-then-B {med['F-then-B'] * 1e3:.1f} ms, 1F1B "
+        f"{med['1F1B'] * 1e3:.1f} ms (= {ERNIE_ROWS / med['1F1B']:.1f} "
+        "tokens/s; the stages share one card, so no bubble or overlap "
+        "shows); peak memory a rank F-then-B " + " / ".join(
+            f"{x / 2 ** 30:.3f}" for x in peaks["F-then-B"]) + " GiB, 1F1B "
+        + " / ".join(f"{x / 2 ** 30:.3f}" for x in peaks["1F1B"])
+        + " GiB (stage 0 / 1; gate: 1F1B's stage 0 below F-then-B's); "
+        "micro-batches held at once F-then-B " + "/".join(
+            map(str, stash["F-then-B"])) + ", 1F1B " + "/".join(
+            map(str, stash["1F1B"])) + "; 1F1B comm: "
+        + _pp_comm_line([(r["rank"], r["ernie"]["runs"]["1F1B"])
+                         for r in runs]))
+    for fault, what in (("no_grad_back", "stage 1 sends back zeros for its "
+                         "input gradient"),
+                        ("skip_backward", "every stage skips the last "
+                         "micro-batch's backward")):
+        rec = runs[0][fault]["runs"][f"1F1B_{fault}"]
+        bad = _pp_readings(rec["losses"], full[f"1F1B_{fault}"], refs)
+        caught = _pp_failures(bad)
+        log("ernie_pp", f"[{smi}] planted fault ({what}; 2 steps): loss "
+            + " ".join(f"{x:.6f}" for x in rec["losses"]) + "; "
+            + _pp_read_text(bad) + "; caught: "
+            + ("; ".join(caught) or "none"))
+        if not caught:
+            raise AssertionError(f"ernie_pp: the planted fault ({what}) "
+                                 "passed every gate")
+    del full
+    # GPT-2 345M at pp 2
+    g = {s: [r[f"gpt_{s}"] for r in runs] for s in ("gpipe", "1f1b")}
+    for sched, recs in g.items():
+        for r, rec in zip(runs, recs):
+            _only_launches(f"gpt_pp {sched} rank {r['rank']}",
+                           rec["launches"],
+                           {k: v * GPT_PP_STEPS
+                            for k, v in rec["per_step"].items()})
+        losses = recs[0]["losses"]
+        if recs[1]["losses"] != losses:
+            raise AssertionError(f"gpt_pp {sched}: the ranks' losses differ")
+        gap = max(abs(x - y) / abs(y) for x, y in zip(losses, gpt_ref))
+        if not gap <= GPT_PP_TOL:
+            raise AssertionError(f"gpt_pp {sched}: loss {losses} vs pp 1's "
+                                 f"{gpt_ref} ({100 * gap:.4f}%)")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"gpt_pp {sched}: loss did not fall "
+                                 f"{losses}")
+        if recs[0]["wte"] != recs[1]["wte"]:
+            raise AssertionError(f"gpt_pp {sched}: the tied wte differs "
+                                 "between the stages")
+    for r in range(2):
+        if (g["gpipe"][r]["losses"] != g["1f1b"][r]["losses"]
+                or g["gpipe"][r]["sha256"] != g["1f1b"][r]["sha256"]):
+            raise AssertionError("gpt_pp: gpipe and 1f1b differ")
+    gap = max(abs(x - y) / abs(y) for x, y in zip(g["1f1b"][0]["losses"],
+                                                  gpt_ref))
+    gmed = {s: float(np.median(g[s][0]["step_s"][1:])) for s in g}
+    log("gpt_pp", f"[{smi}] GPT-2 345M bf16 O2 at pp 2 over 2 gloo ranks "
+        f"(stage 0: {g['1f1b'][0]['tensors']} tensors, "
+        f"{g['1f1b'][0]['elements']} elements; stage 1: "
+        f"{g['1f1b'][1]['tensors']} tensors, {g['1f1b'][1]['elements']} "
+        f"elements), B {TRAIN_BATCH} x S {TRAIN_SEQ}, {GPT_PP_M} "
+        f"micro-batches: loss " + " ".join(
+            f"{x:.6f}" for x in g["1f1b"][0]["losses"]) + " vs pp 1's "
+        + " ".join(f"{x:.6f}" for x in gpt_ref) + f" (worst "
+        f"{100 * gap:.5f}%, gate {100 * GPT_PP_TOL}%); gpipe = 1f1b bit for "
+        "bit; the tied wte bit-identical on both stages after every step; "
+        "launches a step exact: " + "; ".join(
+            f"stage {i} {g['1f1b'][i]['per_step']}" for i in range(2)))
+    log("gpt_pp", f"[{smi}] step (host clock, median of steps 2-"
+        f"{GPT_PP_STEPS}) gpipe {gmed['gpipe'] * 1e3:.1f} ms, 1f1b "
+        f"{gmed['1f1b'] * 1e3:.1f} ms; peak memory a rank gpipe "
+        + " / ".join(f"{r['peak_bytes'] / 2 ** 30:.3f}" for r in g["gpipe"])
+        + " GiB, 1f1b " + " / ".join(
+            f"{r['peak_bytes'] / 2 ** 30:.3f}" for r in g["1f1b"])
+        + " GiB; 1f1b comm: " + _pp_comm_line(
+            [(r["rank"], rec) for r, rec in zip(runs, g["1f1b"])]))
+    # mp 2 x pp 2 over four ranks
+    runs4, full4, wall4 = _pp_run(dev, 4, 2, ["ernie_1f1b"])
+    read = _pp_ernie_gates("ernie_mp2pp2", runs4, "1F1B", full4["1F1B"],
+                           refs)
+    del full4
+    recs = [r["ernie"]["runs"]["1F1B"] for r in runs4]
+    log("ernie_pp", f"[{smi}] ERNIE at mp 2 x pp 2 over 4 gloo ranks "
+        f"(rank = stage x 2 + mp rank; {runs4[0]['ernie']['tensors']} "
+        f"tensors, {runs4[0]['ernie']['elements']} elements on rank 0), "
+        f"1F1B, spawn-to-join {wall4:.1f} s: loss " + " ".join(
+            f"{x:.6f}" for x in recs[0]["losses"]) + f"; "
+        + _pp_read_text(read) + "; launches exact; step (host clock, median of "
+        f"steps 2-{ERNIE_PP_STEPS}) "
+        f"{float(np.median(recs[0]['step_s'][1:])) * 1e3:.1f} ms; peak "
+        "memory a rank " + " / ".join(
+            f"{r['peak_bytes'] / 2 ** 30:.3f}" for r in recs) + " GiB; comm: "
+        + _pp_comm_line([(r["rank"], rec) for r, rec in zip(runs4, recs)]))
 
 
 def _paged_ms(by):
@@ -5157,6 +5715,8 @@ def main():
     ernie_losses, ernie_after1 = phase_ernie(dev, smi)
     torch.cuda.empty_cache()
     phase_ernie_mp(dev, smi, ernie_losses, ernie_after1)
+    torch.cuda.empty_cache()
+    phase_ernie_pp(dev, smi, ernie_losses, ernie_after1)
     del ernie_after1
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

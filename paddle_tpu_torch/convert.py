@@ -27,6 +27,13 @@ its blocks, so the fused qkv weight is cut per head),
 `load_sharded_state_dict(model, flat)` loads a full dict into this
 rank's shards, and its inverse, `gather_state_dict(model)`, gathers the
 model's full parameters from the ranks of its mp group (collective).
+Under pipeline parallelism a rank holds one stage (its parameters carry
+`pp_group`): `load_sharded_state_dict` loads the stage's names of the
+full dict (and their mp shards at mp x pp), and `gather_state_dict`
+also gathers the stages over the pp group, every rank's names in stage
+order: a name two stages hold (a tied embedding) is taken from the
+first, and a parameter that holds a stage's slice of a stacked tensor
+(`pp_concat_dim`, GPT's blocks) is concatenated along that dim.
 
 `optimizer_state_from_numpy` carries a JAX optimizer's slots (moments,
 velocity, beta powers, master weights) into the port's
@@ -70,11 +77,18 @@ def params_from_numpy(tree):
 @torch.no_grad()
 def load_reference_params(model, tree):
     """Copy a numpy parameter tree into a port GPTModel /
-    GPTForCausalLM in place, on the model's device. Every parameter
-    must be present with its exact shape; extra or missing names
-    raise."""
+    GPTForCausalLM in place, on the model's device (a pipeline stage
+    takes its names and its slice of the blocks). Every parameter must
+    be present with its exact shape; extra or missing names raise."""
     gpt = getattr(model, "gpt", model)
     flat = params_from_numpy(tree)
+    if getattr(gpt, "pp_group", None) is not None:
+        # a pipeline stage: its slice of the blocks, its own names
+        own = dict(gpt.named_parameters())
+        n = gpt.blocks["ln1_w"].shape[0]
+        flat = {k: (v[n * gpt.pp_stage:n * (gpt.pp_stage + 1)]
+                    if k.startswith("blocks.") else v)
+                for k, v in flat.items() if k in own}
     own = dict(gpt.named_parameters())
     if set(flat) != set(own):
         raise ValueError(
@@ -180,9 +194,23 @@ def shard_state_dict(flat, layout, nranks, rank):
     return out
 
 
+def _pp_group(model):
+    """The pp Group of a pipeline stage's parameters; None when the
+    model holds every stage."""
+    return next((p.pp_group for p in model.parameters()
+                 if getattr(p, "pp_group", None) is not None), None)
+
+
 def load_sharded_state_dict(model, flat):
     """Load a full {structured name: array} dict into this rank's shards
-    of a tensor-parallel model (the whole dict at mp 1)."""
+    of a tensor-parallel model (the whole dict at mp 1), or of a
+    pipeline stage: the stage's names of the dict."""
+    if _pp_group(model) is not None:
+        own = set(model.state_dict())
+        missing = sorted(own - set(flat))
+        if missing:
+            raise ValueError(f"parameter names missing: {missing}")
+        flat = {n: v for n, v in flat.items() if n in own}
     group = _mp_group(model)
     if group is None:
         return load_reference_state_dict(model, flat)
@@ -191,12 +219,15 @@ def load_sharded_state_dict(model, flat):
 
 
 @torch.no_grad()
-def gather_state_dict(model, tensors=None):
+def gather_state_dict(model, tensors=None, all_ranks=True):
     """{name: full CPU tensor} of the model's parameters, or of
     `tensors` ({parameter name: tensor} laid out as the parameters, such
     as an optimizer's master weights), each sharded one all-gathered
     over its mp group (collective: every rank of the group calls it), in
-    its own dtype."""
+    its own dtype. A pipeline stage's dict is then gathered with the
+    other stages' over the pp group (collective too): onto every rank,
+    or with `all_ranks` False onto the pp group's first rank only (the
+    others get {})."""
     from .distributed import collective
     from .distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
         unshard)
@@ -209,4 +240,29 @@ def gather_state_dict(model, tensors=None):
                                           group=p.mp_group.process_group)
             t = unshard(parts, *p.mp_split)
         out[name] = t.cpu()
+    pp = _pp_group(model)
+    if pp is None:
+        return out
+    import torch.distributed as dist
+
+    dims = {n: getattr(p, "pp_concat_dim", None)
+            for n, p in model.named_parameters()}
+    mine = {n: (t, dims[n]) for n, t in out.items()}
+    if all_ranks:
+        stages = [None] * pp.nranks
+        dist.all_gather_object(stages, mine, group=pp.process_group)
+    else:
+        first = pp.rank == 0
+        stages = [None] * pp.nranks if first else None
+        dist.gather_object(mine, stages, dst=pp.ranks[0],
+                           group=pp.process_group)
+        if not first:
+            return {}
+    out = {}
+    for stage in stages:
+        for name, (t, dim) in stage.items():
+            if name not in out:
+                out[name] = t
+            elif dim is not None:
+                out[name] = torch.cat([out[name], t], dim)
     return out

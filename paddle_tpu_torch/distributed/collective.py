@@ -1,7 +1,8 @@
 """Collective communication over torch.distributed, the port of the
 eager multi-process part of `paddle_tpu/distributed/collective.py`:
 `all_reduce` (with the per-call `compress=`), `all_gather`,
-`broadcast`, `barrier`.
+`broadcast`, `barrier`, and the point-to-point `send` / `recv` with
+their non-blocking forms `isend` / `irecv` (:672-760).
 
 Each call adds to `comm/<op>/{calls,bytes,wire_bytes,host_us}` in
 `core.monitor` (the JAX package's `_instrumented`, :129-215, without
@@ -16,6 +17,20 @@ only the enqueue for NCCL.
 In a single process (no process group, or a group of one) every
 collective is the identity, as in the JAX package's single-controller
 regime. The collectives block until done.
+
+Point to point (`send`, `recv`, `isend`, `irecv`; `isend` counts
+under comm/send, `irecv` under comm/recv): `dst` and `src` are global
+ranks, `group` a torch.distributed group or a mesh `Group` (its
+`process_group`). `recv` fills the caller's buffer, which fixes the
+shape and dtype, and returns it. Sends from one rank to another arrive
+in the order they were posted. A CUDA tensor crosses a gloo group
+through a host copy (gloo's point-to-point reads and writes host
+memory only); NCCL takes it as it is. In a single process there is no
+peer and every one of them raises NotImplementedError, as the JAX
+package's eager branch does (:712-716). The JAX package's in-trace
+branch, a send / recv pair lowered to one `ppermute` inside a compiled
+step, has no counterpart here: every rank is a process of its own, and
+the pipeline schedule (`distributed.pipeline`) sends between them.
 """
 from __future__ import annotations
 
@@ -28,7 +43,8 @@ import torch.distributed as dist
 from ..core import monitor as _monitor
 from .env import group_size
 
-__all__ = ["ReduceOp", "all_reduce", "all_gather", "broadcast", "barrier"]
+__all__ = ["ReduceOp", "all_reduce", "all_gather", "broadcast", "barrier",
+           "send", "recv", "isend", "irecv"]
 
 
 class ReduceOp:
@@ -165,3 +181,108 @@ def barrier(group=None):
     if group_size(group) > 1:
         dist.barrier(group=group)
     return None, None
+
+
+_NO_PEER = ("single-process eager point-to-point has no peer: start the "
+            "ranks with `distributed.spawn` (or a launcher), or run the "
+            "pipeline schedule with every stage local")
+
+
+def _pg(group):
+    """The torch.distributed group of `group` (a mesh Group or a
+    torch.distributed group; None: the world)."""
+    return getattr(group, "process_group", group)
+
+
+def _through_host(tensor, pg):
+    """Whether `tensor` must cross `pg` through a host copy."""
+    return tensor.is_cuda and dist.get_backend(pg) == "gloo"
+
+
+def _p2p_check(name, pg):
+    if group_size(pg) == 1:
+        raise NotImplementedError(f"paddle.distributed.{name}: {_NO_PEER}")
+
+
+class _RecvTask:
+    """The pending `irecv` of a CUDA tensor over gloo: `wait()` waits
+    for the host buffer and copies it into the caller's tensor."""
+
+    def __init__(self, work, host, tensor):
+        self._work, self._host, self._tensor = work, host, tensor
+
+    def wait(self):
+        self._work.wait()
+        self._tensor.copy_(self._host)
+        return True
+
+    def is_completed(self):
+        return self._work.is_completed()
+
+
+class _SendTask:
+    """A pending `isend`: keeps the buffer on the wire (a host copy, or
+    a contiguous one) alive until the send completes."""
+
+    def __init__(self, work, buf):
+        self._work, self._buf = work, buf
+
+    def wait(self):
+        return self._work.wait()
+
+    def is_completed(self):
+        return self._work.is_completed()
+
+
+def _isend(tensor, dst, pg):
+    buf = tensor.detach()
+    buf = (buf.to("cpu") if _through_host(tensor, pg) else buf).contiguous()
+    return _SendTask(dist.isend(buf, dst, group=pg), buf)
+
+
+def _irecv(tensor, src, pg):
+    if _through_host(tensor, pg):
+        host = torch.empty(tensor.shape, dtype=tensor.dtype)
+        return _RecvTask(dist.irecv(host, src, group=pg), host, tensor)
+    if not tensor.is_contiguous():
+        raise ValueError("recv: the buffer must be contiguous")
+    return dist.irecv(tensor, src, group=pg)
+
+
+@_instrumented("send")
+def send(tensor, dst=0, group=None, sync_op=True):
+    """Send `tensor` to global rank `dst`; with `sync_op` False, return
+    the pending task (as `isend`)."""
+    pg = _pg(group)
+    _p2p_check("send", pg)
+    task = _isend(tensor, dst, pg)
+    if not sync_op:
+        return task, None
+    task.wait()
+    return tensor, None
+
+
+@_instrumented("recv")
+def recv(tensor, src=0, group=None, sync_op=True):
+    """Receive from global rank `src` into `tensor`, in place; returns
+    it (with `sync_op` False, the pending task, as `irecv`)."""
+    pg = _pg(group)
+    _p2p_check("recv", pg)
+    task = _irecv(tensor, src, pg)
+    if not sync_op:
+        return task, None
+    task.wait()
+    return tensor, None
+
+
+def isend(tensor, dst=0, group=None):
+    """Post a send of `tensor` to global rank `dst`; returns a task
+    whose `wait()` blocks until it is done. Counted under comm/send."""
+    return send(tensor, dst, group=group, sync_op=False)
+
+
+def irecv(tensor, src=0, group=None):
+    """Post a receive from global rank `src` into `tensor`; returns a
+    task whose `wait()` blocks until `tensor` holds it. Counted under
+    comm/recv."""
+    return recv(tensor, src, group=group, sync_op=False)

@@ -13,7 +13,9 @@ inferred from the world size), builds the `CommunicateTopology` and the
 `HybridCommunicateGroup`, which sets the mesh of the same layout and
 creates its groups: collective, so every rank calls it.
 `distributed_model` wraps the model as the JAX package's does
-(:67-85): `PipelineParallel` for a `PipelineLayer` under pp > 1,
+(:67-85): `PipelineParallel` for a `PipelineLayer` under pp > 1 (built
+after `init`, the layer is this rank's stage and `train_batch` runs the
+pipeline schedule over the pp group, `distributed.pipeline`),
 `TensorParallel` under mp > 1, `DataParallel` otherwise; a sharding
 degree > 1 raises NotImplementedError (`ShardingParallel` and
 `distributed/sharding` are not ported). `distributed_optimizer` returns

@@ -1,6 +1,7 @@
 """fleet.meta_parallel, the port of
 `paddle_tpu/distributed/fleet/meta_parallel/`: the tensor-parallel and
-pipeline layers and the `TensorParallel` / `PipelineParallel` wrappers.
+pipeline layers and the `TensorParallel` / `PipelineParallel` wrappers
+(the latter with the pipeline schedule over processes at pp > 1).
 `ShardingParallel` is not ported (ROADMAP queue 1 item 2)."""
 from .parallel_layers.mp_layers import (
     VocabParallelEmbedding, ColumnParallelLinear, RowParallelLinear,

@@ -158,11 +158,7 @@ class TrainStepCompiler:
         bufs = ([b for b in self._model.buffers() if b.is_floating_point()]
                 if self._guard_nonfinite else [])
         kept = [b.detach().clone() for b in bufs]
-        loss = self._loss(batch).float()
-        if self._grad_scaler is not None:
-            (loss * float(scale)).backward()
-        else:
-            loss.backward()
+        loss = self._forward_backward(batch, scale)
         # a trainable parameter the loss does not reach gets a zero
         # gradient, as under `value_and_grad` over every trainable
         # parameter (:1629-1660): the update still moves it (decoupled
@@ -182,7 +178,7 @@ class TrainStepCompiler:
             if self._guard_nonfinite:
                 finite = [torch.isfinite(loss)] + [
                     torch.isfinite(p.grad).all() for _, p in named]
-                ok = bool(torch.stack(finite).all())   # one host sync
+                ok = self._agree(bool(torch.stack(finite).all()))
             if not ok:
                 for b, old in zip(bufs, kept):
                     b.copy_(old)
@@ -211,6 +207,21 @@ class TrainStepCompiler:
                         acc.zero_()
                     opt._apply(float(lr))
         return loss.detach(), int(not ok)
+
+    def _forward_backward(self, batch, scale):
+        """The microstep's forward loss (f32) and its backward, on loss
+        * scale under a GradScaler; returns the loss."""
+        loss = self._loss(batch).float()
+        if self._grad_scaler is not None:
+            (loss * float(scale)).backward()
+        else:
+            loss.backward()
+        return loss
+
+    def _agree(self, ok):
+        """The guard's verdict, agreed by every rank that must skip
+        together (one host sync here); one process: its own."""
+        return ok
 
     def _reduce_grads(self, loss, named):
         """Where a data-parallel subclass reduces the unscaled

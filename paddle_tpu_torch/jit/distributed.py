@@ -59,7 +59,24 @@ before the non-finite guard and the gradient merge.
   that reduces; the JAX package prices it once per program build.
 
 `accumulate_steps`, `guard_nonfinite`, `grad_scaler` and
-`steps_per_dispatch` compose as in the base class.
+`steps_per_dispatch` compose as in the base class. Under model or
+pipeline parallelism (a mesh axis other than "dp" above 1) the guard's
+verdict, which the GradScaler reads too, is agreed over every rank, so
+all skip a microstep together.
+
+Pipeline parallelism (a mesh whose "pp" size S is above 1): the model
+is a GPT built under that mesh with `GPTConfig.pp_num_stages` S, so
+this rank holds one stage (`text.models.gpt`). Each microstep then runs
+`distributed.pipeline`'s schedule over the pp group, in
+`GPTConfig.pp_schedule`'s order, with `pp_microbatches` micro-batches
+of this rank's dp share of the batch, in place of the forward and
+backward; then the tied `wte`'s gradient is summed over the first and
+last stages, and the step goes on as above (the dp reduction over the
+mesh's dp group only). The loss is the mean of the micro-batch losses
+(and of the dp ranks'), on every rank. A model that holds every stage
+(built before the mesh was set), or one without pp stages, raises, as
+does a mesh whose pp size is not the model's S. `fleet`'s
+`PipelineLayer` models train over pp through `PipelineParallel`.
 """
 from __future__ import annotations
 
@@ -68,9 +85,11 @@ import warnings
 import torch
 import torch.distributed as dist
 
+from ..distributed import collective
 from ..distributed import compress as C
 from ..distributed import mesh as mesh_mod
 from ..distributed.env import group_rank, group_size
+from ..distributed.pipeline import PipelineSchedule
 from . import TrainStepCompiler
 
 __all__ = ["DistributedTrainStepCompiler"]
@@ -88,6 +107,7 @@ class DistributedTrainStepCompiler(TrainStepCompiler):
             group = mesh.group(("dp",)).process_group
         self._mesh = mesh
         self._group = group
+        self._pp = self._pipeline(model, loss_fn, mesh)
         self._compress = C.resolve(comm_compress)
         # an env config disables itself on an incompatible layout; an
         # explicit constructor spec raises instead
@@ -95,6 +115,57 @@ class DistributedTrainStepCompiler(TrainStepCompiler):
         self._nranks = None          # resolved at the first call
         self._rank = 0
         self._pending_residual = None
+
+    @staticmethod
+    def _pipeline(model, loss_fn, mesh):
+        """(the GPT, its schedule) when `mesh` has a pp axis above 1;
+        None otherwise."""
+        S = 1 if mesh is None else mesh.shape.get("pp", 1)
+        if S < 2:
+            return None
+        gpt = getattr(model, "gpt", model)
+        if not hasattr(gpt, "pp_stage_forward") or loss_fn is not None:
+            raise TypeError(
+                "DistributedTrainStepCompiler: a pp > 1 mesh needs a GPT "
+                "built with pp_num_stages and no loss_fn; train a "
+                "PipelineLayer through fleet's PipelineParallel")
+        if gpt.pp_group is None:
+            raise ValueError(
+                "DistributedTrainStepCompiler: the model holds every "
+                f"pipeline stage, but the mesh's pp axis has {S} ranks: "
+                "build the model after the mesh is set")
+        if gpt.pp_stages != S:
+            raise ValueError(f"the mesh's pp axis has {S} ranks, the "
+                             f"model {gpt.pp_stages} stages")
+        from ..text.models.gpt import causal_lm_loss
+
+        return gpt, PipelineSchedule(gpt.pp_stage_forward, gpt.pp_group,
+                                     loss_fn=causal_lm_loss)
+
+    def _forward_backward(self, batch, scale):
+        if self._pp is None:
+            return super()._forward_backward(batch, scale)
+        gpt, sched = self._pp
+        c = gpt.config
+        if gpt.training and c.dropout > 0.0:
+            raise ValueError("GPipe path requires dropout=0.0 for now")
+        ids, labels = batch
+        loss = sched.train(
+            ids, labels, max(c.pp_microbatches, 1), c.pp_schedule,
+            loss_scale=scale if self._grad_scaler is not None else None)
+        gpt.allreduce_shared_weight_gradients()
+        return loss
+
+    def _agree(self, ok):
+        mesh = self._mesh
+        if mesh is None or all(n == 1 for a, n in mesh.shape.items()
+                               if a != "dp"):
+            return ok
+        flag = torch.tensor(float(ok))
+        if dist.get_backend() != "gloo":
+            flag = flag.to(self._device())
+        collective.all_reduce(flag, collective.ReduceOp.MIN)
+        return bool(flag.item())
 
     def _resolve_compress(self):
         cfg = self._compress

@@ -26,6 +26,12 @@ The JAX package takes the global norm over the logical tensors; here
 the squared norms of the sharded gradients are summed, all-reduced
 over their `mp_group` and added to those of the replicated ones, which
 every rank holds whole and counts once: the same norm on every rank.
+Under pipeline parallelism a parameter of a pipeline stage carries its
+`pp_group` (`fleet`'s `PipelineLayer`, GPT's pp stages): each stage's
+sum, its mp shards' included, is then summed over the pp group, so
+every stage clips by the whole model's norm, and the copy of a layer
+that two stages share (`pp_shared_copy`) is left out of the sum, so it
+counts once; it is still clipped.
 """
 from __future__ import annotations
 
@@ -78,21 +84,31 @@ class ClipGradByGlobalNorm(ClipGradBase):
         def clipped(p, g):
             return g is not None and getattr(p, "need_clip", True)
 
-        sq, shards, group = [], [], None
-        for p, g in params_grads:
-            if clipped(p, g):
-                s = torch.sum(torch.square(g.float()))
-                if getattr(p, "mp_group", None) is not None:
-                    shards.append(s)
-                    group = p.mp_group
-                else:
-                    sq.append(s)
-        if shards:
-            from ..distributed import collective
+        from ..distributed import collective
 
+        sq, shards, group, pp, dev = [], [], None, None, None
+        for p, g in params_grads:
+            if not clipped(p, g):
+                continue
+            pp = getattr(p, "pp_group", pp)
+            dev = g.device
+            if getattr(p, "pp_shared_copy", False):
+                continue
+            s = torch.sum(torch.square(g.float()))
+            if getattr(p, "mp_group", None) is not None:
+                shards.append(s)
+                group = p.mp_group
+            else:
+                sq.append(s)
+        if shards:
             part = sum(shards)
             collective.all_reduce(part, group=group.process_group)
             sq.append(part)
+        if pp is not None:
+            total = (sum(sq) if sq else
+                     torch.zeros((), dtype=torch.float32, device=dev))
+            collective.all_reduce(total, group=pp.process_group)
+            sq = [total]
         if not sq:
             return params_grads
         global_norm = torch.sqrt(sum(sq))

@@ -28,10 +28,18 @@ embedding LayerNorm's f32 scale promotes the bf16 embedding sum to f32:
 the residual stream, the products (bf16 weights promoted) and the
 attention run in f32, as in the JAX package.
 
+Under a live pp group (`fleet.init` with pp_degree > 1 before the model
+is built) `ErnieModel`, a `PipelineLayer`, keeps only this rank's stage
+(Paddle's segmentation of the 14 layer entries; the embedding and 6
+blocks, then 6 blocks and the head, at pp 2), built from the same draws
+as at pp 1; `fleet.distributed_model(model.ernie)` trains it through
+`PipelineParallel.train_batch`.
+
 Parameter names are the JAX package's structured names
 (`ernie._layers.1.qkv.weight`, ...), so a JAX state dict loads name for
 name at mp 1 (`convert.load_reference_state_dict`) and cut to a rank's
-shards at mp > 1 (`convert.load_sharded_state_dict`).
+shards at mp > 1, or to a stage's names at pp > 1
+(`convert.load_sharded_state_dict`).
 `incubate.nn.set_use_kernel(model, False)` switches a built model to
 the kernels' plain versions.
 """

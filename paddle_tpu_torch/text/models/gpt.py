@@ -28,6 +28,26 @@ block in the backward (`torch.utils.checkpoint`, the port of
 whose masks come from the model's own `torch.Generator`; each block
 draws its masks from a generator seeded once per forward, so a
 recomputed block replays the same masks. The masks are not JAX's.
+
+Pipeline parallelism (`pp_num_stages` S > 1, `pp_microbatches` M > 1,
+`pp_schedule` "gpipe" or "1f1b"; gpt.py:69-78, 240-262). With no pp
+group live the loss is the JAX package's micro-batched schedule in one
+process: the embedding on the whole batch, the blocks micro-batch by
+micro-batch, the head and the loss on the whole batch, differentiated
+by autograd (both schedules give these numbers). Under a live pp group
+of S ranks (the current mesh's "pp" axis when the model is built) each
+rank is one stage: it builds the whole model from the seed, in order,
+and keeps `num_layers / S` blocks (`blocks.*` hold that slice and carry
+`pp_concat_dim` 0), stage 0 also `wte` and `wpe`, the last stage `lnf`
+and the tied `wte` (`pp_shared_copy`), every parameter carrying
+`pp_group`. `pp_stage_forward` is the stage's part of the forward on a
+micro-batch and `causal_lm_loss` the last stage's loss;
+`jit.distributed.DistributedTrainStepCompiler(mesh=)` runs them through
+`distributed.pipeline`'s schedule and `allreduce_shared_weight_
+gradients` sums the tied `wte`'s gradient over the first and last
+stages. As in the JAX package, the pp path refuses dropout > 0 in
+training and `num_layers` not divisible by S; a live pp group whose
+size is not S raises.
 """
 from __future__ import annotations
 
@@ -40,11 +60,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
+from ...distributed.fleet.meta_parallel.parallel_layers import pp_layers
+from ...distributed.pipeline import SCHEDULES, microbatch
 from ...incubate.nn.kernels import flash_attention as _fa
 from ...incubate.nn.kernels import layernorm as _ln
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt2_small",
-           "gpt2_345m", "gpt_forward", "gpt_loss"]
+           "gpt2_345m", "gpt_forward", "gpt_loss", "causal_lm_loss"]
 
 _BLOCK_PARAMS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
                  "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
@@ -63,6 +85,11 @@ class GPTConfig:
     initializer_range: float = 0.02
     use_flash_attention: bool = True
     remat: bool = True  # recompute each block in the backward
+    # pipeline: num_layers cut into pp_num_stages stages, the batch into
+    # pp_microbatches micro-batches (0: no pipeline)
+    pp_num_stages: int = 0
+    pp_microbatches: int = 0
+    pp_schedule: str = "gpipe"   # or "1f1b"
 
 
 def _attention(q, k, v, n_head):
@@ -149,16 +176,53 @@ def layer_params(blocks, layer):
     return {name: p[layer] for name, p in blocks.items()}
 
 
+def _embed(ids, params):
+    ids = ids.long()
+    return params["wte"][ids] + params["wpe"][:ids.shape[1]]
+
+
+def _blocks(x, blocks, n_head, eps, use_kernel, use_flash, remat, dropout,
+            seeds):
+    """Every block of the stacked `blocks`, in order."""
+    for layer in range(blocks["ln1_w"].shape[0]):
+        args = (x, layer_params(blocks, layer), n_head, eps, use_kernel,
+                use_flash, dropout, seeds[layer])
+        if remat:
+            x = checkpoint(_block, *args, use_reentrant=False)
+        else:
+            x = _block(*args)
+    return x
+
+
+def _head(x, params, eps, use_kernel):
+    """The final LayerNorm and the tied head: logits."""
+    x = _layer_norm(x, params["lnf_w"], params["lnf_b"], eps, use_kernel)
+    return x @ params["wte"].T
+
+
+def _check_pp(n_layers, dropout, generator, pp_stages, pp_schedule):
+    """The JAX package's refusals on the pipelined path (gpt.py:241-246)
+    and its schedule names."""
+    if dropout > 0.0 and generator is not None:
+        raise ValueError("GPipe path requires dropout=0.0 for now")
+    if n_layers % pp_stages:
+        raise ValueError(f"{n_layers} layers not divisible into "
+                         f"{pp_stages} pipeline stages")
+    if pp_schedule not in SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {pp_schedule!r}")
+
+
 def gpt_forward(ids, params, n_head, eps, use_kernel=True, use_flash=False,
-                remat=False, dropout=0.0, generator=None):
+                remat=False, dropout=0.0, generator=None, pp_stages=0,
+                pp_microbatches=0, pp_schedule="gpipe"):
     """Full causal forward: ids [B, S] -> logits [B, S, V]
     (`_k_gpt_forward`). `use_flash` sends attention through the flash
     kernels where the head_dim allows; `remat` recomputes each block in
     the backward; `dropout` > 0 draws masks from `generator` (no
-    generator: no dropout)."""
-    ids = ids.long()
-    x = params["wte"][ids]
-    x = x + params["wpe"][:ids.shape[1]]
+    generator: no dropout). With `pp_stages` > 1 and `pp_microbatches`
+    > 1 the blocks run micro-batch by micro-batch (the JAX package's
+    pipelined loop in one process)."""
+    x = _embed(ids, params)
     blocks = params["blocks"]
     n_layers = blocks["ln1_w"].shape[0]
     seeds = [None] * n_layers
@@ -166,30 +230,35 @@ def gpt_forward(ids, params, n_head, eps, use_kernel=True, use_flash=False,
         x = _dropout(x, dropout, generator)
         seeds = torch.randint(0, 2 ** 62, (n_layers,), generator=generator,
                               device=generator.device).tolist()
-    for layer in range(n_layers):
-        args = (x, layer_params(blocks, layer), n_head, eps, use_kernel,
-                use_flash, dropout, seeds[layer])
-        if remat:
-            x = checkpoint(_block, *args, use_reentrant=False)
-        else:
-            x = _block(*args)
-    x = _layer_norm(x, params["lnf_w"], params["lnf_b"], eps, use_kernel)
-    return x @ params["wte"].T
+    run = (blocks, n_head, eps, use_kernel, use_flash, remat, dropout, seeds)
+    if pp_stages > 1 and pp_microbatches > 1:
+        _check_pp(n_layers, dropout, generator, pp_stages, pp_schedule)
+        x = torch.cat([_blocks(xm, *run)
+                       for xm in microbatch(x, pp_microbatches)], 0)
+    else:
+        x = _blocks(x, *run)
+    return _head(x, params, eps, use_kernel)
 
 
-def gpt_loss(ids, labels, params, n_head, eps, use_kernel=True,
-             use_flash=False, remat=False, dropout=0.0, generator=None):
-    """Causal-LM loss with the next-token shift (`_k_gpt_loss`,
-    gpt.py:275-296): position t predicts labels[t + 1]; the loss is
-    logsumexp minus the gathered logit, in f32, averaged over
-    B * (S - 1)."""
-    logits = gpt_forward(ids, params, n_head, eps, use_kernel, use_flash,
-                         remat, dropout, generator)
+def causal_lm_loss(logits, labels):
+    """Position t predicts labels[t + 1]: logsumexp minus the gathered
+    logit, in f32, averaged over B * (S - 1) (gpt.py:285-296)."""
     lg = logits[:, :-1].float()
     tgt = labels[:, 1:].long()
     lse = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, tgt[..., None])[..., 0]
     return (lse - picked).mean()
+
+
+def gpt_loss(ids, labels, params, n_head, eps, use_kernel=True,
+             use_flash=False, remat=False, dropout=0.0, generator=None,
+             pp_stages=0, pp_microbatches=0, pp_schedule="gpipe"):
+    """Causal-LM loss with the next-token shift (`_k_gpt_loss`,
+    gpt.py:275-296) of `gpt_forward`'s logits (`causal_lm_loss`)."""
+    logits = gpt_forward(ids, params, n_head, eps, use_kernel, use_flash,
+                         remat, dropout, generator, pp_stages,
+                         pp_microbatches, pp_schedule)
+    return causal_lm_loss(logits, labels)
 
 
 class GPTModel(nn.Module):
@@ -222,8 +291,7 @@ class GPTModel(nn.Module):
 
         L, H, F_, V, S = (c.num_layers, c.hidden_size, c.ffn_hidden,
                           c.vocab_size, c.max_seq_len)
-        self.wte = nn.Parameter(normal(V, H))
-        self.wpe = nn.Parameter(normal(S, H))
+        wte, wpe = normal(V, H), normal(S, H)
         blocks = {
             "ln1_w": const(1.0, L, H),
             "ln1_b": const(0.0, L, H),
@@ -238,22 +306,82 @@ class GPTModel(nn.Module):
             "fc2_w": normal(L, F_, H) / math.sqrt(2 * L),
             "fc2_b": const(0.0, L, H),
         }
-        self.blocks = nn.ParameterDict(
-            {name: nn.Parameter(blocks[name]) for name in _BLOCK_PARAMS})
-        self.lnf_w = nn.Parameter(const(1.0, H))
-        self.lnf_b = nn.Parameter(const(0.0, H))
-        for p in (self.blocks["ln1_w"], self.blocks["ln1_b"],
-                  self.blocks["ln2_w"], self.blocks["ln2_b"], self.lnf_w,
-                  self.lnf_b):
-            p.no_amp_cast = True
+        lnf_w, lnf_b = const(1.0, H), const(0.0, H)
         seed = torch.randint(0, 2 ** 62, (), generator=generator,
                              device=dev)
         self.dropout_generator = torch.Generator(device=dev).manual_seed(
             int(seed))
+        group = self.pp_group = pp_layers.pipe_group()
+        P = c.pp_num_stages
+        self.pp_stage, self.pp_stages = 0, 1
+        if group is not None:
+            if P != group.nranks:
+                raise ValueError(
+                    f"GPTConfig.pp_num_stages is {P}, but the mesh's pp "
+                    f"axis has {group.nranks} ranks")
+            _check_pp(L, 0.0, None, P, c.pp_schedule)
+            self.pp_stage, self.pp_stages = group.rank, P
+            lo = L // P * group.rank
+            blocks = {n: t[lo:lo + L // P].clone() for n, t in blocks.items()}
+        first, last = self.is_first_stage, self.is_last_stage
+        if first or last:
+            self.wte = nn.Parameter(wte)
+        if first:
+            self.wpe = nn.Parameter(wpe)
+        self.blocks = nn.ParameterDict(
+            {name: nn.Parameter(blocks[name]) for name in _BLOCK_PARAMS})
+        norms = [self.blocks[n] for n in ("ln1_w", "ln1_b", "ln2_w",
+                                          "ln2_b")]
+        if last:
+            self.lnf_w = nn.Parameter(lnf_w)
+            self.lnf_b = nn.Parameter(lnf_b)
+            norms += [self.lnf_w, self.lnf_b]
+        for p in norms:
+            p.no_amp_cast = True
+        self._shared_wte_group = None
+        if group is not None:
+            if last:
+                self.wte.pp_shared_copy = True
+            for p in self.blocks.values():
+                p.pp_concat_dim = 0
+            for p in self.parameters():
+                p.pp_group = group
+            self._shared_wte_group = pp_layers.stages_subgroup(
+                group, [0, P - 1])
 
     @property
     def device(self):
-        return self.wte.device
+        return self.blocks["ln1_w"].device
+
+    @property
+    def is_first_stage(self):
+        return self.pp_stage == 0
+
+    @property
+    def is_last_stage(self):
+        return self.pp_stage == self.pp_stages - 1
+
+    def pp_stage_forward(self, x):
+        """This pipeline stage's part of the forward on one micro-batch:
+        the first stage takes ids, the last returns logits, the others
+        map hidden states to hidden states."""
+        c = self.config
+        params = self.params_tree(detach=False)
+        if self.is_first_stage:
+            x = _embed(torch.as_tensor(x, device=self.device), params)
+        x = _blocks(x, params["blocks"], c.num_heads, c.layer_norm_eps,
+                    True, c.use_flash_attention, c.remat, 0.0,
+                    [None] * params["blocks"]["ln1_w"].shape[0])
+        if self.is_last_stage:
+            x = _head(x, params, c.layer_norm_eps, True)
+        return x
+
+    def allreduce_shared_weight_gradients(self):
+        """Sum the tied `wte`'s gradient over the first and the last
+        stage (after the schedule, before the clip)."""
+        if self._shared_wte_group is not None:
+            pp_layers.allreduce_gradients([self.wte],
+                                          self._shared_wte_group)
 
     def params_tree(self, detach=True):
         """{"wte", "wpe", "blocks": {...}, "lnf_w", "lnf_b"} of the
@@ -263,22 +391,28 @@ class GPTModel(nn.Module):
         def own(p):
             return p.detach() if detach else p
 
-        return {
-            "wte": own(self.wte),
-            "wpe": own(self.wpe),
-            "blocks": {k: own(p) for k, p in self.blocks.items()},
-            "lnf_w": own(self.lnf_w),
-            "lnf_b": own(self.lnf_b),
-        }
+        tree = {name: own(getattr(self, name))
+                for name in ("wte", "wpe", "lnf_w", "lnf_b")
+                if hasattr(self, name)}
+        tree["blocks"] = {k: own(p) for k, p in self.blocks.items()}
+        return tree
 
     def _run(self, fn, *args):
         c = self.config
+        if self.pp_group is not None:
+            raise RuntimeError(
+                f"GPTModel: this model is stage {self.pp_stage} of a "
+                f"pipeline over {self.pp_stages} ranks; train it through "
+                "jit.distributed.DistributedTrainStepCompiler(mesh=)")
         drop = c.dropout if self.training else 0.0
         args = [torch.as_tensor(a, device=self.device) for a in args]
         return fn(*args, self.params_tree(detach=False), c.num_heads,
                   c.layer_norm_eps, use_flash=c.use_flash_attention,
                   remat=c.remat, dropout=drop,
-                  generator=self.dropout_generator if drop > 0.0 else None)
+                  generator=self.dropout_generator if drop > 0.0 else None,
+                  pp_stages=c.pp_num_stages,
+                  pp_microbatches=c.pp_microbatches,
+                  pp_schedule=c.pp_schedule)
 
     def forward(self, input_ids):
         """Logits [B, S, V]; dropout only in training mode."""

@@ -250,14 +250,64 @@ def test_pipeline_layer_stages_match_jax():
     assert ({s: len(v) for s, v in pl.parameters_by_stage.items()}
             == {s: len(v) for s, v in jl.parameters_by_stage.items()})
     assert torch.equal(pl(torch.zeros(2)), torch.full((2,), 6.0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        pl.can_pipeline(2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        pl.pipelined_forward(torch.zeros(2), 2, 2)
-    pp = fleet.meta_parallel.PipelineParallel(pl)
+    # with JAX's weights: `can_pipeline` and `pipelined_forward` are
+    # JAX's (the uniform middle micro-batched, in one process)
+    from paddle_tpu_torch.convert import load_reference_state_dict
+    from paddle_tpu_torch.optimizer import SGD
+
+    def jax_flat(layer):
+        return {n: np.asarray(p._value) for n, p in
+                layer.named_parameters()}
+
+    load_reference_state_dict(pl, jax_flat(jl))
+    for n in (1, 2, 3, 4, 5):
+        assert pl.can_pipeline(n) == jl.can_pipeline(n), n
+    rng = np.random.RandomState(0)
+    x = rng.randn(4, 2).astype(np.float32)
+    y = rng.randn(4, 2).astype(np.float32)
+    want = np.asarray(jl.pipelined_forward(J().paddle.to_tensor(x), 2,
+                                           2)._value)
+    np.testing.assert_allclose(
+        pl.pipelined_forward(torch.from_numpy(x), 2, 2).detach().numpy(),
+        want, rtol=REL, atol=1e-6)
+    # train_batch under a pp 2 mesh with every stage in this process:
+    # the micro-batch accumulation path against JAX's compiled GPipe
+    # step (pipelined_forward, one update), the same mathematics
+    import jax
+
+    import paddle_tpu.optimizer as joptim
+    from paddle_tpu.distributed import build_mesh as jbuild
+
+    def sq(out, lab):
+        return (out - lab) * (out - lab)
+
+    jl2 = J().pl.PipelineLayer(_descs(J().pl, 4, _jax_classes()),
+                               num_stages=2, loss_fn=sq)
+    pl2 = ppl.PipelineLayer(_descs(ppl, 4, (Embed, Block, Head)),
+                            num_stages=2, loss_fn=sq)
+    load_reference_state_dict(pl2, jax_flat(jl2))
+    js = J().fleet.DistributedStrategy()
+    js.pipeline_configs = {"accumulate_steps": 2}
+    ps = fleet.DistributedStrategy()
+    ps.pipeline_configs = {"accumulate_steps": 2}
+    J().mesh.set_mesh(jbuild({"dp": 1, "pp": 2}, jax.devices()[:2]))
     mesh.set_mesh(mesh.Mesh(np.arange(2).reshape(1, 2), ("dp", "pp")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        pp.train_batch((torch.zeros(2, 2), torch.zeros(2, 2)), None)
+    jpp = J().fleet.meta_parallel.PipelineParallel(jl2, None, js)
+    pp = fleet.meta_parallel.PipelineParallel(pl2, None, ps)
+    jopt = joptim.SGD(0.1, parameters=jl2.parameters())
+    popt = SGD(0.1, parameters=pl2.named_parameters())
+    for _ in range(2):
+        lj = float(np.asarray(jpp.train_batch(
+            (J().paddle.to_tensor(x), J().paddle.to_tensor(y)),
+            jopt)._value))
+        lp = pp.train_batch((torch.from_numpy(x), torch.from_numpy(y)),
+                            popt)
+        assert abs(float(lp) - lj) <= REL * abs(lj), (float(lp), lj)
+    assert jpp._compiled_step is not None     # JAX took its GPipe path
+    for n, w in jax_flat(jl2).items():
+        np.testing.assert_allclose(
+            dict(pl2.named_parameters())[n].detach().numpy(), w,
+            rtol=REL, atol=1e-6, err_msg=n)
 
 
 # -- the mp layers at mp 1 ---------------------------------------------------
