@@ -271,6 +271,27 @@ printing one line (or a few):
               card, so no bubble or overlap shows), comm/send, recv,
               all_reduce calls, bytes and host-clock share, parameters
               and peak memory a rank
+ 25. router   (runs after phase 15, on phase 5's model) GPT-2 345M f32
+              served by a Router of replicas on the one card, phase 5's
+              traffic, 512 blocks a replica (equal and explicit: the auto
+              size would shrink with each engine built), each run's
+              tokens against phase 5's under phase 14's near-tie gate,
+              every request finished and no leaked block on any replica:
+              (a) 2 replicas, exact launches summed over them (24 paged
+              a decode dispatch, 49 LayerNorm a prefill or decode);
+              (b) a worker raising after 3 decode dispatches (the
+              phase's own wrapper): serve/failovers +1, the survivor
+              serves 2 more prompts; (c) a replica asleep 3 s inside a
+              dispatch, heartbeat 1 s: failed over, its late wake-up
+              emits nothing; (d) a drain mid-flood, the exports
+              re-imported after resume(); (e) a ttft_p99 rule (gt 1 us)
+              fired through alerts.evaluate_once(): the Autoscaler spawns
+              replica 2, 3 replicas serve, then retire_replica() of the
+              newest mid-flood; (f) a planted fault, `_replay` dropping
+              one export, that must fail (b)'s gate. Tokens/s with 1, 2
+              and 3 replicas (host clock), TTFT and ITL p50 / p99 from
+              the histograms beside the sorted-list ones, decode
+              dispatches a replica, crash-to-replay ms
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -2664,6 +2685,319 @@ def phase_prefix(dev, model, smi, lens=SERVE_LENS,
         f"evictions {d_all['serve/evictions']}, prefills "
         f"{d_all['serve/prefills']}, hits {d_all['serve/prefix/hits']}; "
         f"drained, 0 leaks, 0 blocks used; {t_all:.3f} s")
+
+
+# -- phase 25 ----------------------------------------------------------
+ROUTER_BLOCKS = 512      # each replica's pool: equal and explicit, since
+#                          the auto size takes 45% of the free memory at
+#                          each engine's construction
+ROUTER_HEARTBEAT_S = 1.0  # the wedge run's heartbeat timeout
+ROUTER_WAIT_S = 120
+
+
+def _count_dispatches(router):
+    """Wrap every replica engine's `_decode_batch` with a per-replica
+    call count (the phase's own wrapper, as the CPU tests wrap it);
+    returns {replica index: [calls]}."""
+    calls = {}
+    for rep in router._replicas:
+        real, n = rep.engine._decode_batch, [0]
+
+        def wrapped(emitted, _real=real, _n=n):
+            _n[0] += 1
+            return _real(emitted)
+
+        rep.engine._decode_batch = wrapped
+        calls[rep.idx] = n
+    return calls
+
+
+def _fault_after(engines, n, attr, action):
+    """Wrap `attr` of each engine so that the (n+1)-th call over all of
+    them runs `action(engine)` first: a raise (a crash) or a sleep (a
+    wedge). Returns [(engine, perf_counter at the fault)]."""
+    import threading
+
+    lock, calls, fired = threading.Lock(), [0], []
+    for eng in engines:
+        real = getattr(eng, attr)
+
+        def wrapped(arg, _real=real, _eng=eng):
+            with lock:
+                calls[0] += 1
+                hit = calls[0] == n + 1
+            if hit:
+                fired.append((_eng, time.perf_counter()))
+                action(_eng)
+            return _real(arg)
+
+        setattr(eng, attr, wrapped)
+    return fired
+
+
+def _router_gate(tag, model, dev, prompts, want, router, ids):
+    """(b)'s gate: every request FINISHED, the tokens phase 5's under
+    `_spec_gate` (equal, or a divergence at a shown near-tie), no leaked
+    block on any replica. Returns the outputs."""
+    reqs = [router.get_request(i) for i in ids]
+    states = [r.state for r in reqs]
+    if any(st != "finished" for st in states):
+        raise AssertionError(f"{tag}: requests not finished: {states}")
+    outs = [list(r.output_ids) for r in reqs]
+    _spec_gate(tag, model, dev, prompts, want, outs)
+    leaks = router.check_drained()
+    if leaks:
+        raise AssertionError(f"{tag}: leaked blocks {leaks}")
+    return outs
+
+
+def _flood(router, prompts, sampling, during=None):
+    """Submit every prompt, optionally run `during()` mid-flood, wait.
+    Returns (ids, seconds, tokens/s by the host clock)."""
+    t0 = time.perf_counter()
+    ids = [router.submit(p, sampling=sampling) for p in prompts]
+    if during is not None:
+        during()
+    router.wait(ids, timeout_s=ROUTER_WAIT_S)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = sum(len(router.get_request(i).output_ids) for i in ids)
+    return ids, dt, total / dt
+
+
+def phase_router(dev, model, smi, want, lens=SERVE_LENS,
+                 new_tokens=SERVE_NEW_TOKENS):
+    """Phase 25: GPT-2 345M served by a `Router` of replicas on the one
+    card, through crash, wedge, drain and the Autoscaler; tokens gated
+    against phase 5's single engine."""
+    from paddle_tpu_torch.core import monitor as cmon
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.inference.serving import (Autoscaler, Router,
+                                                    SamplingParams)
+    from paddle_tpu_torch.monitor import alerts
+
+    cfg = model.config
+    n_layers = cfg.num_layers
+    prompts = _serve_prompts(cfg.vocab_size, lens)
+    sampling = SamplingParams(max_new_tokens=new_tokens)
+    kw = dict(max_batch=SERVE_MAX_BATCH, num_blocks=ROUTER_BLOCKS,
+              device=dev)
+
+    def router(n, **extra):
+        return Router(model, replicas=n, **dict(kw, **extra))
+
+    # tokens/s with 1 replica, by the host clock (not gated)
+    r1 = router(1, heartbeat_timeout_s=60.0)
+    try:
+        _flood(r1, prompts, sampling)           # warm-up
+        _, _, tps1 = _flood(r1, prompts, sampling)
+    finally:
+        r1.shutdown()
+
+    # (a) clean, 2 replicas: tokens, leaks, exact launch counts
+    keys = ("serve/prefills", "serve/decode_dispatches")
+    ra = router(2, heartbeat_timeout_s=60.0)
+    try:
+        calls = _count_dispatches(ra)
+        for h in ("serve/hist/ttft_us", "serve/hist/itl_us"):
+            cmon.hist_get(h).reset()
+        before = {k: cmon.stat_get(k) for k in keys}
+        kernels.reset_launches()
+        ids, dt, tps2 = _flood(ra, prompts, sampling)
+        counts = kernels.launches()
+        delta = {k: cmon.stat_get(k) - before[k] for k in keys}
+        reqs = [ra.get_request(i) for i in ids]
+        _router_gate("router (a) clean", model, dev, prompts, want, ra, ids)
+        n_dec, n_pre = delta["serve/decode_dispatches"], delta[
+            "serve/prefills"]
+        if counts["paged_attention"] != n_layers * n_dec or n_dec < 1:
+            raise AssertionError(
+                f"router (a): paged kernel launched "
+                f"{counts['paged_attention']} times for {n_dec} decode "
+                f"dispatches x {n_layers} layers")
+        if counts["fused_layer_norm"] != (2 * n_layers + 1) * (n_pre + n_dec):
+            raise AssertionError(
+                f"router (a): LN kernel launched {counts['fused_layer_norm']}"
+                f" times for {n_pre} prefills + {n_dec} decodes x "
+                f"{2 * n_layers + 1}")
+        per_rep = {i: n[0] for i, n in calls.items()}
+        if sum(per_rep.values()) != n_dec or min(per_rep.values()) < 1:
+            raise AssertionError(f"router (a): decode dispatches per "
+                                 f"replica {per_rep}, {n_dec} counted")
+        hq = {h: [cmon.hist_get(f"serve/hist/{h}_us").quantile(q) / 1e3
+                  for q in (0.5, 0.99)] for h in ("ttft", "itl")}
+        gaps = [b - a for r in reqs
+                for a, b in zip(r.token_times, r.token_times[1:])]
+        ttft = [r.token_times[0] - r.arrival_perf for r in reqs]
+        sq = {"ttft": [quantile_ms(ttft, q) for q in (0.5, 0.99)],
+              "itl": [quantile_ms(gaps, q) for q in (0.5, 0.99)]}
+        log("router", f"[{smi}] (a) clean, 2 replicas x {ROUTER_BLOCKS} "
+            f"blocks: phase 5's tokens, no leaks; launches {n_layers} x "
+            f"{n_dec} paged = {counts['paged_attention']}, "
+            f"{2 * n_layers + 1} x ({n_pre} + {n_dec}) LN = "
+            f"{counts['fused_layer_norm']}; decode dispatches per replica "
+            f"{per_rep}")
+        log("router", "(a) histogram quantiles vs sorted-list, ms: "
+            + "; ".join(f"{h} p50 {hq[h][0]:.3f} / {sq[h][0]:.3f}, p99 "
+                        f"{hq[h][1]:.3f} / {sq[h][1]:.3f}"
+                        for h in ("ttft", "itl")))
+    finally:
+        ra.shutdown()
+
+    # (b) crash: a worker raises after 3 decode dispatches
+    rb = router(2, heartbeat_timeout_s=60.0)
+    try:
+        placed = []
+        real_replay = rb._replay
+
+        def timed_replay(exports, rep, reason):
+            real_replay(exports, rep, reason)
+            placed.append(time.perf_counter())
+
+        rb._replay = timed_replay
+
+        def boom(eng):
+            raise RuntimeError("injected decode fault")
+
+        fired = _fault_after([r.engine for r in rb._replicas], 3,
+                             "_decode_batch", boom)
+        before = cmon.stat_get("serve/failovers")
+        ids, _, _ = _flood(rb, prompts, sampling)
+        _router_gate("router (b) crash", model, dev, prompts, want, rb, ids)
+        failovers = cmon.stat_get("serve/failovers") - before
+        if len(fired) != 1 or failovers != 1:
+            raise AssertionError(f"router (b): {len(fired)} faults, "
+                                 f"failovers +{failovers}")
+        crash_to_replay = (placed[0] - fired[0][1]) * 1e3
+        ids2, _, _ = _flood(rb, prompts[:2], sampling)
+        _router_gate("router (b) survivor", model, dev, prompts[:2],
+                     want[:2], rb, ids2)
+        healthy = [i for i in range(2) if rb.replica_healthy(i)]
+        log("router", f"(b) crash after 3 decode dispatches: failovers +1, "
+            f"phase 5's tokens, no leaks on either replica; crash to replay "
+            f"placed {crash_to_replay:.3f} ms (host clock); the survivor "
+            f"(replica {healthy}) served 2 more prompts under the gate")
+    finally:
+        rb.shutdown()
+
+    # (c) wedge: a replica sleeps inside a dispatch for 3 x the timeout
+    rc = router(2, heartbeat_timeout_s=ROUTER_HEARTBEAT_S)
+    try:
+        stall = 3 * ROUTER_HEARTBEAT_S
+        fired = _fault_after([r.engine for r in rc._replicas], 3,
+                             "_dispatch_decode",
+                             lambda eng: time.sleep(stall))
+        before = cmon.stat_get("serve/failovers")
+        ids, _, _ = _flood(rc, prompts, sampling)
+        _router_gate("router (c) wedge", model, dev, prompts, want, rc, ids)
+        if len(fired) != 1 or cmon.stat_get("serve/failovers") != before + 1:
+            raise AssertionError("router (c): the wedge was not failed over")
+        zombie, t_wedge = fired[0]
+        snap = {r.req_id: len(r.output_ids)
+                for r in zombie._requests.values()}
+        time.sleep(max(0.0, t_wedge + stall + 0.5 - time.perf_counter()))
+        after = {r.req_id: len(r.output_ids)
+                 for r in zombie._requests.values()}
+        if after != snap or not zombie.fenced:
+            raise AssertionError("router (c): the zombie emitted after its "
+                                 "wake-up")
+        if rc.check_drained():
+            raise AssertionError("router (c): leaked blocks after the wake")
+        log("router", f"(c) wedge ({stall:.1f} s asleep in a dispatch, "
+            f"heartbeat {ROUTER_HEARTBEAT_S} s): failed over, phase 5's "
+            f"tokens, the zombie's wake-up emitted nothing, no leaks")
+    finally:
+        rc.shutdown()
+
+    # (d) drain mid-flood, then resume and re-import the exports
+    rd = router(2, heartbeat_timeout_s=60.0)
+    try:
+        ids = [rd.submit(p, sampling=sampling) for p in prompts]
+        t0 = time.monotonic()
+        while not all(rd.get_request(i).output_ids for i in ids):
+            if time.monotonic() - t0 > ROUTER_WAIT_S:
+                raise AssertionError("router (d): no first tokens")
+            time.sleep(0.005)
+        exports = rd.drain(timeout_s=0)
+        if not exports:
+            raise AssertionError("router (d): the drain exported nothing")
+        rd.resume()
+        with rd._lock:
+            rd._replay(exports, rd._replicas[0], "drain")
+        rd.wait(ids, timeout_s=ROUTER_WAIT_S)
+        _router_gate("router (d) drain", model, dev, prompts, want, rd, ids)
+        log("router", f"(d) drain mid-flood: {len(exports)} requests "
+            f"exported mid-generation, re-imported after resume(), phase "
+            f"5's tokens, check_drained() {{}}")
+    finally:
+        rd.shutdown()
+
+    # (e) the Autoscaler: a fired ttft_p99 rule spawns replica 2, then a
+    # retire of the newest fires mid-flood
+    re_ = router(2, heartbeat_timeout_s=60.0)
+    scaler = None
+    try:
+        cmon.hist_get("serve/hist/ttft_us").reset()
+        spawns = cmon.stat_get("serve/autoscale/spawns")
+        alerts.configure(rules=[alerts.AlertRule(
+            "serve/hist/ttft_us", "quantile", q=0.99, gt=1.0,
+            name="ttft_p99")], start=False)
+        scaler = Autoscaler(re_, rule="ttft_p99", min_replicas=2,
+                            max_replicas=3, cooldown_s=0.0).attach()
+        ids, _, _ = _flood(re_, prompts, sampling)
+        _router_gate("router (e) 2 replicas", model, dev, prompts, want,
+                     re_, ids)
+        evs = alerts.evaluate_once()
+        if [(r.name, ev) for r, ev, _ in evs] != [("ttft_p99", "fire")] \
+                or len(re_._live()) != 3:
+            raise AssertionError(f"router (e): transitions {evs}, "
+                                 f"{len(re_._live())} live replicas")
+        ids, _, tps3 = _flood(re_, prompts, sampling)
+        _router_gate("router (e) 3 replicas", model, dev, prompts, want,
+                     re_, ids)
+        retired = []
+        ids, _, _ = _flood(re_, prompts, sampling,
+                           during=lambda: retired.append(
+                               re_.retire_replica()))
+        _router_gate("router (e) scale-down", model, dev, prompts, want,
+                     re_, ids)
+        spawned = cmon.stat_get("serve/autoscale/spawns") - spawns
+        if retired != [2] or spawned != 1:
+            raise AssertionError(f"router (e): retired {retired}, spawns "
+                                 f"+{spawned}")
+        log("router", "(e) ttft_p99 (gt 1 us) fired: the Autoscaler spawned "
+            "replica 2 (serve/autoscale/spawns +1); 3 replicas served phase "
+            "5's tokens, and so did a flood with retire_replica() of the "
+            "newest mid-flood; no leaks")
+    finally:
+        if scaler is not None:
+            scaler.detach()
+        alerts.disarm()
+        re_.shutdown()
+
+    # (f) a planted fault: `_replay` drops one export; (b)'s gate must fail
+    rf = router(2, heartbeat_timeout_s=60.0)
+    try:
+        real_replay = rf._replay
+        rf._replay = lambda exports, rep, reason: real_replay(
+            exports[1:], rep, reason)
+        _fault_after([r.engine for r in rf._replicas], 3, "_decode_batch",
+                     boom)
+        ids, _, _ = _flood(rf, prompts, sampling)
+        try:
+            _router_gate("router (f) planted", model, dev, prompts, want,
+                         rf, ids)
+        except AssertionError as e:
+            caught = str(e)
+        else:
+            raise AssertionError("router (f): the planted fault (_replay "
+                                 "drops one export) passed (b)'s gate")
+        log("router", f"(f) planted fault (_replay drops one export) fails "
+            f"(b)'s gate: {caught[:120]}")
+    finally:
+        rf.shutdown()
+    log("router", f"[{smi}] tokens/s (host clock; one GIL, one card): 1 "
+        f"replica {tps1:.1f}, 2 replicas {tps2:.1f}, 3 replicas {tps3:.1f}")
 
 
 # -- phase 16 ----------------------------------------------------------
@@ -5695,6 +6029,7 @@ def main():
     counts = phase_spec(dev, serve_model, smi, serve_outs, serve_stats)
     multi_entry["launches"] = counts["paged_attention_multi"]
     phase_prefix(dev, serve_model, smi)
+    phase_router(dev, serve_model, smi, serve_outs)
     entries.append(multi_entry)
     del serve_model
     torch.cuda.empty_cache()

@@ -114,7 +114,7 @@ def _quantized_all_reduce(tensor, op, group, cfg, nranks):
     L = C.padded_elems(cfg, n, nranks)
     flat = torch.zeros(L, dtype=torch.float32, device=tensor.device)
     flat[:n].copy_(tensor.reshape(-1))
-    out, _ = C.all_reduce_flat(flat, group, cfg, block=blk)
+    out, _ = C.all_reduce_flat(flat, group=group, cfg=cfg, block=blk)
     if op == ReduceOp.AVG:
         out = out / torch.tensor(float(nranks), device=out.device)
     tensor.copy_(out[:n].view(tensor.shape))
@@ -122,8 +122,11 @@ def _quantized_all_reduce(tensor, op, group, cfg, nranks):
 
 
 @_instrumented("all_reduce")
-def all_reduce(tensor, op=ReduceOp.SUM, group=None, compress=None):
-    """Reduce `tensor` over the group, in place; returns it.
+def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
+               compress=None):
+    """Reduce `tensor` over the group, in place; returns it. The reduce
+    is always synchronous: `sync_op` is accepted and changes nothing,
+    as in the JAX package.
 
     `compress`: a spec string ("int8"/"fp8"/"fp32", ":block=N"), a
     CompressConfig, or True for $PADDLE_COMM_COMPRESS. A SUM or AVG of

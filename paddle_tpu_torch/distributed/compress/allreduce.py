@@ -86,10 +86,12 @@ def wire_bytes_of(cfg, elems, block=None):
     return elems * K.wire_itemsize(cfg.mode) + 2 * nblocks * 4
 
 
-def account(cfg, logical_bytes, elems, block=None):
+def account(cfg, logical_bytes, elems, where="train_step", block=None):
     """Count one (possibly quantized) gradient allreduce in
     comm/all_reduce/{calls,bytes,wire_bytes}. `elems` is the on-wire
-    element count (padded_elems), `block` the effective scale block.
+    element count (padded_elems), `block` the effective scale block;
+    `where` names the caller, as in the JAX package's flight event (the
+    port records none).
     Returns the wire bytes."""
     wire = wire_bytes_of(cfg, elems, block=block)
     _monitor.stat_add("comm/all_reduce/calls", 1)
@@ -115,7 +117,7 @@ def _all_gather(x, nranks, group):
     return out
 
 
-def all_reduce_flat(flat, group, cfg, residual=None, block=None):
+def all_reduce_flat(flat, *, group=None, cfg, residual=None, block=None):
     """SUM-allreduce the local flat f32 buffer over `group` (None: the
     default group). Its length must be a multiple of W * block (pack.py
     guarantees it; `block` is the EFFECTIVE scale block —
@@ -168,7 +170,7 @@ def all_reduce_flat(flat, group, cfg, residual=None, block=None):
     return out, (new_res if use_ef else residual)
 
 
-def reduce_tree(grads, segs, group, cfg, residual=None):
+def reduce_tree(grads, segs, *, group=None, cfg, residual=None):
     """Pack a gradient dict (name -> tensor) into ONE flat f32 buffer
     (pack.py segs), SUM-allreduce it (quantized unless cfg is None or
     fp32), unpack and divide by W — the data-parallel MEAN. A cfg
@@ -182,7 +184,8 @@ def reduce_tree(grads, segs, group, cfg, residual=None):
            if cfg is not None and cfg.mode != "fp32" else None)
     if cfg is not None:
         account(cfg, total * 4, L, block=blk)
-    summed, new_res = all_reduce_flat(flat, group, cfg, residual=residual,
+    summed, new_res = all_reduce_flat(flat, group=group, cfg=cfg,
+                                      residual=residual,
                                       block=blk)
     # a true division: on the card PyTorch turns a division by a host
     # scalar into a multiplication by its reciprocal

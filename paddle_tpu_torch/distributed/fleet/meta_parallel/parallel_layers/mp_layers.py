@@ -206,7 +206,7 @@ class _MPLayer(nn.Module):
 
 class VocabParallelEmbedding(_MPLayer):
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
-                 mp_group=None, name=None, device=None, generator=None):
+                 mp_group=None, name=None, *, device=None, generator=None):
         super().__init__(mp_group, device, generator)
         _no_attr(weight_attr)
         self._num_embeddings = num_embeddings
@@ -237,7 +237,7 @@ class ColumnParallelLinear(_MPLayer):
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=None, gather_output=True, fuse_matmul_bias=False,
-                 mp_group=None, name=None, column_blocks=1, device=None,
+                 mp_group=None, name=None, *, column_blocks=1, device=None,
                  generator=None):
         super().__init__(mp_group, device, generator)
         _no_attr(weight_attr)
@@ -273,7 +273,7 @@ class RowParallelLinear(_MPLayer):
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, input_is_parallel=False,
                  fuse_matmul_bias=False, mp_group=None, name=None,
-                 device=None, generator=None):
+                 *, device=None, generator=None):
         super().__init__(mp_group, device, generator)
         _no_attr(weight_attr)
         self._in_features = in_features

@@ -77,7 +77,7 @@ def get_rng_state_tracker():
     return _tracker
 
 
-def model_parallel_random_seed(seed=None, device=None):
+def model_parallel_random_seed(seed=None, *, device=None):
     """Seed the tracker's "global_seed" and model-parallel states from
     `seed` (None: a random one) and this rank's mp rank."""
     from .mp_layers import model_parallel_group

@@ -71,7 +71,7 @@ class Mesh:
         with _lock:
             g = self._groups.get(key)
             if g is None:
-                g = self._groups[key] = Group(self, key)
+                g = self._groups[key] = Group(mesh=self, axis_names=key)
             return g
 
     def __repr__(self):
@@ -85,7 +85,7 @@ class Group:
     group is up). Constructing it is collective: every rank creates
     every line's subgroup."""
 
-    def __init__(self, mesh, axis_names):
+    def __init__(self, *, mesh, axis_names):
         self.mesh = mesh
         self.axis_names = tuple(axis_names)
         me = get_rank() if mesh.size > 1 else 0
@@ -111,7 +111,7 @@ class Group:
         return f"Group(axes={self.axis_names}, ranks={self.ranks})"
 
 
-def build_mesh(axes, world_size=None):
+def build_mesh(axes, *, world_size=None):
     """axes: ordered {name: size}. The sizes multiply to the world size
     (`world_size`, default: this run's); one -1 is inferred."""
     n = get_world_size() if world_size is None else int(world_size)
@@ -152,7 +152,7 @@ def default_mesh():
     return ensure_mesh()
 
 
-def new_group_for_axes(axis_names, mesh=None):
+def new_group_for_axes(axis_names, *, mesh=None):
     """This rank's `Group` along `axis_names` of `mesh` (default: the
     current mesh, built over the world when none is set)."""
     return (mesh or default_mesh()).group(axis_names)

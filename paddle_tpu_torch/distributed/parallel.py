@@ -49,7 +49,7 @@ __all__ = ["init_parallel_env", "DataParallel"]
 TIMEOUT = datetime.timedelta(seconds=600)
 
 
-def init_parallel_env(backend=None, device=None):
+def init_parallel_env(*, backend=None, device=None):
     """Join the process group of the PADDLE_* env contract (once; a
     single-rank world starts no group) and return a ParallelEnv."""
     nranks = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))

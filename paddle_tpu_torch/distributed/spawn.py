@@ -1,7 +1,7 @@
 """`spawn`, the port of `paddle_tpu/distributed/spawn.py` (:39): start
 `nprocs` processes (the `spawn` start method), each with the PADDLE_*
 env contract of its rank, join each to the process group
-(`init_parallel_env(backend, device)`) and run `func(*args)` there.
+(`init_parallel_env(backend=, device=)`) and run `func(*args)` there.
 
     spawn(train, args=(cfg,), nprocs=2)                  # NCCL, a card a rank
     spawn(train, nprocs=2, backend="gloo")               # gloo, on the card
@@ -48,10 +48,11 @@ def _spawn_entry(func, args, env, backend, device):
             dist.destroy_process_group()
 
 
-def spawn(func, args=(), nprocs=-1, join=True, backend=None, device=None,
-          init_method=None):
-    """Launch `func(*args)` in nprocs processes, each joined to the
-    process group; returns the ProcessContext (joined when `join`)."""
+def spawn(func, args=(), nprocs=-1, join=True, daemon=False, backend=None,
+          *, device=None, init_method=None):
+    """Launch `func(*args)` in nprocs processes (daemonic when `daemon`),
+    each joined to the process group; returns the ProcessContext
+    (joined when `join`)."""
     if nprocs in (-1, 0, 1):
         func(*args)
         return ProcessContext([])
@@ -69,7 +70,8 @@ def spawn(func, args=(), nprocs=-1, join=True, backend=None, device=None,
             "PADDLE_MASTER": init_method or f"127.0.0.1:{port}",
         }
         p = ctx.Process(target=_spawn_entry,
-                        args=(func, args, env, backend, device))
+                        args=(func, args, env, backend, device),
+                        daemon=daemon)
         p.start()
         procs.append(p)
     context = ProcessContext(procs)

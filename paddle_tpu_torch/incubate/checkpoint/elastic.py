@@ -146,7 +146,7 @@ class CheckpointManager:
 
     def __init__(self, dir=None, name="train_state", save_steps=None,
                  save_interval_s=None, max_num=None, async_write=None,
-                 device=None):
+                 *, device=None):
         self.device = resolve_device(device)
         self.dir = dir or default_checkpoint_dir(name)
         if save_steps is None:

@@ -64,7 +64,7 @@ def _dense_attention(q, k, v, mask, scale, causal, dropout_p, generator):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None, name=None,
-                                 generator=None, use_kernel=True):
+                                 *, generator=None, use_kernel=True):
     """softmax(q k^T * scale + mask) v over [B, H, S, D]; `scale`
     defaults to 1 / sqrt(D). Dropout on the probabilities only in
     training, its masks from `generator`."""

@@ -30,7 +30,7 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_gelu",
 
 def fused_layer_norm(x, weight, bias, epsilon=1e-5, activation=None,
                      approximate=True, residual=None,
-                     return_residual_sum=False, use_kernel=True):
+                     return_residual_sum=False, *, use_kernel=True):
     """LayerNorm over the last dim with an optional residual-add
     prologue and GeLU epilogue, one kernel launch a direction on the
     card. With `return_residual_sum`, returns (y, s)."""

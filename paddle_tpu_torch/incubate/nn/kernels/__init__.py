@@ -70,23 +70,30 @@ _LAUNCHES = {"paged_attention": 0, "paged_attention_multi": 0,
              "fused_adam": 0, "fused_sgd": 0, "fused_momentum": 0,
              "quantize_i8": 0, "dequantize_i8": 0}
 
+# the counts take a lock: several serving replicas' worker threads
+# launch kernels at once, and `+= 1` on a dict entry is not atomic
+_launch_lock = threading.Lock()
+
 _lib = None
 _lib_lock = threading.Lock()
 _build_info = {}
 
 
 def count(name):
-    _LAUNCHES[name] += 1
+    with _launch_lock:
+        _LAUNCHES[name] += 1
 
 
 def launches():
     """{kernel name: launches since the last reset_launches()}."""
-    return dict(_LAUNCHES)
+    with _launch_lock:
+        return dict(_LAUNCHES)
 
 
 def reset_launches():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def _nvcc():

@@ -47,9 +47,15 @@ def set_use_kernel(model, use_kernel):
 
 class FusedMultiHeadAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, dropout_rate=0.5,
-                 attn_dropout_rate=0.5, normalize_before=False, epsilon=1e-5,
-                 device=None, generator=None, dropout_generator=None):
+                 attn_dropout_rate=0.5, kdim=None, vdim=None,
+                 normalize_before=False, *, epsilon=1e-5, device=None,
+                 generator=None, dropout_generator=None):
         super().__init__()
+        for nm, dim in (("kdim", kdim), ("vdim", vdim)):
+            if dim not in (None, embed_dim):
+                raise NotImplementedError(
+                    f"FusedMultiHeadAttention: {nm}={dim} != embed_dim is "
+                    "not ported")
         dev, gen = init_source(device, generator)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
@@ -101,7 +107,7 @@ class FusedMultiHeadAttention(nn.Module):
 class FusedFeedForward(nn.Module):
     def __init__(self, d_model, dim_feedforward, dropout_rate=0.1,
                  epsilon=1e-05, activation="relu", act_dropout_rate=None,
-                 normalize_before=False, device=None, generator=None,
+                 normalize_before=False, *, device=None, generator=None,
                  dropout_generator=None):
         super().__init__()
         dev, gen = init_source(device, generator)
@@ -153,8 +159,8 @@ class FusedFeedForward(nn.Module):
 class FusedTransformerEncoderLayer(nn.Module):
     def __init__(self, d_model, nhead, dim_feedforward, dropout_rate=0.1,
                  activation="relu", attn_dropout_rate=None,
-                 act_dropout_rate=None, normalize_before=False, device=None,
-                 generator=None, dropout_generator=None):
+                 act_dropout_rate=None, normalize_before=False, *,
+                 device=None, generator=None, dropout_generator=None):
         super().__init__()
         dev, gen = init_source(device, generator)
         attn_dropout_rate = (dropout_rate if attn_dropout_rate is None

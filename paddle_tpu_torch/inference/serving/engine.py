@@ -57,13 +57,43 @@ max(3, max_batch) consecutive failures it re-raises. The pools are
 updated in place and survive a failed dispatch: a retry rewrites the
 same positions.
 
+Lifecycle:
+
+  * `drain(timeout_s)` stops admission (new intake sheds with
+    `EngineOverloaded`), runs RUNNING requests to completion, then
+    EXPORTS what is left (prompt + generated-so-far + sampling) for
+    token-exact re-admission elsewhere (`import_request`); `resume()`
+    re-opens admission.
+  * `export_requests(fence=)` retires every live request to the
+    terminal EXPORTED state and, by default, FENCES the engine: a
+    fenced engine refuses intake and its `step()` no-ops, so a zombie
+    thread waking from a wedge cannot double-serve what replays
+    elsewhere.
+  * `arm_incident_export()` registers a flight incident hook
+    (`monitor.flight`): on an incident the engine fences and exports
+    its live requests into `emergency_exports`. The watchdog that
+    raises incidents is not ported (ROADMAP queue 1 item 4); a direct
+    `flight._run_incident_hooks(reason)` call fires it.
+  * `load_score()` (free blocks net of queued demand) and `heartbeat`
+    (stamped at every completed prefill and decode dispatch) are the
+    router's routing and health signals; `state_summary()` is attached
+    to every shed or timeout.
+  * `export_traces()` / `dump_traces(path)`: the per-request trace
+    spool (`monitor.trace`).
+
+The constructor takes the JAX package's parameters in its order; a
+`None` reads the `PADDLE_SERVE_*` knob as the JAX engine does.
+`donate=True` is accepted and `False` raises: the pools are always
+updated in place, which is what donation buys.
+
 Telemetry: `serve/{requests,tokens,prefills,prefill_us,
 decode_dispatches,decode_us,evictions,oom_evictions,queue_depth,
-kv_blocks/*}` counters and the `serve/hist/{ttft_us,itl_us,
+drains,kv_blocks/*}` counters and the `serve/hist/{ttft_us,itl_us,
 queue_wait_us,e2e_us,accept_len}` histograms, `serve/spec/*` and
-`serve/prefix/*` (`paddle_tpu_torch.core.monitor`). A speculative round
-counts as one `serve/decode_dispatches` (its verify dispatch; its k
-draft dispatches come with it).
+`serve/prefix/*` (`paddle_tpu_torch.core.monitor`), and the
+`serve_prefill` / `serve_decode` / `serve_drain` flight spans. A
+speculative round counts as one `serve/decode_dispatches` (its verify
+dispatch; its k draft dispatches come with it).
 """
 from __future__ import annotations
 
@@ -77,10 +107,13 @@ from ...core import monitor as _cmon
 from ...device import resolve_device
 from ...incubate.nn.kernels.paged_attention import (MAX_QUERY_SLOTS,
                                                     paged_decode_supported)
+from ...monitor import flight as _flight
+from ...monitor import trace as _trace
 from . import model_runner as _mr
-from .kv_cache import (DEFAULT_BLOCK_SIZE, DEFAULT_MAX_BATCH, NULL_BLOCK,
-                       PagedKVCache)
-from .scheduler import FINISHED, Request, Scheduler
+from .kv_cache import (NULL_BLOCK, PagedKVCache, env_max_batch,
+                       env_prefix_cache, env_spec_draft, env_spec_k)
+from .scheduler import (EXPORTED, FINISHED, EngineOverloaded, Request,
+                        Scheduler)
 
 __all__ = ["LLMEngine", "EngineTimeout"]
 
@@ -97,10 +130,17 @@ class EngineTimeout(TimeoutError):
 class LLMEngine:
     """Continuous-batching generation engine over one causal LM."""
 
-    def __init__(self, model, max_batch=DEFAULT_MAX_BATCH,
-                 block_size=DEFAULT_BLOCK_SIZE, num_blocks=None,
-                 pool_bytes=None, dtype=None, use_kernel=True, device=None,
-                 spec_k=1, draft_layers=None, prefix_cache=False):
+    def __init__(self, model, max_batch=None, block_size=None,
+                 num_blocks=None, pool_bytes=None, dtype=None,
+                 static_batching=False, use_kernel=None, donate=True,
+                 max_queue=None, spec_k=None, draft_layers=None,
+                 prefix_cache=None, *, device=None):
+        # the pools are always updated in place, which is what the JAX
+        # package's buffer donation buys
+        if not donate:
+            raise NotImplementedError(
+                "LLMEngine: donate=False is not ported (the port updates "
+                "its KV pools in place)")
         self.device = resolve_device(device)
         self.params, self.config = _mr.extract_params(model)
         if self.params["wte"].device != self.device:
@@ -109,27 +149,31 @@ class LLMEngine:
                 f"engine device is {self.device}: build the model on "
                 "the engine's device")
         cfg = self.config
-        self.max_batch = int(max_batch)
+        self.max_batch = int(max_batch or env_max_batch())
         self.max_seq_len = int(cfg.max_seq_len)
         head_dim = cfg.hidden_size // cfg.num_heads
         # speculative width: 1 = off (the verify kernel unrolls its
         # query slots, so k is capped at MAX_QUERY_SLOTS)
-        self.spec_k = max(1, min(MAX_QUERY_SLOTS, int(spec_k)))
+        self.spec_k = max(1, min(MAX_QUERY_SLOTS, int(
+            spec_k if spec_k is not None else env_spec_k())))
         self.draft_layers = 0
         if self.spec_k > 1:
-            n_draft = int(draft_layers or 0)
+            n_draft = int(draft_layers if draft_layers is not None
+                          else env_spec_draft())
             if n_draft <= 0:             # default: half the depth
                 n_draft = max(1, cfg.num_layers // 2)
             self.draft_layers = min(n_draft, cfg.num_layers)
-        self.prefix_cache = bool(prefix_cache)
+        self.prefix_cache = bool(prefix_cache if prefix_cache is not None
+                                 else env_prefix_cache())
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_heads, head_dim,
             block_size=block_size, num_blocks=num_blocks,
-            pool_bytes=pool_bytes, dtype=dtype, device=self.device,
+            pool_bytes=pool_bytes, dtype=dtype,
             draft_layers=self.draft_layers,
-            prefix_cache=self.prefix_cache)
+            prefix_cache=self.prefix_cache, device=self.device)
         self.block_size = self.cache.block_size
-        self.use_kernel = bool(use_kernel)
+        # None: the kernels, as on the JAX side where they are available
+        self.use_kernel = True if use_kernel is None else bool(use_kernel)
         if self.use_kernel and self.device.type == "cuda" \
                 and not paged_decode_supported(head_dim, self.block_size):
             raise ValueError(
@@ -142,6 +186,8 @@ class LLMEngine:
             self.max_seq_len / self.block_size)
         self.scheduler = Scheduler(self.cache, self.max_batch,
                                    self.max_seq_len,
+                                   static_batching=static_batching,
+                                   max_queue=max_queue,
                                    spec_tokens=self.spec_k)
         self._draft_params = None
         if self.spec_k > 1:
@@ -152,8 +198,15 @@ class LLMEngine:
         self._oom_streak = 0         # consecutive OOM'd dispatches
         # finished requests kept for result retrieval, bounded
         self._keep_finished = 256
-        # stamped at every completed dispatch
+        # stamped at every completed dispatch: the router's health
+        # signal (a wedged dispatch stops the clock)
         self.heartbeat = time.monotonic()
+        # fenced: this engine's requests were exported elsewhere, and a
+        # zombie thread waking from a wedge must not keep serving
+        self._fenced = False
+        # the emergency drain-and-export's landing zone (incident hook)
+        self.emergency_exports = None
+        self._incident_armed = False
 
     def _fwd_kwargs(self):
         cfg = self.config
@@ -167,7 +220,9 @@ class LLMEngine:
     def add_request(self, prompt_ids, sampling=None, on_token=None,
                     req_id=None):
         """Queue one request; returns its id. `on_token(req_id, token)`
-        streams every generated token as its dispatch completes."""
+        streams every generated token as its dispatch completes. A
+        fenced engine refuses intake (its step() no-ops)."""
+        self._check_fenced()
         req = Request(prompt_ids, sampling=sampling, on_token=on_token,
                       req_id=req_id)
         self.scheduler.add(req)
@@ -205,7 +260,11 @@ class LLMEngine:
     def step(self):
         """One engine iteration: admissions (each prefilled, its first
         token emitted) + one decode dispatch for the running batch.
-        Returns {req_id: token} emitted this step."""
+        Returns {req_id: token} emitted this step. A fenced engine
+        no-ops: its tokens would double-serve requests replaying
+        elsewhere."""
+        if self._fenced:
+            return {}
         emitted = {}
 
         def _on_admit(req):
@@ -234,11 +293,14 @@ class LLMEngine:
         """Submit `prompts` (lists of token ids) and run the engine to
         drain; returns each prompt's generated ids, in order.
         `timeout_s` bounds the whole drain (judged between dispatches)
-        and raises EngineTimeout with `state_summary()` attached."""
+        and raises EngineTimeout with `state_summary()` attached. A
+        request that EXPIRES (deadline_s) returns its partial output
+        (empty if never admitted); one exported by an incident hook
+        mid-generate raises EngineTimeout."""
         ids = [self.add_request(p, sampling=sampling) for p in prompts]
         deadline = (time.monotonic() + timeout_s
                     if timeout_s is not None else None)
-        while self.has_unfinished():
+        while self.has_unfinished() and not self._fenced:
             self.step()
             if deadline is not None and self.has_unfinished() \
                     and time.monotonic() > deadline:
@@ -247,6 +309,14 @@ class LLMEngine:
                     f"with {len(self.scheduler.running)} running / "
                     f"{len(self.scheduler.waiting)} waiting",
                     engine_state=self.state_summary())
+        exported = [i for i in ids
+                    if self._requests[i].state == EXPORTED]
+        if exported:
+            raise EngineTimeout(
+                f"engine fenced mid-generate: {len(exported)} "
+                "request(s) were emergency-exported (see "
+                "emergency_exports) — replay them on a healthy engine",
+                engine_state=self.state_summary())
         outs = [self._requests[i].output_ids for i in ids]
         for i in ids:                # results consumed: release
             self.release_request(i)
@@ -285,18 +355,29 @@ class LLMEngine:
             return _mr.prefill_step(params, ids_t, plen, k_pool, v_pool,
                                     table_t, *sampling, **kw)
 
-        tok = int(run(self.params, self.cache.k, self.cache.v,
-                      s.temperature, s.top_k,
-                      _mr.seed_for(s.seed, plen)))  # waits for the device
-        if self._draft_params is not None:
-            run(self._draft_params, self.cache.k_draft, self.cache.v_draft,
-                0.0, 0, 0)
-            req._spec_gap = False
-        _cmon.stat_add("serve/prefill_us",
-                       int((time.perf_counter() - t0) * 1e6))
+        with _flight.in_flight("serve_prefill", req.req_id, tokens=plen):
+            tok = int(run(self.params, self.cache.k, self.cache.v,
+                          s.temperature, s.top_k,
+                          _mr.seed_for(s.seed, plen)))  # waits
+            if self._draft_params is not None:
+                run(self._draft_params, self.cache.k_draft,
+                    self.cache.v_draft, 0.0, 0, 0)
+                req._spec_gap = False
+        dur_us = int((time.perf_counter() - t0) * 1e6)
+        _cmon.stat_add("serve/prefill_us", dur_us)
         _cmon.stat_add("serve/prefills", 1)
         if cached:
             _cmon.stat_add("serve/prefix/prefill_tokens_saved", cached)
+        if _trace._armed:
+            # replayed > 0: an eviction recompute or a failover/drain
+            # replay (the preserved output_ids re-prefill)
+            if cached:
+                _trace.note(req, "prefill", tokens=plen - cached,
+                            cached=cached, dur_us=dur_us,
+                            replayed=len(req.output_ids))
+            else:
+                _trace.note(req, "prefill", tokens=plen, dur_us=dur_us,
+                            replayed=len(req.output_ids))
         self.cache.register_prefix(req.req_id, ctx)
         self.heartbeat = time.monotonic()
         return tok
@@ -357,11 +438,14 @@ class LLMEngine:
         running = dict(self.scheduler.running)
         t0 = time.perf_counter()
         try:
-            if k > 1:
-                rows = self._spec_round(running, arrays)
-            else:
-                toks = self._dispatch_decode(arrays)
-                rows = {slot: [int(toks[slot])] for slot in running}
+            with _flight.in_flight(
+                    "serve_decode", "spec_decode" if k > 1 else "decode",
+                    batch=len(running)):
+                if k > 1:
+                    rows = self._spec_round(running, arrays)
+                else:
+                    toks = self._dispatch_decode(arrays)
+                    rows = {slot: [int(toks[slot])] for slot in running}
         except torch.cuda.OutOfMemoryError:
             self._oom_streak += 1
             if self._oom_streak > max(3, self.max_batch):
@@ -378,6 +462,10 @@ class LLMEngine:
                        int((time.perf_counter() - t0) * 1e6))
         _cmon.stat_add("serve/decode_dispatches", 1)
         for slot, req in running.items():
+            if self.scheduler.running.get(slot) is not req:
+                # exported (or aborted) while the dispatch ran: a fenced
+                # engine's late wake-up emits nothing
+                continue
             for tok in rows[slot]:
                 self._emit(req, tok, emitted)
                 if req.finished:
@@ -501,6 +589,8 @@ class LLMEngine:
         else:
             _cmon.hist_observe("serve/hist/itl_us",
                                (now - req.token_times[-2]) * 1e6)
+        if _trace._armed:
+            _trace.note(req, "decode", n=len(req.output_ids))
         if req.on_token is not None:
             try:
                 req.on_token(req.req_id, token)
@@ -513,18 +603,181 @@ class LLMEngine:
                 or req.context_len >= self.max_seq_len):
             self.scheduler.finish(req, state=FINISHED)
 
-    # -- accounting --------------------------------------------------
+    # -- lifecycle: drain / export / failover -------------------------
+    @property
+    def fenced(self):
+        return self._fenced
+
+    def _check_fenced(self):
+        if self._fenced:
+            raise EngineOverloaded(
+                "engine is fenced (its requests were exported after a "
+                "wedge/failover) and will never serve again — route to "
+                "another replica or build a fresh LLMEngine",
+                engine_state=self.state_summary())
+
     def heartbeat_age(self, now=None):
-        """Seconds since the last completed dispatch."""
+        """Seconds since the last completed dispatch — the router's
+        wedge signal (meaningful only while the engine has work)."""
         return (time.monotonic() if now is None else now) \
             - self.heartbeat
 
+    def load_score(self):
+        """Free KV blocks net of queued demand (prompt blocks plus one
+        decode lookahead per waiting request): the router's least-loaded
+        signal. list() snapshots the deque, so a concurrent admission
+        pass cannot break the read."""
+        lookahead = self.scheduler._lookahead
+        pending = sum(
+            self.cache.blocks_for_tokens(r.context_len) + lookahead
+            for r in list(self.scheduler.waiting))
+        return self.cache.allocator.free_blocks - pending
+
+    def _export(self, req):
+        """One request's replayable snapshot: the remaining tokens are a
+        pure function of prompt + generated-so-far + sampling (seeds
+        keyed by position), so another engine continues it exactly."""
+        return {
+            "req_id": req.req_id,
+            "prompt_ids": list(req.prompt_ids),
+            "output_ids": list(req.output_ids),
+            "sampling": req.sampling,
+            "deadline": req.deadline,
+            "evictions": req.evictions,
+            "trace_id": req.trace_id,
+        }
+
+    def export_requests(self, fence=True):
+        """Snapshot and retire every live request (terminal EXPORTED;
+        its blocks release now) and, by default, fence the engine.
+        RUNNING requests export first in admission order, then the
+        waiting queue in FIFO order. The exports must be imported
+        somewhere (`import_request`) or the requests are dropped."""
+        if fence:
+            self._fenced = True
+        sched = self.scheduler
+        running = sorted(
+            sched.running.values(),
+            key=lambda r: sched._admitted_at.get(r.req_id, -1))
+        exports = []
+        for req in running + list(sched.waiting):
+            req.on_token = None     # a zombie's emits must not stream
+            exp = self._export(req)
+            sched.finish(req, state=EXPORTED)
+            # after finish: the export carries its own "exported" event
+            exp["trace"] = list(req.trace)
+            exports.append(exp)
+        return exports
+
+    def import_request(self, export, on_token=None, force=False):
+        """Re-admit an exported request: its output_ids ride into the
+        re-prefill as an eviction's do, so generation continues where
+        the exporting engine stopped. `force=True` (router failover)
+        bypasses the drain gate and the shed bound. A fenced engine
+        refuses even a forced import."""
+        self._check_fenced()
+        req = Request(export["prompt_ids"], sampling=export["sampling"],
+                      on_token=on_token, req_id=export["req_id"],
+                      trace_id=export.get("trace_id"))
+        req.output_ids = list(export["output_ids"])
+        req.deadline = export.get("deadline")
+        req.evictions = int(export.get("evictions", 0))
+        if export.get("trace"):
+            # continue the exporting engine's timeline
+            req.trace = list(export["trace"])
+        if _trace._armed:
+            _trace.note(req, "import", replayed=len(req.output_ids),
+                        forced=bool(force))
+        self.scheduler.add(req, force=force)
+        self._requests[req.req_id] = req
+        return req.req_id
+
+    def drain(self, timeout_s=None):
+        """Stop admitting (new intake sheds with EngineOverloaded), run
+        RUNNING requests to completion, then export what is left: the
+        requests still running after `timeout_s` and the whole waiting
+        queue. Returns the exports ([] when everything completed). The
+        engine stays draining until `resume()`."""
+        deadline = (time.monotonic() + timeout_s
+                    if timeout_s is not None else None)
+        with _flight.in_flight("serve_drain", "drain",
+                               running=len(self.scheduler.running),
+                               waiting=len(self.scheduler.waiting)):
+            self.scheduler.draining = True
+            while self.scheduler.running and not self._fenced:
+                if deadline is not None and time.monotonic() > deadline:
+                    break
+                self.step()
+            exports = self.export_requests(fence=False)
+            if self.emergency_exports:
+                # fenced mid-drain by the incident hook, which already
+                # exported the in-flight work: return it too
+                exports = list(self.emergency_exports) + exports
+                self.emergency_exports = None
+        _cmon.stat_add("serve/drains", 1)
+        _flight.record("serve_drain_done", exported=len(exports))
+        return exports
+
+    def resume(self):
+        """Re-open admission after a drain. A fenced engine cannot
+        resume: build a fresh one."""
+        if self._fenced:
+            raise RuntimeError(
+                "cannot resume a fenced engine — its requests were "
+                "exported after a wedge/failover; create a fresh "
+                "LLMEngine")
+        self.scheduler.draining = False
+
+    # -- emergency drain-and-export ----------------------------------
+    def arm_incident_export(self):
+        """Register `_incident_export` as a flight incident hook: on an
+        incident, fence this engine and export its live requests into
+        `emergency_exports` for a router or operator to replay."""
+        if not self._incident_armed:
+            _flight.add_incident_hook(self._incident_export)
+            self._incident_armed = True
+        return self
+
+    def disarm_incident_export(self):
+        if self._incident_armed:
+            _flight.remove_incident_hook(self._incident_export)
+            self._incident_armed = False
+
+    def _incident_export(self, reason):
+        """The hook's body: an engine with live work fences and exports;
+        an idle one is untouched. No dispatch runs here."""
+        if self._fenced or not self.scheduler.has_work():
+            return
+        self.emergency_exports = self.export_requests(fence=True)
+        _cmon.stat_add("serve/drains", 1)
+        _flight.record("serve_drain_done",
+                       exported=len(self.emergency_exports),
+                       emergency=True, reason=str(reason))
+
+    # -- trace spool -------------------------------------------------
+    def export_traces(self):
+        """Trace spool (schema "paddle_tpu.trace/1") over every
+        retained request's timeline; live requests show their story so
+        far."""
+        return _trace.export_requests(self._requests.values())
+
+    def dump_traces(self, path):
+        """Write export_traces() as JSON; returns the path."""
+        import json
+
+        with open(path, "w") as f:
+            json.dump(self.export_traces(), f, default=str)
+        return path
+
+    # -- accounting --------------------------------------------------
     def state_summary(self):
         """Host-side snapshot of where serving stands."""
         sched = self.scheduler
         return {
             "waiting": len(sched.waiting),
             "running": len(sched.running),
+            "draining": sched.draining,
+            "fenced": self._fenced,
             "queue_depth": len(sched.waiting),
             "free_blocks": self.cache.allocator.free_blocks,
             "used_blocks": self.cache.allocator.used_blocks,

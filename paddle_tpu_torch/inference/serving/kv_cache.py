@@ -52,15 +52,52 @@ from ...core import monitor as _cmon
 from ...device import resolve_device
 
 __all__ = ["BlockAllocator", "PagedKVCache", "NULL_BLOCK",
-           "DEFAULT_BLOCK_SIZE", "DEFAULT_MAX_BATCH", "auto_num_blocks",
-           "bytes_per_block", "prefix_hashes"]
+           "auto_num_blocks", "bytes_per_block", "prefix_hashes",
+           "env_block_size", "env_pool_bytes", "env_max_batch",
+           "env_spec_k", "env_spec_draft", "env_prefix_cache"]
 
 NULL_BLOCK = 0  # reserved garbage-dump block, never owned
 
-DEFAULT_BLOCK_SIZE = 16
-DEFAULT_MAX_BATCH = 8
+_DEF_BLOCK_SIZE = 16
+_DEF_MAX_BATCH = 8
 # CPU fallback pool budget — big enough for the tests' tiny models
 _DEF_POOL_BYTES = 64 << 20
+
+
+def env_block_size():
+    """PADDLE_SERVE_BLOCK_SIZE — tokens per KV block (default 16)."""
+    return max(1, _cmon._env_int("PADDLE_SERVE_BLOCK_SIZE",
+                                 _DEF_BLOCK_SIZE))
+
+
+def env_pool_bytes():
+    """PADDLE_SERVE_POOL_BYTES — total KV pool budget in bytes
+    (default 0 = auto-size from the card's free memory)."""
+    return _cmon._env_int("PADDLE_SERVE_POOL_BYTES", 0)
+
+
+def env_max_batch():
+    """PADDLE_SERVE_MAX_BATCH — decode batch width (default 8)."""
+    return max(1, _cmon._env_int("PADDLE_SERVE_MAX_BATCH",
+                                 _DEF_MAX_BATCH))
+
+
+def env_spec_k():
+    """PADDLE_SERVE_SPEC_K — speculative tokens per round (default 1 =
+    speculation off)."""
+    return max(1, min(8, _cmon._env_int("PADDLE_SERVE_SPEC_K", 1)))
+
+
+def env_spec_draft():
+    """PADDLE_SERVE_SPEC_DRAFT — draft model layer count (default 0 =
+    half the target's layers, at least 1)."""
+    return max(0, _cmon._env_int("PADDLE_SERVE_SPEC_DRAFT", 0))
+
+
+def env_prefix_cache():
+    """PADDLE_SERVE_PREFIX_CACHE — 1 enables copy-on-write prefix
+    block sharing (default 0 = off)."""
+    return 1 if _cmon._env_int("PADDLE_SERVE_PREFIX_CACHE", 0) else 0
 
 
 def prefix_hashes(tokens, block_size, n_blocks=None):
@@ -90,12 +127,12 @@ def bytes_per_block(num_layers, block_size, n_head, head_dim, dtype):
 
 
 def auto_num_blocks(per_block, pool_bytes=None, fraction=0.45,
-                    device=None):
-    """Pool size in blocks: the explicit budget when given, else
-    `fraction` of the card's free memory
-    (`torch.cuda.mem_get_info`, read after the weights are resident),
-    else the CPU fallback budget."""
-    budget = pool_bytes
+                    *, device=None):
+    """Pool size in blocks: the explicit budget when given (argument or
+    `PADDLE_SERVE_POOL_BYTES`), else `fraction` of the card's free
+    memory (`torch.cuda.mem_get_info`, read after the weights are
+    resident), else the CPU fallback budget."""
+    budget = pool_bytes if pool_bytes else env_pool_bytes()
     if not budget and device is not None and device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         budget = int(free * fraction)
@@ -264,11 +301,11 @@ class PagedKVCache:
     """The device pools + the allocator + per-request block tables."""
 
     def __init__(self, num_layers, num_heads, head_dim,
-                 block_size=DEFAULT_BLOCK_SIZE, num_blocks=None,
-                 pool_bytes=None, dtype=None, device=None, draft_layers=0,
-                 prefix_cache=False):
+                 block_size=None, num_blocks=None, pool_bytes=None,
+                 dtype=None, draft_layers=0, prefix_cache=False, *,
+                 device=None):
         self.device = resolve_device(device)
-        self.block_size = int(block_size)
+        self.block_size = int(block_size or env_block_size())
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -281,6 +318,10 @@ class PagedKVCache:
             num_blocks = auto_num_blocks(per_block, pool_bytes=pool_bytes,
                                          device=self.device)
         self.num_blocks = int(num_blocks)
+        self._zero_pools()
+        self.allocator = BlockAllocator(self.num_blocks)
+
+    def _zero_pools(self):
         shape = (self.num_layers, self.num_blocks, self.block_size,
                  self.num_heads, self.head_dim)
         self.k = torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -293,7 +334,6 @@ class PagedKVCache:
                                        device=self.device)
             self.v_draft = torch.zeros(dshape, dtype=self.dtype,
                                        device=self.device)
-        self.allocator = BlockAllocator(self.num_blocks)
 
     # -- geometry ----------------------------------------------------
     def blocks_for_tokens(self, n_tokens):
@@ -373,3 +413,50 @@ class PagedKVCache:
         row = np.full((max_blocks,), NULL_BLOCK, np.int32)
         row[:len(blocks)] = blocks
         return row
+
+    def reset_pools(self):
+        """Fresh zero pools. The caller re-prefills every sequence: the
+        allocator's state survives but the K/V contents are gone, and so
+        is every published prefix (sharing a pre-reset digest would
+        share zeros)."""
+        self._zero_pools()
+        self.allocator.clear_hash_index()
+
+    # -- defrag ------------------------------------------------------
+    def defrag(self):
+        """Compact allocated blocks to the front of the pool, owners in
+        sorted order and a shared block moved once, with one
+        `index_select` a pool. Rewrites the owner tables, refcounts and
+        hash index as the JAX package's `defrag` does (kv_cache.py:514)
+        and returns the number of blocks that moved."""
+        alloc = self.allocator
+        owners = alloc.owners()
+        mapping = {NULL_BLOCK: NULL_BLOCK}
+        nxt = 1
+        for owner in owners:
+            for b in alloc._owned[owner]:
+                if b not in mapping:
+                    mapping[b] = nxt
+                    nxt += 1
+        moved = sum(1 for old, new in mapping.items() if old != new)
+        if not moved:
+            return 0
+        # perm[new] = old; the tail keeps the identity (its blocks are
+        # free and never read unmasked)
+        perm = np.arange(self.num_blocks)
+        for old, new in mapping.items():
+            perm[new] = old
+        idx = torch.from_numpy(perm).to(self.device)
+        self.k = self.k.index_select(1, idx)
+        self.v = self.v.index_select(1, idx)
+        if self.k_draft is not None:
+            self.k_draft = self.k_draft.index_select(1, idx)
+            self.v_draft = self.v_draft.index_select(1, idx)
+        for owner in owners:
+            alloc._owned[owner] = [mapping[b] for b in alloc._owned[owner]]
+        alloc._refcnt = {mapping[b]: c for b, c in alloc._refcnt.items()}
+        alloc._by_hash = {h: mapping[b] for h, b in alloc._by_hash.items()}
+        alloc._hash_of = {mapping[b]: h for b, h in alloc._hash_of.items()}
+        alloc._free = deque(range(nxt, self.num_blocks))
+        alloc._sync_gauges()
+        return moved

@@ -394,7 +394,7 @@ class DataLoader:
                  shuffle=False, drop_last=False, collate_fn=None,
                  num_workers=0, use_buffer_reader=True, prefetch_factor=2,
                  use_shared_memory=True, timeout=0, worker_init_fn=None,
-                 persistent_workers=False, device=None):
+                 persistent_workers=False, *, device=None):
         if num_workers not in (0, None):
             raise NotImplementedError(
                 f"DataLoader(num_workers={num_workers!r}): the worker pool "

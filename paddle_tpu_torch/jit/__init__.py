@@ -69,10 +69,17 @@ __all__ = ["TrainStepCompiler"]
 
 
 class TrainStepCompiler:
-    def __init__(self, model, optimizer, loss_fn=None, accumulate_steps=1,
-                 amp_level=None, steps_per_dispatch=1, guard_nonfinite=False,
-                 grad_scaler=None, amp_dtype="bfloat16",
-                 amp_custom_white_list=None, amp_custom_black_list=None):
+    def __init__(self, model, optimizer, loss_fn=None, donate=True,
+                 accumulate_steps=1, amp_level=None, amp_dtype="bfloat16",
+                 amp_custom_white_list=None, amp_custom_black_list=None,
+                 steps_per_dispatch=1, guard_nonfinite=False,
+                 grad_scaler=None):
+        # The parameters and optimizer state are always updated in
+        # place, which is what the JAX package's buffer donation buys.
+        if not donate:
+            raise NotImplementedError(
+                "TrainStepCompiler: donate=False is not ported (the port "
+                "updates parameters in place)")
         if amp_level not in (None, "O1", "O2"):
             raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
                              f"{amp_level!r}")

@@ -96,9 +96,14 @@ __all__ = ["DistributedTrainStepCompiler"]
 
 
 class DistributedTrainStepCompiler(TrainStepCompiler):
-    def __init__(self, model, optimizer, loss_fn=None, group=None,
-                 comm_compress=True, mesh=None, **kwargs):
-        super().__init__(model, optimizer, loss_fn=loss_fn, **kwargs)
+    def __init__(self, model, optimizer, loss_fn=None, mesh=None,
+                 batch_specs=None, donate=True, *, group=None,
+                 comm_compress=True, **kwargs):
+        if batch_specs is not None:
+            raise NotImplementedError("DistributedTrainStepCompiler: "
+                                      "batch_specs is not ported")
+        super().__init__(model, optimizer, loss_fn=loss_fn, donate=donate,
+                         **kwargs)
         if mesh is not None:
             if group is not None:
                 raise ValueError("DistributedTrainStepCompiler: pass a "
@@ -268,7 +273,7 @@ class DistributedTrainStepCompiler(TrainStepCompiler):
         else:
             segs = C.pack.segments([n for n, _ in params], grads)
             mean, self._pending_residual = C.reduce_tree(
-                grads, segs, self._group, cfg,
+                grads, segs, group=self._group, cfg=cfg,
                 residual=self._comm_state.get("residual"))
             for n, p in params:
                 p.grad = mean[n]

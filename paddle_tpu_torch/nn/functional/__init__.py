@@ -74,15 +74,26 @@ class _Embedding(torch.autograd.Function):
         return None, dw.to(grad.dtype)
 
 
-def embedding(x, weight):
-    """Rows of `weight` at the ids `x`."""
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of `weight` at the ids `x`; an id equal to `padding_idx`
+    gives a zero row and no gradient."""
+    if sparse:
+        raise NotImplementedError("embedding: sparse=True is not ported")
     x, weight = maybe_cast_inputs("embedding", (x, weight))
-    return _Embedding.apply(x.long(), weight)
+    out = _Embedding.apply(x.long(), weight)
+    if padding_idx is not None:
+        out = out * (x != int(padding_idx)).unsqueeze(-1).to(out.dtype)
+    return out
 
 
-def dropout(x, p=0.5, training=True, generator=None):
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, *, generator=None):
     """Keep each element with probability 1 - p and scale what it keeps
     by 1 / (1 - p); the identity outside training or at p = 0."""
+    if axis is not None:
+        raise NotImplementedError("dropout: axis is not ported")
+    if mode != "upscale_in_train":
+        raise NotImplementedError(f"dropout: mode={mode!r} is not ported")
     if not training or p == 0.0:
         return x
     (x,) = maybe_cast_inputs("dropout", (x,))
@@ -93,7 +104,8 @@ def dropout(x, p=0.5, training=True, generator=None):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
+                                 training=True, name=None, *,
+                                 generator=None):
     """Attention over [B, H, S, D]: the flash kernels where the JAX
     package would take its Pallas kernel, else the plain composition
     (`incubate.nn.attention`)."""

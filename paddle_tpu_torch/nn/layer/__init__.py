@@ -1,7 +1,7 @@
 """paddle_tpu_torch.nn.layer — the port's layers (`paddle_tpu/nn/layer`)."""
 from .activation import ReLU, Tanh
 from .common import Dropout, Embedding, Flatten, Linear
-from .container import Sequential
+from .container import LayerList, Sequential
 from .conv import Conv1D, Conv2D, Conv3D
 from .loss import CrossEntropyLoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,

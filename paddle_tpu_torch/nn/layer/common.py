@@ -9,6 +9,7 @@ seeded 0). `Dropout` draws its masks from its `generator` (None: the
 device's default generator)."""
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from .. import functional as F
@@ -20,7 +21,7 @@ __all__ = ["Linear", "Embedding", "Dropout", "Flatten"]
 class Linear(nn.Module):
     """y = x W + b, W [in_features, out_features]."""
 
-    def __init__(self, in_features, out_features, device=None,
+    def __init__(self, in_features, out_features, *, device=None,
                  generator=None):
         super().__init__()
         dev, gen = init_source(device, generator)
@@ -38,25 +39,42 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, device=None,
+    """Rows of an [num_embeddings, embedding_dim] table; the row
+    `padding_idx` starts at zero and takes no gradient."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
                  generator=None):
         super().__init__()
+        if sparse:
+            raise NotImplementedError("Embedding: sparse=True is not ported")
+        if weight_attr is not None:
+            raise NotImplementedError("Embedding: weight_attr is not ported")
         dev, gen = init_source(device, generator)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
         self.weight = create_parameter([num_embeddings, embedding_dim], dev,
                                        gen)
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"
 
 
 class Dropout(nn.Module):
-    def __init__(self, p=0.5, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 *, generator=None):
         super().__init__()
+        if axis is not None:
+            raise NotImplementedError("Dropout: axis is not ported")
+        if mode != "upscale_in_train":
+            raise NotImplementedError(f"Dropout: mode={mode!r} is not ported")
         self.p = p
         self.generator = generator
 

@@ -1,15 +1,17 @@
-"""`Sequential`: the port of `paddle_tpu/nn/layer/container.py`
-(:14-47). It takes layers (named "0", "1", ...), (name, layer) pairs
-or an `OrderedDict`; indexing by an int or a name gives a sublayer, a
-slice a new `Sequential` of those layers, renumbered from "0", as in
-the JAX package."""
+"""`Sequential` and `LayerList`: the port of
+`paddle_tpu/nn/layer/container.py` (:14-60). `Sequential` takes layers
+(named "0", "1", ...), (name, layer) pairs or an `OrderedDict`;
+indexing by an int or a name gives a sublayer, a slice a new
+`Sequential` of those layers, renumbered from "0", as in the JAX
+package. `LayerList` is torch's `ModuleList` under the JAX
+constructor's parameter name."""
 from __future__ import annotations
 
 import collections
 
 import torch.nn as nn
 
-__all__ = ["Sequential"]
+__all__ = ["Sequential", "LayerList"]
 
 
 class Sequential(nn.Module):
@@ -43,3 +45,8 @@ class Sequential(nn.Module):
 
     def __iter__(self):
         return iter(self._modules.values())
+
+
+class LayerList(nn.ModuleList):
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)

@@ -72,7 +72,7 @@ class Conv1D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCL",
-                 device=None, generator=None):
+                 *, device=None, generator=None):
         super().__init__(1, in_channels, out_channels, kernel_size, stride,
                          padding, dilation, groups, padding_mode, weight_attr,
                          bias_attr, data_format, device, generator)
@@ -84,7 +84,7 @@ class Conv2D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 device=None, generator=None):
+                 *, device=None, generator=None):
         super().__init__(2, in_channels, out_channels, kernel_size, stride,
                          padding, dilation, groups, padding_mode, weight_attr,
                          bias_attr, data_format, device, generator)
@@ -96,7 +96,7 @@ class Conv3D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCDHW",
-                 device=None, generator=None):
+                 *, device=None, generator=None):
         super().__init__(3, in_channels, out_channels, kernel_size, stride,
                          padding, dilation, groups, padding_mode, weight_attr,
                          bias_attr, data_format, device, generator)

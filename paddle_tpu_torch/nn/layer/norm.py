@@ -29,7 +29,7 @@ __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon=1e-05, device=None):
+    def __init__(self, normalized_shape, epsilon=1e-05, *, device=None):
         super().__init__()
         dev = resolve_device(device)
         if isinstance(normalized_shape, int):
@@ -53,7 +53,7 @@ class LayerNorm(nn.Module):
 class _BatchNormBase(nn.Module):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, name=None, device=None):
+                 use_global_stats=None, name=None, *, device=None):
         super().__init__()
         dev = resolve_device(device)
         self._num_features = num_features
@@ -97,7 +97,7 @@ class BatchNorm(_BatchNormBase):
 
     def __init__(self, num_channels, act=None, momentum=0.9, epsilon=1e-05,
                  param_attr=None, bias_attr=None, data_layout="NCHW",
-                 use_global_stats=None, device=None, **kwargs):
+                 use_global_stats=None, *, device=None, **kwargs):
         super().__init__(num_channels, momentum, epsilon, param_attr,
                          bias_attr, data_layout, use_global_stats,
                          device=device)
@@ -123,7 +123,7 @@ class BatchNorm2D(_BatchNormBase):
 class BatchNorm3D(_BatchNormBase):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
                  weight_attr=None, bias_attr=None, data_format="NCDHW",
-                 use_global_stats=None, name=None, device=None):
+                 use_global_stats=None, name=None, *, device=None):
         super().__init__(num_features, momentum, epsilon, weight_attr,
                          bias_attr, data_format, use_global_stats,
                          device=device)

@@ -76,9 +76,9 @@ class Momentum(Optimizer):
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
-                 multi_precision=False, name=None, use_kernel=True):
+                 multi_precision=False, name=None, *, use_kernel=True):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         name, multi_precision, use_kernel)
+                         name, multi_precision, use_kernel=use_kernel)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
 
@@ -104,9 +104,9 @@ class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
                  grad_clip=None, lazy_mode=False, multi_precision=False,
-                 name=None, use_kernel=True):
+                 name=None, *, use_kernel=True):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         name, multi_precision, use_kernel)
+                         name, multi_precision, use_kernel=use_kernel)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -153,10 +153,10 @@ class AdamW(Adam):
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
                  lazy_mode=False, multi_precision=False, name=None,
-                 use_kernel=True):
+                 *, use_kernel=True):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, lazy_mode, multi_precision,
-                         name, use_kernel)
+                         name, use_kernel=use_kernel)
         self._apply_decay_param_fun = apply_decay_param_fun
 
     def _decay_factor(self, name, lr):

@@ -54,7 +54,7 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None,
-                 multi_precision=False, use_kernel=True):
+                 multi_precision=False, *, use_kernel=True):
         if not isinstance(learning_rate, (numbers.Real, LRScheduler)):
             raise TypeError(f"learning_rate must be a float or an "
                             f"LRScheduler, got {type(learning_rate)}")

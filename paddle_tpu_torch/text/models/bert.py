@@ -54,7 +54,7 @@ class BertConfig:
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, c: BertConfig, device=None, generator=None,
+    def __init__(self, c: BertConfig, *, device=None, generator=None,
                  dropout_generator=None):
         super().__init__()
         device, generator = init_source(device, generator)
@@ -85,7 +85,7 @@ class BertEmbeddings(nn.Module):
 
 
 class BertModel(nn.Module):
-    def __init__(self, config: BertConfig, device=None, generator=None):
+    def __init__(self, config: BertConfig, *, device=None, generator=None):
         super().__init__()
         dev, generator = init_source(device, generator)
         self.config = c = config
@@ -131,7 +131,7 @@ class BertModel(nn.Module):
 class BertForPretraining(nn.Module):
     """MLM + NSP heads (the reference's pretraining objective)."""
 
-    def __init__(self, config: BertConfig, device=None, generator=None):
+    def __init__(self, config: BertConfig, *, device=None, generator=None):
         super().__init__()
         dev, generator = init_source(device, generator)
         kw = dict(device=dev, generator=generator)

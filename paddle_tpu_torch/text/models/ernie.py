@@ -77,7 +77,7 @@ class ErnieConfig:
 
 
 class ErnieEmbedding(nn.Module):
-    def __init__(self, c: ErnieConfig, device=None, generator=None,
+    def __init__(self, c: ErnieConfig, *, device=None, generator=None,
                  mp_group=None, dropout_generator=None):
         super().__init__()
         dev, gen = init_source(device, generator)
@@ -100,7 +100,7 @@ class ErnieBlock(nn.Module):
     """TP transformer block: column-parallel QKV/FC1, row-parallel
     proj/FC2."""
 
-    def __init__(self, c: ErnieConfig, device=None, generator=None,
+    def __init__(self, c: ErnieConfig, *, device=None, generator=None,
                  mp_group=None):
         super().__init__()
         dev, gen = init_source(device, generator)
@@ -152,7 +152,7 @@ class ErnieBlock(nn.Module):
 
 
 class ErnieHead(nn.Module):
-    def __init__(self, c: ErnieConfig, device=None, generator=None,
+    def __init__(self, c: ErnieConfig, *, device=None, generator=None,
                  mp_group=None):
         super().__init__()
         dev, gen = init_source(device, generator)
@@ -168,7 +168,7 @@ class ErnieHead(nn.Module):
 class ErnieModel(PipelineLayer):
     """Pipeline-segmented ERNIE: embedding | blocks... | head."""
 
-    def __init__(self, config: ErnieConfig, topology=None, device=None,
+    def __init__(self, config: ErnieConfig, topology=None, *, device=None,
                  generator=None, mp_group=None):
         dev, gen = init_source(device, generator)
         dropout_generator = torch.Generator(device=dev)
@@ -189,7 +189,7 @@ class ErnieModel(PipelineLayer):
 
 
 class ErnieForPretraining(nn.Module):
-    def __init__(self, config: ErnieConfig, topology=None, device=None,
+    def __init__(self, config: ErnieConfig, topology=None, *, device=None,
                  generator=None, mp_group=None):
         super().__init__()
         self.ernie = ErnieModel(config, topology, device=device,

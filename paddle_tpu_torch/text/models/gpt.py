@@ -84,12 +84,28 @@ class GPTConfig:
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     use_flash_attention: bool = True
+    # sequence-parallel attention and selective remat are not ported: a
+    # value other than the default raises (`scan_unroll` is a JAX
+    # dispatch knob with nothing to do here, so any value is taken)
+    use_ring_attention: bool = False
+    sp_attention: str = "ring"
     remat: bool = True  # recompute each block in the backward
+    remat_policy: str | None = None
+    scan_unroll: int | bool = 1
     # pipeline: num_layers cut into pp_num_stages stages, the batch into
     # pp_microbatches micro-batches (0: no pipeline)
     pp_num_stages: int = 0
     pp_microbatches: int = 0
     pp_schedule: str = "gpipe"   # or "1f1b"
+
+    def __post_init__(self):
+        if self.use_ring_attention:
+            raise NotImplementedError(
+                "GPTConfig: use_ring_attention is not ported")
+        if self.remat_policy is not None:
+            raise NotImplementedError(
+                f"GPTConfig: remat_policy={self.remat_policy!r} is not "
+                "ported")
 
 
 def _attention(q, k, v, n_head):
@@ -273,7 +289,7 @@ class GPTModel(nn.Module):
     LayerNorm scales and shifts carry `no_amp_cast`: `amp.decorate`
     leaves them f32 (gpt.py:343-347)."""
 
-    def __init__(self, config: GPTConfig, device=None, generator=None):
+    def __init__(self, config: GPTConfig, *, device=None, generator=None):
         super().__init__()
         self.config = c = config
         dev = resolve_device(device)
@@ -420,7 +436,7 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, generator=None):
+    def __init__(self, config: GPTConfig, *, device=None, generator=None):
         super().__init__()
         self.gpt = GPTModel(config, device=device, generator=generator)
         self.config = config

@@ -15,7 +15,7 @@ __all__ = ["LeNet"]
 
 
 class LeNet(nn.Module):
-    def __init__(self, num_classes=10, device=None, generator=None):
+    def __init__(self, num_classes=10, *, device=None, generator=None):
         super().__init__()
         dev, gen = init_source(device, generator)
         kw = dict(device=dev, generator=gen)

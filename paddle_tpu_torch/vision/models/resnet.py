@@ -95,7 +95,7 @@ class BottleneckBlock(nn.Module):
 
 class ResNet(nn.Module):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
-                 with_pool=True, groups=1, data_format="NCHW", device=None,
+                 with_pool=True, groups=1, data_format="NCHW", *, device=None,
                  generator=None):
         super().__init__()
         layer_cfg = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],

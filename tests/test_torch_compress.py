@@ -295,18 +295,19 @@ def test_single_process_allreduce_is_the_identity_and_reduce_tree_mean():
     x = torch.randn(1024)
     for spec in ("fp32", "int8:block=128", "fp8:block=128"):
         cfg = comp.parse_spec(spec)
-        out, res = comp.all_reduce_flat(x, None, cfg)
+        out, res = comp.all_reduce_flat(x, group=None, cfg=cfg)
         assert res is None
         want = x if cfg.mode == "fp32" else PK.dequantize_ref(
             *PK.quantize_ref(x, 128, cfg.mode), 128, cfg.mode)
         assert torch.equal(out, want)
     cfg = comp.parse_spec("int8:ef:block=128")
     r = torch.zeros_like(x)
-    out, r2 = comp.all_reduce_flat(x, None, cfg, residual=r)
+    out, r2 = comp.all_reduce_flat(x, group=None, cfg=cfg, residual=r)
     assert torch.equal(x - out, r2)        # one rank owns every segment
     g = {"w": torch.randn(10, 10).bfloat16(), "b": torch.randn(10)}
     segs = port_pack.segments(["b", "w"], g)
-    mean, _ = comp.reduce_tree(g, segs, None, comp.parse_spec("fp32"))
+    mean, _ = comp.reduce_tree(g, segs, group=None,
+                              cfg=comp.parse_spec("fp32"))
     assert mean["w"].dtype == torch.bfloat16 and torch.equal(mean["w"],
                                                              g["w"])
     assert torch.equal(mean["b"], g["b"])

@@ -919,10 +919,11 @@ def _card_allreduce_rank(out_dir):
         np.float32))
     cfg = C.parse_spec("int8:ef:block=256")
     before = kernels.launches()
-    got, res = C.all_reduce_flat(x.cuda(), None, cfg,
+    got, res = C.all_reduce_flat(x.cuda(), group=None, cfg=cfg,
                                  residual=torch.zeros(8192, device="cuda"))
     after = kernels.launches()
-    want, res0 = C.all_reduce_flat(x, None, cfg, residual=torch.zeros(8192))
+    want, res0 = C.all_reduce_flat(x, group=None, cfg=cfg,
+                                   residual=torch.zeros(8192))
     ok = (_same_bits(got.cpu(), want) and _same_bits(res.cpu(), res0)
           and after["quantize_i8"] - before["quantize_i8"] == 2
           and after["dequantize_i8"] - before["dequantize_i8"] == 4)

@@ -95,7 +95,8 @@ def _allreduce_rank(out_dir, W):
         resid = torch.zeros_like(x) if cfg.ef else None
         outs = []
         for _ in range(REPEATS):
-            out, resid = comp.all_reduce_flat(x, None, cfg, residual=resid)
+            out, resid = comp.all_reduce_flat(x, group=None, cfg=cfg,
+                                              residual=resid)
             outs.append(out.numpy())
         res[spec] = np.stack(outs)
         if cfg.ef:
@@ -106,7 +107,8 @@ def _allreduce_rank(out_dir, W):
     resid = torch.zeros_like(x)
     outs, bad = [], []
     for _ in range(2):
-        out, resid = comp.all_reduce_flat(x, None, cfg, residual=resid)
+        out, resid = comp.all_reduce_flat(x, group=None, cfg=cfg,
+                                          residual=resid)
         outs.append(out.numpy())
         bad.append(int((~torch.isfinite(resid)).sum()))
     res["poison/out"], res["poison/residual_nonfinite"] = np.stack(outs), bad

@@ -125,7 +125,7 @@ def test_mesh_layout_lines_and_inference():
         mesh.build_mesh({"dp": 2, "mp": 3}, world_size=8)
     assert mesh.STANDARD_AXES == J().mesh.STANDARD_AXES
     one = mesh.build_mesh({"dp": 1, "pp": 1, "mp": -1})
-    g = mesh.new_group_for_axes(("mp",), one)
+    g = mesh.new_group_for_axes(("mp",), mesh=one)
     assert (g.ranks, g.rank, g.nranks, g.process_group) == ([0], 0, 1, None)
     assert one.group(("mp",)) is g               # one group per axes
     assert mesh.get_mesh() is None
