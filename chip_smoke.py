@@ -292,6 +292,35 @@ printing one line (or a few):
               and 3 replicas (host clock), TTFT and ITL p50 / p99 from
               the histograms beside the sorted-list ones, decode
               dispatches a replica, crash-to-replay ms
+ 26. transformer  the public tensor API and nn.Transformer: (a) every
+              row of the CPU parity test's op table (tests/
+              torch_op_cases.py: 381 calls of 290 ops, the JAX op tests'
+              inputs) on the card against the port's own CPU result,
+              integers, bools, indices, sorts and unique bit for bit,
+              f32 elementwise within 1e-6, transcendentals and
+              reductions 1e-5, linear algebra 1e-4, the decompositions
+              by reconstruction, seeded draws and the rng state; (b)
+              Transformer-base (nn.Transformer() at its defaults:
+              d_model 512, 8 heads, 6 + 6 layers, FFN 2048, dropout
+              0.1, post-norm) with a 37,000-token shared embedding built
+              from the public API; kernel #6 on its parameter set
+              (`optim_at_shape`: AdamW, bit for bit against the
+              per-parameter rule, its time beside the bound and
+              AdamW(fused=True)); then f32 (TF32 off), AdamW, the causal
+              tgt_mask, one seeded batch of B 96 x S 256 a side, 20
+              steps: the loss falls, one fused_adam launch a step and no
+              other kernel (dropout is live in every attention call);
+              step ms, tokens/s, MFU against the f32 peak, peak memory;
+              (c) in eval, the batch encoded without a mask (#1 f32 at
+              sq = sk = 256, 6 launches), 32 greedy tokens through
+              gen_cache (12 launches a token: self-attention sq = 1 over
+              the growing cache, cross-attention sq = 1 against sk =
+              256) and by full recompute (6 cross-attention launches a
+              token, counted apart); every flash call held row by row
+              against the dense route on the same inputs; the cached
+              tokens equal full recompute's under phase 6's near-tie
+              gate; #1 f32's kernel, plain, SDPA and bound ms at the
+              encoder's and the decode's shapes
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -5889,6 +5918,474 @@ def phase_ernie_pp(dev, smi, ref_losses, ref_after1):
         + _pp_comm_line([(r["rank"], rec) for r, rec in zip(runs4, recs)]))
 
 
+# -- phase 26 ----------------------------------------------------------
+# Transformer-base (Vaswani et al. 2017, "Attention Is All You Need",
+# Table 3 "base"): nn.Transformer() at its defaults, a 37,000-token shared
+# BPE vocabulary (the paper's WMT14 En-De), batches of about 25,000 source
+# and 25,000 target tokens
+TF_VOCAB = 37000
+TF_BATCH, TF_SEQ = 96, 256
+TF_STEPS, TF_WARMUP = 20, 2
+TF_LR, TF_WD = 2e-4, 0.01
+TF_DECODE = 32
+TF_FLASH_ROW_TOL = 5e-5     # each flash call's rows against the dense route
+TF_TIE_REL = 1e-3           # phase 6's near-tie limit, of the row's max|logit|
+
+
+def _op_cases():
+    """The CPU parity test's op table (`tests/torch_op_cases.py`, which
+    imports no JAX) and its inputs, from the JAX op tests' seeds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    try:
+        import torch_op_cases
+    finally:
+        sys.path.pop(0)
+    return torch_op_cases
+
+
+def _op_run(paddle, case, dev):
+    """One row of the op table through the port on `dev`."""
+    import inspect
+
+    _, name, args, kwargs, _, _ = case
+
+    def conv(a):
+        if isinstance(a, list) and a and all(isinstance(
+                v, (np.ndarray, np.generic)) for v in a):
+            return [torch.from_numpy(np.array(v)).to(dev) for v in a]
+        if isinstance(a, (np.ndarray, np.generic)):
+            return torch.from_numpy(np.array(a)).to(dev)
+        return a
+
+    fn = getattr(paddle, name)
+    kw = dict(kwargs)
+    if "device" in inspect.signature(fn).parameters:
+        kw["device"] = dev
+    return fn(*[conv(a) for a in args], **kw)
+
+
+def _flat(x):
+    if isinstance(x, (list, tuple)):
+        return [v for e in x for v in _flat(e)]
+    return [x]
+
+
+def _op_table(dev, smi):
+    """(a) Every row of the CPU parity table on the card against the
+    port's own CPU result for the same numpy inputs, at the row's
+    tolerance class; the decompositions by reconstruction; the random
+    ops' form and seeded determinism on the card."""
+    import paddle_tpu_torch as paddle
+
+    oc = _op_cases()
+    rows = oc.cases(**oc.inputs())
+    worst = {k: 0.0 for k in oc.TOL}
+    for case in rows:
+        cid, tol = case[0], oc.TOL[case[4]]
+        got = _flat(_op_run(paddle, case, dev))
+        want = _flat(_op_run(paddle, case, torch.device("cpu")))
+        if len(got) != len(want):
+            raise AssertionError(f"ops {cid}: {len(got)} outputs on the "
+                                 f"card, {len(want)} on the CPU")
+        for g, w in zip(got, want):
+            if not isinstance(w, torch.Tensor):
+                if g != w:
+                    raise AssertionError(f"ops {cid}: {g!r} != {w!r}")
+                continue
+            g = g.detach().cpu()
+            w = w.detach()
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"ops {cid}: {g.dtype} {tuple(g.shape)}"
+                                     f" on the card, {w.dtype} "
+                                     f"{tuple(w.shape)} on the CPU")
+            if tol == 0.0 or not (w.is_floating_point() or w.is_complex()):
+                if not torch.equal(g, w) and not (
+                        w.is_floating_point() and torch.equal(
+                            g.isnan(), w.isnan()) and torch.equal(
+                            g.nan_to_num(), w.nan_to_num())):
+                    raise AssertionError(f"ops {cid}: not bit for bit")
+                continue
+            if w.is_complex():
+                g, w = torch.view_as_real(g), torch.view_as_real(w)
+            ok = torch.isclose(g, w, rtol=tol, atol=tol, equal_nan=True)
+            if not bool(ok.all()):
+                err = max_err(g.nan_to_num(), w.nan_to_num())
+                raise AssertionError(f"ops {cid}: max|err| {err:.3e} over "
+                                     f"{case[4]} ({tol})")
+            fin = w.isfinite() & g.isfinite()
+            if bool(fin.any()):
+                worst[case[4]] = max(worst[case[4]], float(
+                    ((g - w).abs()[fin] / w.abs()[fin].clamp_min(1.0))
+                    .max()))
+    d = oc.inputs()
+    spd, sq, a = (torch.from_numpy(d[k]).to(dev) for k in ("SPD", "SQ", "A"))
+    la = paddle.linalg
+    rec = {}
+    u, s, vh = la.svd(a)
+    rec["svd"] = max_err((u * s) @ vh, a)
+    q, r = la.qr(spd)
+    rec["qr"] = max_err(q @ r, spd)
+    w_, v_ = la.eigh(spd)
+    rec["eigh"] = max_err((v_ * w_) @ v_.T, spd)
+    w_, v_ = la.eig(sq)
+    rec["eig"] = max_err(((v_ * w_) @ torch.linalg.inv(v_)).real, sq)
+    lu, piv = la.lu(sq)
+    p_, lo, up = la.lu_unpack(lu, piv)
+    rec["lu"] = max_err(p_ @ lo @ up, sq)
+    cpu_piv = la.lu(sq.cpu())[1]
+    if not torch.equal(piv.cpu(), cpu_piv):
+        raise AssertionError("ops lu: pivots differ from the CPU's")
+    sol = la.lstsq(spd, spd[:, :1])[0]
+    rec["lstsq"] = max_err(spd @ sol, spd[:, :1])
+    scale = float(spd.abs().max())
+    bad = {k: v for k, v in rec.items() if not v <= 1e-4 * scale}
+    if bad:
+        raise AssertionError(f"ops: reconstruction off: {bad}")
+    for call in (lambda: paddle.rand([64], device=dev),
+                 lambda: paddle.randn([64], device=dev),
+                 lambda: paddle.randint(0, 9, [64], device=dev),
+                 lambda: paddle.randperm(64, device=dev)):
+        paddle.seed(11)
+        x = call()
+        paddle.seed(11)
+        if x.device.type != dev.type or not torch.equal(x, call()):
+            raise AssertionError("ops: a seeded draw on the card differs")
+    state = paddle.get_rng_state()
+    x = paddle.rand([8], device=dev)
+    paddle.set_rng_state(state)
+    if not torch.equal(x, paddle.rand([8], device=dev)):
+        raise AssertionError("ops: the rng state did not round-trip")
+    log("transformer", f"[{smi}] (a) op table: {len(rows)} calls of "
+        f"{len({c[1] for c in rows})} ops on the card equal the port's CPU "
+        "results (exact: bit for bit; worst relative error "
+        + ", ".join(f"{k} {worst[k]:.2e} <= {oc.TOL[k]:.0e}"
+                    for k in ("ew", "tr", "la"))
+        + "); reconstructions within 1e-4 x max|x|: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in rec.items())
+        + "; LU pivots equal the CPU's; seeded draws and the rng state "
+        "replay on the card")
+
+
+def _transformer_model(dev, seed=0):
+    """Transformer-base built from the public API, as a Paddle user
+    would: `paddle.nn.Transformer()` at its defaults, a shared
+    `Embedding` (Normal(0, d^-0.5) through a ParamAttr) scaled by
+    sqrt(d), sinusoidal positions from `arange`, `sin`, `cos` and
+    `concat`, logits `matmul(h, emb.weight, transpose_y=True)`."""
+    import paddle_tpu_torch as paddle
+
+    nn = paddle.nn
+
+    class TransformerBase(nn.Layer):
+        def __init__(self, vocab, max_len):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            super().__init__(device=dev, generator=gen)
+            self.transformer = nn.Transformer(device=dev, generator=gen)
+            d = self.transformer.d_model
+            self.d_model = d
+            self.emb = nn.Embedding(vocab, d, weight_attr=nn.ParamAttr(
+                initializer=nn.initializer.Normal(0.0, d ** -0.5)),
+                device=dev, generator=gen)
+            pos = paddle.unsqueeze(paddle.arange(
+                0, max_len, dtype="float32", device=dev), 1)
+            inv = paddle.exp(paddle.scale(paddle.arange(
+                0, d, 2, dtype="float32", device=dev),
+                -math.log(10000.0) / d))
+            ang = paddle.multiply(pos, inv)
+            self.register_buffer("pe", paddle.concat(
+                [paddle.sin(ang), paddle.cos(ang)], axis=-1),
+                persistable=False)
+
+        def embed(self, ids, offset=0):
+            x = paddle.scale(self.emb(ids), math.sqrt(self.d_model))
+            return x + self.pe[offset:offset + ids.shape[1]]
+
+        def logits(self, h):
+            return paddle.matmul(h, self.emb.weight, transpose_y=True)
+
+        def forward(self, src, tgt, tgt_mask=None):
+            h = self.transformer(self.embed(src), self.embed(tgt),
+                                 tgt_mask=tgt_mask)
+            return self.logits(h)
+
+    return TransformerBase(TF_VOCAB, TF_SEQ)
+
+
+def _tf_batch(dev):
+    rng = np.random.RandomState(17)
+    src = rng.randint(1, TF_VOCAB, (TF_BATCH, TF_SEQ))
+    tgt = rng.randint(1, TF_VOCAB, (TF_BATCH, TF_SEQ + 1))
+    tgt[:, 0] = 0                                      # BOS
+    return (torch.from_numpy(src).to(dev),
+            torch.from_numpy(tgt[:, :-1].copy()).to(dev),
+            torch.from_numpy(tgt[:, 1:].copy()).to(dev))
+
+
+def _tf_flops(model):
+    """Model FLOPs of one step: 6 x (encoder parameters x source tokens
+    + (decoder parameters + the output projection) x target tokens) +
+    3 x 18 attention products of 4 B S^2 d each (the embedding lookups
+    left out)."""
+    t = model.transformer
+    n_enc = sum(p.numel() for p in t.encoder.parameters())
+    n_dec = sum(p.numel() for p in t.decoder.parameters())
+    tokens = TF_BATCH * TF_SEQ
+    dense = 6 * (n_enc + n_dec + model.emb.weight.numel()) * tokens
+    attn = 3 * 18 * 4 * TF_BATCH * TF_SEQ ** 2 * t.d_model
+    return dense + attn
+
+
+def _tf_train(dev, smi, model):
+    """(b) AdamW, f32 (TF32 off), the causal tgt_mask, dropout 0.1:
+    the loss falls; exactly one fused_adam launch a step and no other
+    kernel (every attention call has live dropout, so the dense route
+    runs). Step ms, tokens/s, MFU against the f32 peak, peak memory."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.nn import kernels
+
+    F = paddle.nn.functional
+    src, tgt_in, labels = _tf_batch(dev)
+    mask = model.transformer.generate_square_subsequent_mask(TF_SEQ)
+    opt = paddle.optimizer.AdamW(learning_rate=TF_LR,
+                                 parameters=model.parameters(),
+                                 weight_decay=TF_WD)
+    model.train()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    losses, dts = [], []
+    for _ in range(TF_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits = model(src, tgt_in, mask)
+        loss = F.cross_entropy(paddle.reshape(logits, [-1, TF_VOCAB]),
+                               paddle.reshape(labels, [-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.item()))            # synchronises
+        dts.append(time.perf_counter() - t0)
+        del logits, loss
+    counts = kernels.launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _only_launches("transformer train", counts, {"fused_adam": TF_STEPS})
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"transformer: the loss did not fall "
+                             f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    timed = dts[TF_WARMUP:]
+    dt = float(np.median(timed))
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = 2 * TF_BATCH * TF_SEQ
+    mfu = _tf_flops(model) / dt / PEAK_F32_FLOPS
+    log("transformer", f"[{smi}] (b) Transformer-base f32 (d_model 512, 8 "
+        f"heads, 6 + 6 layers, FFN 2048, dropout 0.1, post-norm; {n_params}"
+        f" params, shared {TF_VOCAB}-token embedding), AdamW lr {TF_LR}, "
+        f"B {TF_BATCH} x S {TF_SEQ} source and target, causal tgt_mask: "
+        "loss " + " -> ".join(f"{x:.4f}" for x in losses[:3])
+        + f" ... {losses[-1]:.4f} over {TF_STEPS} steps; fused_adam "
+        f"{counts['fused_adam']} = 1 x {TF_STEPS}, every other kernel 0; "
+        f"step {dt * 1e3:.3f} ms (median of steps {TF_WARMUP + 1}-"
+        f"{TF_STEPS}; min {min(timed) * 1e3:.3f}, max "
+        f"{max(timed) * 1e3:.3f}) = {tokens / dt:.1f} tokens/s (source + "
+        f"target), MFU {100 * mfu:.2f}% of 67 TFLOP/s f32 "
+        f"({_tf_flops(model) / 1e12:.3f} TFLOP a step: 6 N tokens a side "
+        f"+ attention); peak memory {peak / 2 ** 30:.2f} GiB")
+    del opt
+    return losses
+
+
+class _FlashWatch:
+    """Inside the block, every call of the flash route
+    (`kernels.flash_attention.flash_attention`, which the routing in
+    `incubate.nn.attention` calls) is also run through the dense route
+    (`_dense_attention`) on the same q, k, v, and its output held row by
+    row against it within TF_FLASH_ROW_TOL; the calls' shapes and the
+    worst row ratio are kept. The dense route launches no kernel of the
+    port, so the launch counts stay the flash route's."""
+
+    def __init__(self, tag):
+        self.tag, self.shapes, self.worst = tag, {}, 0.0
+
+    def __enter__(self):
+        from paddle_tpu_torch.incubate.nn import attention as attn
+        from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
+
+        self._fa, self._orig = fa, fa.flash_attention
+
+        def watched(q, k, v, causal=False, sm_scale=1.0, use_kernel=True):
+            out = self._orig(q, k, v, causal, sm_scale, use_kernel)
+            dense = attn._dense_attention(q, k, v, None, sm_scale, causal,
+                                          0.0, None)
+            key = (tuple(q.shape), k.shape[2], bool(causal))
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+            _, ratio = assert_close_rows(f"{self.tag} flash {key}", out,
+                                         dense, TF_FLASH_ROW_TOL)
+            self.worst = max(self.worst, ratio)
+            return out
+
+        fa.flash_attention = watched
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.flash_attention = self._orig
+        return False
+
+    def sq_sk(self):
+        return sorted({(s[0][2], s[1]) for s in self.shapes})
+
+
+def _tf_greedy(model, memory, cached):
+    """TF_DECODE greedy tokens from BOS (id 0) for every row: through
+    `gen_cache` one token a step (decoder self-attention sq = 1 over the
+    growing cache, cross-attention sq = 1 against the memory), or by
+    recomputing the decoder on the whole prefix under the causal mask.
+    Returns (tokens [B, TF_DECODE], each step's logits)."""
+    t = model.transformer
+    ids = torch.zeros(memory.shape[0], 1, dtype=torch.long,
+                      device=memory.device)
+    cache = t.decoder.gen_cache(memory) if cached else None
+    steps = []
+    for i in range(TF_DECODE):
+        if cached:
+            h, cache = t.decoder(model.embed(ids[:, -1:], i), memory, None,
+                                 None, cache)
+        else:
+            h = t.decoder(model.embed(ids), memory,
+                          t.generate_square_subsequent_mask(i + 1))[:, -1:]
+        logits = model.logits(h)[:, -1]
+        steps.append(logits)
+        ids = torch.cat([ids, logits.argmax(-1, keepdim=True)], dim=1)
+    return ids[:, 1:], steps
+
+
+def _tf_decode_gate(cached, full, lc, lf):
+    """Cached tokens equal full recompute's; a row that diverges passes
+    only where the two paths' logits there agree within TF_TIE_REL of
+    the row's max|logit| and the top-2 gap is below that (a near-tie,
+    shown). Returns the near-ties as (row, step, max|dlogits|, gap)."""
+    ties = []
+    for r in torch.nonzero((cached != full).any(dim=1)).reshape(-1).tolist():
+        p = int(torch.nonzero(cached[r] != full[r])[0])
+        a, b = lc[p][r], lf[p][r]
+        limit = TF_TIE_REL * float(a.abs().max())
+        top = a.topk(2).values
+        gap = float(top[0] - top[1])
+        d = max_err(a, b)
+        if not (d <= limit and gap < limit):
+            raise AssertionError(
+                f"transformer decode: row {r} diverges at token {p} "
+                f"(cached {cached[r, p]}, recompute {full[r, p]}) and it is "
+                f"not a near-tie (max|dlogits| {d:.3e}, gap {gap:.3e}, "
+                f"limit {limit:.3e})")
+        ties.append((r, p, d, gap))
+    return ties
+
+
+def _tf_eval(dev, smi, model):
+    """(c) Encode without a mask (#1 f32 at sq = sk = TF_SEQ), then
+    greedy decode through `gen_cache` and by full recompute: every
+    flash call against the dense route, #1's launches exact in each
+    part, the cached tokens equal full recompute's."""
+    from paddle_tpu_torch.incubate.nn import kernels
+
+    src, _, _ = _tf_batch(dev)
+    model.eval()
+    n_layers = len(model.transformer.encoder.layers)
+    with torch.no_grad():
+        kernels.reset_launches()
+        with _FlashWatch("encode") as enc:
+            memory = model.transformer.encoder(model.embed(src))
+        _only_launches("transformer encode", kernels.launches(),
+                       {"flash_attention_fwd": n_layers})
+        kernels.reset_launches()
+        with _FlashWatch("cached decode") as dec:
+            t0 = time.perf_counter()
+            cached, lc = _tf_greedy(model, memory, True)
+            torch.cuda.synchronize(dev)
+            dec_s = time.perf_counter() - t0
+        _only_launches("transformer cached decode", kernels.launches(),
+                       {"flash_attention_fwd": 2 * n_layers * TF_DECODE})
+        kernels.reset_launches()
+        with _FlashWatch("recompute") as full_w:
+            full, lf = _tf_greedy(model, memory, False)
+        _only_launches("transformer recompute", kernels.launches(),
+                       {"flash_attention_fwd": n_layers * TF_DECODE})
+        ties = _tf_decode_gate(cached, full, lc, lf)
+    sk_self = sorted({sk for sq, sk in dec.sq_sk() if sk <= TF_DECODE})
+    log("transformer", f"[{smi}] (c) encode B {TF_BATCH} x S {TF_SEQ}, no "
+        f"mask: flash_attention_fwd (#1 f32) {n_layers} launches at sq = sk"
+        f" = {TF_SEQ}, each within {TF_FLASH_ROW_TOL} of its row's max of "
+        f"the dense route (worst {enc.worst:.2e}); greedy decode of "
+        f"{TF_DECODE} tokens through gen_cache: {2 * n_layers * TF_DECODE} "
+        f"launches = 12 x {TF_DECODE} (self-attention sq = 1 over sk = "
+        f"{sk_self[0]}..{sk_self[-1]}, cross-attention sq = 1 against sk = "
+        f"{TF_SEQ}; worst row ratio {dec.worst:.2e}), {dec_s * 1e3:.1f} ms "
+        f"wall with the dense checks; full recompute (causal mask, dense "
+        f"self-attention): {n_layers * TF_DECODE} cross-attention launches "
+        f"(sq = 1..{TF_DECODE}, sk = {TF_SEQ}; worst {full_w.worst:.2e}) "
+        f"counted apart; cached tokens equal full recompute's for "
+        f"{TF_BATCH - len(ties)} of {TF_BATCH} rows"
+        + (f", the rest near-ties {ties}" if ties else ""))
+
+
+def _tf_flash_times(dev, smi):
+    """#1 f32 at phase 26's shapes (B 96, H 8, D 64, non-causal, cold
+    L2): the encoder's sq = sk = 256, the cached decode's cross-
+    attention sq 1 against sk 256 and its self-attention sq 1 over the
+    last step's sk 32; kernel, plain version, f32 SDPA and bound ms."""
+    from paddle_tpu_torch.incubate.nn.kernels import flash_attention as fa
+
+    rng = np.random.RandomState(23)
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for sq, sk in ((TF_SEQ, TF_SEQ), (1, TF_SEQ), (1, TF_DECODE)):
+        q, k, v, _ = _flash_inputs(rng, TF_BATCH, 8, sq, 64, torch.float32,
+                                   dev, sk)
+        k_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, False,
+                                                      0.125), 50, flush)[0]
+        p_ms = time_ms(lambda: fa.flash_attention_fwd_reference(
+            q, k, v, False, 0.125), 10, flush)[0]
+        l_ms = time_ms(lambda: sdpa(q, k, v, scale=0.125), 50, flush)[0]
+        bh = TF_BATCH * 8
+        nbytes = 4 * (2 * bh * sq * 64 + 2 * bh * sk * 64 + bh * sq)
+        (bound, by, how), = flash_bounds(
+            {"fwd": (nbytes, 4.0 * bh * sq * sk * 64)},
+            torch.float32).values()
+        out.append(f"sq {sq} sk {sk}: kernel {k_ms:.5f}, plain {p_ms:.5f}, "
+                   f"SDPA {l_ms:.5f}, bound {bound:.5f} ({by}; {how})")
+    del flush
+    log("transformer", f"[{smi}] #1 f32 at B {TF_BATCH}, H 8, D 64, "
+        "non-causal, cold L2, device ms: " + "; ".join(out))
+
+
+def phase_transformer(dev, smi):
+    """Phase 26: the public tensor API and nn.Transformer on the card
+    (see the module docstring)."""
+    t0 = time.perf_counter()
+    _op_table(dev, smi)
+    model = _transformer_model(dev)
+    named = list(model.named_parameters())
+    optim_at_shape(
+        dev, smi, "transformer", named, "fused_adam",
+        ("Transformer-base's set", "AdamW",
+         dict(learning_rate=TF_LR, weight_decay=TF_WD), {}),
+        dict(lr=TF_LR, beta1=0.9, beta2=0.999, eps=1e-8,
+             decay=[float(np.float32(1) - np.float32(TF_LR)
+                          * np.float32(TF_WD))] * len(named)),
+        lambda ps: torch.optim.AdamW(ps, lr=TF_LR, weight_decay=TF_WD,
+                                     fused=True))
+    del named
+    torch.cuda.empty_cache()
+    _tf_train(dev, smi, model)
+    torch.cuda.empty_cache()
+    _tf_eval(dev, smi, model)
+    del model
+    torch.cuda.empty_cache()
+    _tf_flash_times(dev, smi)
+    log("transformer", f"phase 26 in {time.perf_counter() - t0:.1f} s")
+
+
 def _paged_ms(by):
     """(T = 1 launches' ms, T > 1 launches' ms) of the paged kernel in a
     profile's {kernel name: ms}: one kernel, told apart by its slot
@@ -6053,6 +6550,8 @@ def main():
     torch.cuda.empty_cache()
     phase_ernie_pp(dev, smi, ernie_losses, ernie_after1)
     del ernie_after1
+    torch.cuda.empty_cache()
+    phase_transformer(dev, smi)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -4,6 +4,13 @@ A package of its own beside the JAX package `paddle_tpu`, which stays
 the reference the port is held against. Module paths mirror the JAX
 package's, so each counterpart sits at the same path:
 
+  * the root                            the flat `paddle.*` surface: the
+                                        dtypes, `to_tensor`, the
+                                        autograd switches (`no_grad`,
+                                        `enable_grad`, `set_grad_enabled`,
+                                        `is_grad_enabled`, `grad`), `seed`
+                                        and the rng state, the default
+                                        dtype, and every op of `ops`
   * `device`                            `resolve_device`: CUDA by
                                         default, CPU only when asked
   * `core.monitor`                      the `serve/*` stat registry
@@ -86,7 +93,35 @@ The port imports torch and numpy, never jax and nothing of paddle_tpu.
 """
 from __future__ import annotations
 
-from .core.flags import get_flags, set_flags
-from .device import resolve_device
+import sys as _sys
 
-__all__ = ["resolve_device", "get_flags", "set_flags"]
+from .core.dtype import (bfloat16, bool_ as bool8, complex64, complex128,
+                         float16, float32, float64, int8, int16, int32, int64,
+                         uint8)
+from .core.engine import (enable_grad, grad, is_grad_enabled, no_grad,
+                          set_grad_enabled)
+from .core.flags import get_flags, set_flags
+from .core.tensor import to_tensor
+from .device import resolve_device
+from . import ops
+from .ops import *  # noqa: F401,F403  (the flat paddle.* op surface)
+from .ops import PUBLIC_OPS as _PUBLIC_OPS
+from .ops.random import get_rng_state, seed, set_rng_state
+from .framework import get_default_dtype, set_default_dtype
+from . import nn, optimizer
+
+# `from .ops import *` bound `linalg` to `ops.linalg` (and `math`,
+# `random`, ... to their ops modules). The JAX package rebinds
+# `paddle.linalg` to its `linalg` package (`paddle_tpu/__init__.py:61-67`);
+# the port has no `linalg` package yet, so here `linalg` is `ops.linalg`
+# on purpose (ROADMAP queue 1 item 7). Bind it explicitly, so that a
+# `linalg` package ported later is not hidden behind the attribute.
+linalg = _sys.modules[__name__ + ".ops.linalg"]
+
+__all__ = sorted(set(_PUBLIC_OPS) | {
+    "resolve_device", "get_flags", "set_flags", "bfloat16", "bool8",
+    "complex64", "complex128", "float16", "float32", "float64", "int8",
+    "int16", "int32", "int64", "uint8", "to_tensor", "no_grad",
+    "enable_grad", "set_grad_enabled", "is_grad_enabled", "grad", "seed",
+    "get_rng_state", "set_rng_state", "set_default_dtype",
+    "get_default_dtype", "ops", "linalg", "nn", "optimizer"})

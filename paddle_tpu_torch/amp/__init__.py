@@ -16,7 +16,8 @@ package's, verbatim. This is not `torch.autocast`: that one has its own
 op lists, runs `layer_norm` and `softmax` in f32 and caches casts.
 `audit_op_lists()` names the list entries no op of the port dispatches
 (`known_op_names()` scans the port's sources for the names it hands to
-`maybe_cast_inputs`). The JAX `auto_cast`'s PTA092 precision audit
+`maybe_cast_inputs`, and adds the names the op factories pass to
+`register_op`). The JAX `auto_cast`'s PTA092 precision audit
 belongs to the analysis plane, which is not ported.
 
 `decorate(models, optimizers=None, level="O2", dtype="bfloat16")` casts
@@ -49,7 +50,8 @@ from ..core import monitor as _monitor
 
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler",
            "white_list", "black_list", "amp_state", "maybe_cast_inputs",
-           "audit_op_lists", "known_op_names", "WHITE_LIST", "BLACK_LIST"]
+           "audit_op_lists", "known_op_names", "register_op", "WHITE_LIST",
+           "BLACK_LIST"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            "float32": torch.float32}
@@ -94,15 +96,26 @@ def black_list():
             "bfloat16": {"O1": BLACK_LIST, "O2": BLACK_LIST}}
 
 
-_CAST_CALL = re.compile(r"""maybe_cast_inputs\(\s*['"](\w+)['"]""")
+_CAST_CALL = re.compile(
+    r"""(?:maybe_cast_inputs|_cast)\(\s*['"](\w+)['"]""")
+
+# op names handed to maybe_cast_inputs from a variable, which the source
+# scan cannot read: the op factories register them here
+_REGISTERED = set()
+
+
+def register_op(name):
+    """Make `name` known to `known_op_names()`."""
+    _REGISTERED.add(name)
 
 
 def known_op_names():
     """Every op name the port's functional layer hands to
-    `maybe_cast_inputs`: the literal first arguments of its calls in
-    the package's sources."""
+    `maybe_cast_inputs`: the literal first arguments of its calls (and
+    of `ops._common._cast`'s) in the package's sources, plus the names
+    passed to `register_op`."""
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    names = set()
+    names = set(_REGISTERED)
     for root, _, files in os.walk(pkg):
         for fn in files:
             if fn.endswith(".py"):

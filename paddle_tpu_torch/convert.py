@@ -15,9 +15,10 @@ parameters unchanged, through an exact f32 round trip.
 
 `load_reference_state_dict(model, flat)` loads a flat {structured
 name: array} dict, as `dict(jax_model.state_dict())` gives it (BERT,
-ResNet and the other models built from `nn` layers), into a port model
-whose parameters and persistent buffers (BatchNorm's running
-statistics) carry the same names.
+ResNet, `nn.Transformer` and the other models built from `nn` layers),
+or the same names nested as a parameter tree, into a port model whose
+parameters and persistent buffers (BatchNorm's running statistics)
+carry the same names.
 
 ERNIE and the other models built from fleet's tensor-parallel layers
 keep the JAX package's names too. At mp > 1 each rank holds a shard:
@@ -104,13 +105,27 @@ def load_reference_params(model, tree):
     return model
 
 
+def _flatten(tree, prefix=""):
+    """{"a.b.c": leaf} of a nested {"a": {"b": {"c": leaf}}} dict."""
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            out.update(_flatten(value, name + "."))
+        else:
+            out[name] = value
+    return out
+
+
 @torch.no_grad()
 def load_reference_state_dict(model, flat):
-    """Copy a flat {structured name: array} dict (numpy arrays, or
-    anything `np.asarray` takes) into the parameters and persistent
-    buffers of the same names of a port model, in place, on the model's
-    device and in each tensor's dtype. A missing, extra or misshapen
-    name raises."""
+    """Copy a {structured name: array} dict (numpy arrays, or anything
+    `np.asarray` takes) into the parameters and persistent buffers of
+    the same names of a port model, in place, on the model's device and
+    in each tensor's dtype. The dict may also be nested, a parameter
+    tree ({"encoder": {"layers": {"0": ...}}}), whose keys join with
+    ".". A missing, extra or misshapen name raises."""
+    flat = _flatten(flat)
     own = dict(model.named_parameters())
     keys = set(model.state_dict())
     own.update((n, b) for n, b in model.named_buffers() if n in keys)

@@ -1,5 +1,5 @@
 """Global flags: the port of `paddle_tpu/core/flags.py` (:16-77), with
-the one flag the port reads, `stable_bn_stats`.
+the two flags the port reads, `stable_bn_stats` and `default_dtype`.
 
 Flags are plain Python values read when an op is called; the
 environment variable `FLAGS_<name>` seeds each at import ("1", "true",
@@ -10,6 +10,9 @@ environment variable `FLAGS_<name>` seeds each at import ("1", "true",
   form (the variance of x - mean) instead of the default one-pass
   E[x^2] - E[x]^2, which cancels when |mean| >> std
   (`ops/norm_ops.batch_norm`).
+- `default_dtype`: the float dtype of creation and random ops given no
+  dtype, and of `to_tensor` on float data ("float32";
+  `framework.set_default_dtype`).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ def _env(name, default, cast):
 
 _FLAGS = {
     "stable_bn_stats": _env("stable_bn_stats", False, bool),
+    "default_dtype": _env("default_dtype", "float32", str),
 }
 
 

@@ -37,6 +37,10 @@ bf16 before. The unpickler (`_Unpickler`) maps
 `ml_dtypes` is imported, and a bf16 array comes back bit for bit.
 `load` gives the tensors back on the CPU (`return_numpy=True`: numpy
 arrays, which bf16 cannot be).
+
+`set_default_dtype` / `get_default_dtype` (:23-28) write and read the
+`default_dtype` flag (`core.flags`), the float dtype of creation and
+random ops given none.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ import struct
 import numpy as np
 import torch
 
-__all__ = ["save", "load"]
+__all__ = ["save", "load", "set_default_dtype", "get_default_dtype"]
 
 
 class _SavedTensor:
@@ -328,3 +332,18 @@ def load(path, return_numpy=False, **configs):
     """paddle.load: tensors come back on the CPU."""
     with open(path, "rb") as f:
         return _load(f, return_numpy=return_numpy)
+
+
+def set_default_dtype(d):
+    """The float dtype creation and random ops take when given none
+    (paddle.set_default_dtype; the `default_dtype` flag)."""
+    from .core import flags
+    from .core.dtype import dtype_name
+
+    flags.set_flags({"default_dtype": dtype_name(d)})
+
+
+def get_default_dtype():
+    from .core import flags
+
+    return flags.get_flag("default_dtype")

@@ -2,16 +2,17 @@
 `paddle_tpu/nn/functional/__init__.py` the BERT and vision paths use:
 `linear` (W is [in, out], y = x @ W + b), `embedding`, `dropout` and
 `scaled_dot_product_attention` (routed in `incubate.nn.attention`),
-plus the ops of `paddle_tpu_torch.ops` it re-exports (`gelu`, `relu`,
-`tanh`, `cross_entropy`, `layer_norm`, `batch_norm`, `conv1d`,
-`conv2d`, `conv3d`, `max_pool2d`, `avg_pool2d`, `adaptive_avg_pool2d`,
-`flatten`).
+plus the ops of `paddle_tpu_torch.ops` it re-exports: every activation
+of `ops.activation` (`softmax`, `log_softmax`, `sigmoid`, `gelu`, ...),
+`one_hot`, `pad`, `cross_entropy`, `layer_norm`, `batch_norm`,
+`conv1d`, `conv2d`, `conv3d`, `max_pool2d`, `avg_pool2d`,
+`adaptive_avg_pool2d` and `flatten`.
 
 Each op hands its tensor inputs to `amp.maybe_cast_inputs` under its
 JAX op name. Mixed dtypes promote as jnp promotes them. Dropout is
 "upscale_in_train" and draws its keep mask from the `torch.Generator`
-it is given (the default generator of the tensor's device when none
-is); the masks are not JAX's.
+it is given (the package generator of the tensor's device, torch's
+default one, when none is: `ops.random`); the masks are not JAX's.
 """
 from __future__ import annotations
 
@@ -19,18 +20,20 @@ import torch
 import torch.nn.functional as F
 
 from ...amp import maybe_cast_inputs
-from ...ops.activation import gelu, relu, tanh
+from ...ops import activation as _activation
+from ...ops.activation import *  # noqa: F401,F403
+from ...ops.creation import one_hot
 from ...ops.conv import (adaptive_avg_pool2d, avg_pool2d, conv1d, conv2d,
                          conv3d, max_pool2d)
 from ...ops.linalg import promote
 from ...ops.loss_ops import cross_entropy
-from ...ops.manipulation import flatten
+from ...ops.manipulation import flatten, pad
 from ...ops.norm_ops import batch_norm, layer_norm
 
 __all__ = ["linear", "embedding", "dropout", "scaled_dot_product_attention",
-           "gelu", "relu", "tanh", "cross_entropy", "layer_norm",
-           "batch_norm", "conv1d", "conv2d", "conv3d", "max_pool2d",
-           "avg_pool2d", "adaptive_avg_pool2d", "flatten"]
+           "cross_entropy", "layer_norm", "batch_norm", "conv1d", "conv2d",
+           "conv3d", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
+           "flatten", "one_hot", "pad"] + list(_activation.__all__)
 
 
 def linear(x, weight, bias=None):
@@ -105,12 +108,14 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None, *,
-                                 generator=None):
+                                 generator=None, use_kernel=True):
     """Attention over [B, H, S, D]: the flash kernels where the JAX
     package would take its Pallas kernel, else the plain composition
-    (`incubate.nn.attention`)."""
+    (`incubate.nn.attention`; `use_kernel=False` takes the flash
+    kernels' plain versions on the same route)."""
     from ...incubate.nn import attention as _attn
 
     return _attn.scaled_dot_product_attention(
         query, key, value, attn_mask=attn_mask, dropout_p=dropout_p,
-        is_causal=is_causal, training=training, generator=generator)
+        is_causal=is_causal, training=training, generator=generator,
+        use_kernel=use_kernel)

@@ -8,7 +8,8 @@ draws f32 normals from its key and casts. The numbers are not JAX's:
 the tests carry weights across with `convert.load_reference_state_dict`.
 `create_parameter` is `Layer.create_parameter` (nn/layer/layers.py:111)
 for the port's layers: an f32 `nn.Parameter` on a device, zeros for a
-bias and Xavier-normal otherwise unless an initializer is given.
+bias and Xavier-normal otherwise unless an initializer is given, read
+through the layer's `ParamAttr` (`attr=`).
 `init_source(device, generator)` resolves a layer's `device=` (None:
 the card) and `generator=` (None: a fresh one seeded 0 there).
 """
@@ -103,13 +104,27 @@ def init_source(device=None, generator=None):
 
 
 def create_parameter(shape, device, generator=None, initializer=None,
-                     is_bias=False):
-    """An f32 `nn.Parameter` of `shape` on `device`, filled by
-    `initializer` (default: Constant(0) for a bias, else XavierNormal)
-    from `generator`."""
+                     is_bias=False, *, dtype=None, attr=None):
+    """An `nn.Parameter` of `shape` on `device` (f32 unless `dtype`),
+    filled from `generator` as `attr` says. `attr` is a layer's
+    `weight_attr` / `bias_attr`: None, a `ParamAttr`, an initializer,
+    a name, or False (no parameter: None is returned). The attribute's
+    initializer replaces `initializer`, whose own default is Constant(0)
+    for a bias, else XavierNormal; a non-trainable attribute gives a
+    parameter that does not require grad; its name is kept as
+    `param_name`."""
+    from ..param_attr import ParamAttr
+
+    if attr is False:
+        return None
+    attr = ParamAttr._to_attr(attr)
+    initializer = attr.initializer or initializer
     if initializer is None:
         initializer = Constant(0.0) if is_bias else XavierNormal()
-    t = torch.empty(tuple(int(s) for s in shape), dtype=torch.float32,
-                    device=device)
+    t = torch.empty(tuple(int(s) for s in shape),
+                    dtype=dtype or torch.float32, device=device)
     initializer(t, generator)
-    return nn.Parameter(t)
+    p = nn.Parameter(t, requires_grad=bool(attr.trainable))
+    if attr.name is not None:
+        p.param_name = attr.name
+    return p

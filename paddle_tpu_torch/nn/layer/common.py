@@ -5,8 +5,11 @@ Parameters keep the JAX package's names and layouts (`Linear.weight`
 is [in, out], Xavier-normal; the bias zeros), so a state dict carries
 over name for name. They are f32 on `device` (None: the card), drawn
 from `generator` (a `torch.Generator` on that device; None: a fresh one
-seeded 0). `Dropout` draws its masks from its `generator` (None: the
-device's default generator)."""
+seeded 0). `weight_attr` / `bias_attr` are read as `nn.ParamAttr`
+says: an initializer replaces the default draw, `bias_attr=False`
+leaves `Linear` without a bias. `Dropout` draws its masks from its
+`generator` (None: the package generator of the input's device,
+`ops.random`)."""
 from __future__ import annotations
 
 import torch
@@ -21,14 +24,16 @@ __all__ = ["Linear", "Embedding", "Dropout", "Flatten"]
 class Linear(nn.Module):
     """y = x W + b, W [in_features, out_features]."""
 
-    def __init__(self, in_features, out_features, *, device=None,
-                 generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, generator=None):
         super().__init__()
         dev, gen = init_source(device, generator)
         self._in_features = in_features
         self._out_features = out_features
-        self.weight = create_parameter([in_features, out_features], dev, gen)
-        self.bias = create_parameter([out_features], dev, gen, is_bias=True)
+        self.weight = create_parameter([in_features, out_features], dev,
+                                       gen, attr=weight_attr)
+        self.register_parameter("bias", create_parameter(
+            [out_features], dev, gen, is_bias=True, attr=bias_attr))
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -48,14 +53,12 @@ class Embedding(nn.Module):
         super().__init__()
         if sparse:
             raise NotImplementedError("Embedding: sparse=True is not ported")
-        if weight_attr is not None:
-            raise NotImplementedError("Embedding: weight_attr is not ported")
         dev, gen = init_source(device, generator)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
         self._padding_idx = padding_idx
-        self.weight = create_parameter([num_embeddings, embedding_dim], dev,
-                                       gen)
+        self.weight = create_parameter([num_embeddings, embedding_dim],
+                                       dev, gen, attr=weight_attr)
         if padding_idx is not None:
             with torch.no_grad():
                 self.weight[padding_idx] = 0.0

@@ -3,7 +3,8 @@
 and `batch_norm` ops (`ops/norm_ops.py`); the weights ones and the
 biases zeros, f32 on `device` (None: the card). `amp.decorate` leaves
 their parameters and buffers f32, as the JAX package's `_is_norm_layer`
-does.
+does. `LayerNorm` reads `weight_attr` / `bias_attr` as `nn.ParamAttr`
+says (False: no weight, or no bias).
 
 A BatchNorm layer keeps its running statistics in the persistent f32
 buffers `_mean` (zeros) and `_variance` (ones), the JAX package's names,
@@ -29,7 +30,8 @@ __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, normalized_shape, epsilon=1e-05, *, device=None):
+    def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None):
         super().__init__()
         dev = resolve_device(device)
         if isinstance(normalized_shape, int):
@@ -39,8 +41,10 @@ class LayerNorm(nn.Module):
         n = 1
         for s in self._normalized_shape:
             n *= s
-        self.weight = create_parameter([n], dev, initializer=Constant(1.0))
-        self.bias = create_parameter([n], dev, is_bias=True)
+        self.register_parameter("weight", create_parameter(
+            [n], dev, initializer=Constant(1.0), attr=weight_attr))
+        self.register_parameter("bias", create_parameter(
+            [n], dev, is_bias=True, attr=bias_attr))
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -61,15 +65,11 @@ class _BatchNormBase(nn.Module):
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        if weight_attr is False:
-            self.register_parameter("weight", None)
-        else:
-            self.weight = create_parameter([num_features], dev,
-                                           initializer=Constant(1.0))
-        if bias_attr is False:
-            self.register_parameter("bias", None)
-        else:
-            self.bias = create_parameter([num_features], dev, is_bias=True)
+        self.register_parameter("weight", create_parameter(
+            [num_features], dev, initializer=Constant(1.0),
+            attr=weight_attr))
+        self.register_parameter("bias", create_parameter(
+            [num_features], dev, is_bias=True, attr=bias_attr))
         self.register_buffer("_mean", torch.zeros(
             num_features, dtype=torch.float32, device=dev))
         self.register_buffer("_variance", torch.ones(

@@ -185,6 +185,26 @@ def test_flash_attention_cross_lengths(cuda):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("sq,sk", [(1, 1), (1, 7), (1, 64), (1, 257),
+                                   (256, 384)])
+def test_flash_attention_f32_decode_and_cross_shapes(cuda, sq, sk):
+    """#1 f32, non-causal, at the shapes nn.Transformer gives it: one
+    query over a growing cache (cached decode self-attention) and over
+    a source (cross-attention), and sq 256 against sk 384: o within
+    2e-5, lse within 1e-4 + 1e-5 relative of the plain forward, as in
+    the gate-1 test; the launch counted once."""
+    g = torch.Generator(device=cuda).manual_seed(sq * 1000 + sk)
+    q = torch.randn(3, 8, sq, 64, device=cuda, generator=g)
+    k = torch.randn(3, 8, sk, 64, device=cuda, generator=g)
+    v = torch.randn(3, 8, sk, 64, device=cuda, generator=g)
+    before = kernels.launches()["flash_attention_fwd"]
+    o, lse = fa.flash_attention_fwd(q, k, v, False, 0.125)
+    assert kernels.launches()["flash_attention_fwd"] == before + 1
+    o0, lse0 = fa.flash_attention_fwd_reference(q, k, v, False, 0.125)
+    torch.testing.assert_close(o, o0, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, lse0, rtol=1e-5, atol=1e-4)
+
+
 def test_flash_attention_function_grads(cuda):
     """The autograd Function's gradients: kernels vs plain versions."""
     g = torch.Generator(device=cuda).manual_seed(2)

@@ -89,9 +89,29 @@ def _pairs(port_mod, ref_mod):
 
 def test_modules_found():
     """The walk sees the port's modules that mirror the reference's,
-    the serving package and the new monitor planes among them."""
-    assert len(MODULES) >= 60
-    for m in ("paddle_tpu_torch.nn.functional",
+    the serving package, the monitor planes, the tensor API's op
+    modules, `core` and the `nn` layers among them."""
+    assert len(MODULES) >= 75
+    for m in ("paddle_tpu_torch",
+              "paddle_tpu_torch.core.dtype",
+              "paddle_tpu_torch.core.engine",
+              "paddle_tpu_torch.core.tensor",
+              "paddle_tpu_torch.ops",
+              "paddle_tpu_torch.ops.creation",
+              "paddle_tpu_torch.ops.math",
+              "paddle_tpu_torch.ops.logic",
+              "paddle_tpu_torch.ops.manipulation",
+              "paddle_tpu_torch.ops.linalg",
+              "paddle_tpu_torch.ops.search",
+              "paddle_tpu_torch.ops.random",
+              "paddle_tpu_torch.ops.activation",
+              "paddle_tpu_torch.nn",
+              "paddle_tpu_torch.nn.param_attr",
+              "paddle_tpu_torch.nn.layer.layers",
+              "paddle_tpu_torch.nn.layer.activation",
+              "paddle_tpu_torch.nn.layer.transformer",
+              "paddle_tpu_torch.framework",
+              "paddle_tpu_torch.nn.functional",
               "paddle_tpu_torch.inference.serving.router",
               "paddle_tpu_torch.inference.serving.autoscaler",
               "paddle_tpu_torch.monitor.alerts",
