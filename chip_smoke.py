@@ -321,6 +321,43 @@ printing one line (or a few):
               tokens equal full recompute's under phase 6's near-tie
               gate; #1 f32's kernel, plain, SDPA and bound ms at the
               encoder's and the decode's shapes
+ 27. monitor  the monitor planes on the card: (a) phase 19's BERT-base
+              fit (12 steps, default callbacks) with PADDLE_MONITOR_SERVE
+              =0, a jsonl exporter and the watchdog armed, a thread
+              scraping /metrics /statusz /memz /perfz /flightz during
+              it: step/count +12, mem/peak_bytes = max_memory_allocated,
+              /metrics = prometheus_text() (the timestamp line aside),
+              the exporter's last line = the registry; StepTimer's step
+              ms beside the fit's clock, the dispatch histogram's p50
+              and its 6 N tokens MFU beside phase 18's (the train step
+              records no cost, so perf_report has no entry for it); (b)
+              phase 9's and phase 18's steps with PADDLE_PERF_DISPATCH
+              on and off (printed, not gated), and no chaos/*,
+              sanitize/* or analysis/* counter exists; (c) a Router of
+              2 replicas over phase 5's model, its incident export on
+              (the default), under
+              PADDLE_CHAOS=serve_decode:stall:secs=5:after=10:times=1,
+              watchdog 2 s, heartbeat 10 s (longer than the stall, so
+              only the incident export can fail over): one watchdog
+              bundle naming the stalled replica's thread and the
+              serve_decode span, that replica's emergency export alone,
+              one failover for "incident_export", no orphaned export,
+              phase 5's tokens, the stall triggered once; then phase
+              14's k=4 engine
+              (draft = target) under serve_spec_verify:corrupt: no
+              proposal accepted, phase 5's tokens, 24 multi-query
+              launches a round; (d) a 6-step fit snapshotting every 4
+              steps under ckpt_write:torn:after=1:times=1: the epoch-end
+              snapshot is torn, restore falls back to step 4 bit for
+              bit, the ring holds chaos_inject and ckpt_error; (e) a
+              BERT-base step at a batch whose activations need twice
+              the free memory inside auto_oom_observer: exactly one
+              torch.OutOfMemoryError, one "oom" bundle with the
+              allocator's stats and the census (its bytes <= allocated
+              at the fault), allocated back within 64 MiB; then 3 of
+              phase 9's steps under PADDLE_SANITIZE=numerics:sample=1:
+              each probed absmax equals a recomputation on the card and
+              the losses equal the disarmed run's, bit for bit
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -3897,6 +3934,7 @@ def _bert_train(dev, smi, model, tag, amp_level=None, warmup=BERT_WARMUP,
             log("bert", f"[{smi}] {tag} top kernels: " + "; ".join(
                 f"{name} x{n:.0f} {t:.3f} ms" for name, n, t in top))
     del step, opt, wrap
+    return mfu
 
 
 def _bert_loss_and_grads(model, ids, labels, use_kernel):
@@ -4075,7 +4113,7 @@ def phase_bert(dev, smi):
     bert_bf16_grads_check(f"BERT-base {model.config.num_layers}L bf16 O2, "
                           "initial weights", model, ids)
     bert_adam_times(dev, smi, list(model.named_parameters()))
-    _bert_train(dev, smi, model, "BERT-base bf16 O2")
+    mfu = _bert_train(dev, smi, model, "BERT-base bf16 O2")
     del model
     torch.cuda.empty_cache()
     small = _bert_model(dev, num_layers=2, o2=False)
@@ -4108,6 +4146,7 @@ def phase_bert(dev, smi):
         "on bf16 q/k/v")
     del o1
     torch.cuda.empty_cache()
+    return mfu
 
 
 # -- phase 19 ----------------------------------------------------------
@@ -6385,6 +6424,538 @@ def phase_transformer(dev, smi):
     _tf_flash_times(dev, smi)
     log("transformer", f"phase 26 in {time.perf_counter() - t0:.1f} s")
 
+# -- phase 27 ----------------------------------------------------------
+MON_TIMED_STEPS = 6       # (b): steps a PADDLE_PERF_DISPATCH setting
+MON_SCRAPE_S = 1.0        # (a): the scraper's pause between rounds
+MON_CHAOS_STALL = "serve_decode:stall:secs=5:after=10:times=1"
+MON_WATCHDOG_S = 2        # (c): the watchdog's timeout
+MON_HEARTBEAT_S = 10.0    # (c): the router's, above the stall's 5 s
+MON_TORN = "ckpt_write:torn:after=1:times=1"
+MON_OOM_SLACK = 64 << 20  # (e): allocated back within 64 MiB
+
+
+def _mon_get(url, timeout=30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def _mon_scrape(base, paths, stop, seen, ms):
+    """(a)'s scraper: GET every page in turn until `stop`; counts each
+    page's 200s (its body parsed) and keeps its fetch ms."""
+    while not stop.is_set():
+        for path in paths:
+            t0 = time.perf_counter()
+            code, body = _mon_get(base + path)
+            ms.setdefault(path, []).append((time.perf_counter() - t0) * 1e3)
+            if path != "/metrics":
+                json.loads(body)
+            seen[path] = seen.get(path, 0) + (code == 200)
+        stop.wait(MON_SCRAPE_S)
+
+
+def _mon_fit(dev, tmp, callbacks, epochs=FIT_EPOCHS, resume=None):
+    """Phase 19's fit recipe in this process: BERT-base bf16 O2 from
+    seed 0, its loader and schedule. Returns (model, optimizer, Model,
+    fit seconds)."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = _bert_model(dev)
+    opt = AdamW(learning_rate=_fit_sched(), parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    m = Model(model).prepare(opt, _fit_loss)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    m.fit(_fit_loader(dev, model.config.vocab_size), epochs=epochs,
+          verbose=0, callbacks=callbacks, resume=resume)
+    torch.cuda.synchronize(dev)
+    return model, opt, m, time.perf_counter() - t0
+
+
+def _mon_fit_telemetry(dev, smi, tmp, bert_mfu):
+    """(a): see the module docstring."""
+    import threading
+
+    from paddle_tpu_torch import monitor as mon
+    from paddle_tpu_torch.hapi.callbacks import Callback, Telemetry
+    from paddle_tpu_torch.monitor import flight, server
+
+    os.environ["PADDLE_MONITOR_SERVE"] = "0"
+    jsonl = os.path.join(tmp, "metrics.jsonl")
+    mon.start_exporter(path=jsonl, interval=1.0)
+    flight.start_watchdog()
+    steps0 = mon.stat_get("step/count")
+    # perf_report reads this fit's dispatches alone (phases 18-19 ran
+    # the same program name)
+    mon.hist_get("jit/hist/train_step:BertForPretraining/dispatch_us") \
+        .reset()
+    tel = Telemetry()
+    stop, seen, errs, page_ms = threading.Event(), {}, [], {}
+    pages = ("/metrics", "/statusz", "/memz", "/perfz", "/flightz")
+
+    class Scrape(Callback):
+        def on_train_begin(self, logs=None):
+            srv = server.get_server()
+            if srv is None:
+                raise AssertionError("monitor (a): fit armed no server")
+
+            def run():
+                try:
+                    _mon_scrape(srv.url, pages, stop, seen, page_ms)
+                except Exception as e:   # read after the fit
+                    errs.append(e)
+
+            self.t = threading.Thread(target=run, name="phase27-scrape",
+                                      daemon=True)
+            self.t.start()
+
+    scrape = Scrape()
+    model, opt, m, fit_s = _mon_fit(dev, tmp, [tel, scrape])
+    stop.set()
+    scrape.t.join(30)
+    if errs or set(seen) != set(pages) or min(seen.values()) < 1:
+        raise AssertionError(f"monitor (a): scrapes {seen}, errors {errs}")
+    n = mon.stat_get("step/count") - steps0
+    if n != FIT_STEPS:
+        raise AssertionError(f"monitor (a): step/count +{n}, expected "
+                             f"{FIT_STEPS}")
+    mon.stop_exporter(flush=True)
+    with open(jsonl) as f:
+        lines = f.read().splitlines()
+    last = json.loads(lines[-1])["stats"]
+    live = mon.registry.snapshot()
+    if last != live:
+        diff = sorted(k for k in set(last) | set(live)
+                      if last.get(k) != live.get(k))
+        raise AssertionError(f"monitor (a): exporter's last line differs "
+                             f"from the registry at {diff[:10]}")
+    mon.telemetry_snapshot()
+    peak_gauge = mon.stat_get("mem/peak_bytes")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if peak_gauge != peak:
+        raise AssertionError(f"monitor (a): mem/peak_bytes {peak_gauge} != "
+                             f"max_memory_allocated {peak}")
+    code, page = _mon_get(server.get_server().url + "/metrics")
+    local = mon.prometheus_text()
+    ts_line = "paddle_tpu_export_timestamp_seconds "
+
+    def strip_ts(text):
+        return [ln for ln in text.splitlines() if not ln.startswith(ts_line)]
+
+    if code != 200 or strip_ts(page) != strip_ts(local):
+        diff = sorted(set(strip_ts(page)) ^ set(strip_ts(local)))
+        raise AssertionError(f"monitor (a): /metrics != prometheus_text(): "
+                             f"{diff[:10]}")
+    name = f"train_step:{type(model).__name__}"
+    if name in mon.perf.perf_report()["programs"]:
+        raise AssertionError(f"monitor (a): perf_report holds {name}, "
+                             "whose step records no cost")
+    disp = mon.hist_get(f"jit/hist/{name}/dispatch_us")
+    d_p50 = disp.quantile(0.5) / 1e6
+    d_mfu = 6 * sum(p.numel() for p in model.parameters()) * BERT_ROWS \
+        / d_p50 / PEAK_BF16_FLOPS
+    hist = mon.hist_get("step/hist/time_us")
+    summ = tel.step_timer.summary()
+    log("monitor", f"[{smi}] (a) BERT-base fit, {FIT_STEPS} steps, default "
+        f"callbacks, server on port {server.get_server().port}, exporter "
+        f"{len(lines)} lines, watchdog armed: step/count +{n}; "
+        f"mem/peak_bytes = max_memory_allocated = {peak}; /metrics = "
+        f"prometheus_text() ({len(local.splitlines())} lines, the "
+        f"timestamp line aside); the exporter's last line = the registry "
+        f"({len(last)} stats); scrapes {seen}, every {MON_SCRAPE_S} s, "
+        "median ms a page: " + ", ".join(
+            f"{p} {float(np.median(v)):.1f}" for p, v in page_ms.items()))
+    first = tel.step_timer._times[0] * 1e3
+    log("monitor", f"[{smi}] (a) StepTimer step {summ['avg_step_ms']:.3f} "
+        f"ms (mean of its window), p50 {hist.quantile(0.5) / 1e3:.3f} ms, "
+        f"first step {first:.1f} ms (its memory ledger included); the "
+        f"fit's clock {fit_s * 1e3 / FIT_STEPS:.3f} ms a step, "
+        f"{(fit_s * 1e3 - first) / (FIT_STEPS - 1):.3f} ms a step after "
+        f"the first; jit/hist/{name}/dispatch_us: {disp.count} "
+        f"dispatches, p50 {d_p50 * 1e3:.3f} ms, 6 N tokens MFU at it "
+        f"{d_mfu:.4f} (phase 18's {bert_mfu:.4f}); perf_report has no "
+        f"entry for it (the train step records no cost)")
+    del m, model, opt
+    torch.cuda.empty_cache()
+
+
+def _mon_dispatch_cost(dev, smi):
+    """(b): step ms with PADDLE_PERF_DISPATCH on and off, alternated
+    (on, off, on, off), for phase 9's and phase 18's steps."""
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def timed(step, args):
+        out = {"1": [], "0": []}
+        for setting in ("1", "0", "1", "0"):
+            os.environ["PADDLE_PERF_DISPATCH"] = setting
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(MON_TIMED_STEPS):
+                loss = step(*args)
+            float(loss)
+            out[setting].append(
+                (time.perf_counter() - t0) * 1e3 / MON_TIMED_STEPS)
+        os.environ.pop("PADDLE_PERF_DISPATCH")
+        return out
+
+    res = {}
+    gpt = _train_model(dev)
+    opt = AdamW(learning_rate=1e-4, parameters=gpt.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStepCompiler(gpt, opt)
+    ids, labels = _train_batch(gpt.config.vocab_size, dev)
+    for _ in range(2):
+        step(ids, labels)
+    res["GPT-2 345M (phase 9)"] = timed(step, (ids, labels))
+    del gpt, opt, step
+    torch.cuda.empty_cache()
+    bert = _bert_model(dev)
+    wrap = _BertStep(bert)
+    opt = AdamW(learning_rate=1e-4, parameters=wrap.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    step = TrainStepCompiler(wrap, opt)
+    ids, tt = _bert_batch(bert.config.vocab_size, dev)
+    for _ in range(2):
+        step(ids, tt, ids)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res["BERT-base (phase 18)"] = timed(step, (ids, tt, ids))
+    act = torch.cuda.max_memory_allocated(dev) - before
+    log("monitor", f"[{smi}] (b) step ms, PADDLE_PERF_DISPATCH on (a "
+        f"device synchronisation after each step) vs off, {MON_TIMED_STEPS}"
+        f" steps a reading, on/off/on/off: " + "; ".join(
+            f"{k}: on " + ", ".join(f"{x:.3f}" for x in v["1"]) + " / off "
+            + ", ".join(f"{x:.3f}" for x in v["0"]) for k, v in res.items()))
+    return bert, wrap, opt, step, act
+
+
+def _mon_zero_counters(smi):
+    from paddle_tpu_torch import monitor as mon
+
+    bad = sorted(k for k in mon.registry.snapshot()
+                 if k.startswith(("chaos/", "sanitize/", "analysis/")))
+    if bad:
+        raise AssertionError(f"monitor (b): counters with nothing armed: "
+                             f"{bad[:10]}")
+    log("monitor", f"[{smi}] (b) nothing armed: no chaos/*, sanitize/* or "
+        "analysis/* counter exists")
+
+
+def _mon_chaos_router(dev, smi, model, want):
+    """(c)'s router half: see the module docstring."""
+    from paddle_tpu_torch import monitor as mon
+    from paddle_tpu_torch.inference.serving import Router, SamplingParams
+    from paddle_tpu_torch.monitor import chaos, flight
+
+    cfg = model.config
+    prompts = _serve_prompts(cfg.vocab_size)
+    sampling = SamplingParams(max_new_tokens=SERVE_NEW_TOKENS)
+    fdir = flight.dump_dir()
+    old = set(os.listdir(fdir)) if os.path.isdir(fdir) else set()
+    os.environ["PADDLE_WATCHDOG_TIMEOUT_S"] = str(MON_WATCHDOG_S)
+    os.environ["PADDLE_CHAOS"] = MON_CHAOS_STALL
+    flight.stop_watchdog()
+    flight.start_watchdog()
+    chaos.configure()
+    failovers = mon.stat_get("serve/failovers")
+    t_start = time.time()   # the ring's clock
+    router = Router(model, replicas=2, max_batch=SERVE_MAX_BATCH,
+                    num_blocks=ROUTER_BLOCKS, device=dev,
+                    heartbeat_timeout_s=MON_HEARTBEAT_S)
+    try:
+        ids, _, _ = _flood(router, prompts, sampling)
+        _router_gate("monitor (c) stall", model, dev, prompts, want, router,
+                     ids)
+        stalled = [r for r in router._replicas if r.dead]
+        orphans = len(router.orphan_exports)
+    finally:
+        chaos.disarm()
+        os.environ.pop("PADDLE_CHAOS")
+        flight.stop_watchdog()
+        os.environ.pop("PADDLE_WATCHDOG_TIMEOUT_S")
+        router.shutdown()
+    trig = mon.stat_get("chaos/serve_decode/stall/triggered")
+    n_fo = mon.stat_get("serve/failovers") - failovers
+    bundles = sorted(f for f in set(os.listdir(fdir)) - old
+                     if f.startswith("watchdog_"))
+    if trig != 1 or n_fo != 1 or len(stalled) != 1 or len(bundles) != 1 \
+            or orphans:
+        raise AssertionError(f"monitor (c): stall triggered {trig}, "
+                             f"failovers +{n_fo}, dead {len(stalled)}, "
+                             f"orphaned exports {orphans}, watchdog "
+                             f"bundles {bundles}")
+    b = flight.read_dump(os.path.join(fdir, bundles[0]))
+    stuck = b["stuck"]
+    names = {t["tid"]: t["name"] for t in b["threads"]}
+    want_thread = f"serve-replica-{stalled[0].idx}"
+    if [e["kind"] for e in stuck] != ["serve_decode"] \
+            or names.get(stuck[0]["tid"]) != want_thread:
+        raise AssertionError(f"monitor (c): stuck {stuck}, its thread "
+                             f"{names.get(stuck[0]['tid'])}, expected "
+                             f"{want_thread}")
+    # this run's ring events (the ring also holds phase 25's failovers)
+    ring = [e for e in flight.tail() if e["ts"] >= t_start]
+    drains = [e for e in ring if e["kind"] == "serve_drain_done"
+              and e.get("emergency")]
+    fo = [e for e in ring if e["kind"] == "serve_failover"]
+    if len(drains) != 1 or drains[0].get("reason") != "watchdog" \
+            or [e.get("reason") for e in fo] != ["incident_export"] \
+            or fo[0].get("replica") != stalled[0].idx:
+        raise AssertionError(f"monitor (c): emergency exports {drains}, "
+                             f"failovers {fo}")
+    t_wd = max(e["ts"] for e in ring if e["kind"] == "watchdog")
+    log("monitor", f"[{smi}] (c) Router x 2, incident export on (the "
+        f"default), under {MON_CHAOS_STALL}, watchdog {MON_WATCHDOG_S} s, "
+        f"heartbeat {MON_HEARTBEAT_S} s: chaos/serve_decode/stall/"
+        f"triggered {trig}; one watchdog bundle ({bundles[0]}): stuck "
+        f"serve_decode/{stuck[0]['name']} on thread {want_thread}, age "
+        f"{stuck[0]['age_s']} s; that replica alone exported "
+        f"{drains[0].get('exported')} requests from its incident hook; one "
+        f"failover (incident_export), no orphaned export; phase 5's "
+        f"tokens; watchdog event to failover event "
+        f"{(fo[0]['ts'] - t_wd) * 1e3:.3f} ms (ring clock)")
+
+
+def _mon_chaos_spec(dev, smi, model, want):
+    """(c)'s speculative half."""
+    from paddle_tpu_torch import monitor as mon
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.inference.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.monitor import chaos
+
+    cfg = model.config
+    prompts = _serve_prompts(cfg.vocab_size)
+    keys = ("serve/spec/proposed", "serve/spec/accepted",
+            "serve/decode_dispatches", "chaos/serve_spec_verify/corrupt/"
+            "triggered")
+    chaos.configure("serve_spec_verify:corrupt")
+    try:
+        eng = LLMEngine(model, max_batch=SERVE_MAX_BATCH,
+                        num_blocks=SPEC_BLOCKS, device=dev, spec_k=SPEC_K,
+                        draft_layers=cfg.num_layers)
+        ids = [eng.add_request(p, SamplingParams(
+            max_new_tokens=SERVE_NEW_TOKENS)) for p in prompts]
+        before = {k: mon.stat_get(k) for k in keys}
+        kernels.reset_launches()
+        while eng.has_unfinished():
+            eng.step()
+        torch.cuda.synchronize(dev)
+        counts = kernels.launches()
+        d = {k: mon.stat_get(k) - before[k] for k in keys}
+    finally:
+        chaos.disarm()
+    outs = [eng.get_request(i).output_ids for i in ids]
+    _spec_gate("monitor (c) corrupt", model, dev, prompts, want, outs)
+    rounds = d["serve/decode_dispatches"]
+    multi = counts["paged_attention_multi"]
+    if d["serve/spec/accepted"] or not d["serve/spec/proposed"] \
+            or d[keys[3]] != rounds or multi != cfg.num_layers * rounds:
+        raise AssertionError(f"monitor (c) corrupt: {d}, multi-query "
+                             f"launches {multi}")
+    log("monitor", f"[{smi}] (c) k={SPEC_K} engine (draft = target) under "
+        f"serve_spec_verify:corrupt: {rounds} rounds, "
+        f"{d['serve/spec/proposed']} proposals, 0 accepted (one token a "
+        f"request a round), corrupt triggered {d[keys[3]]}; phase 5's "
+        f"tokens; #10 launched {multi} = {cfg.num_layers} x {rounds}")
+
+
+def _mon_torn(dev, smi, tmp):
+    """(d): see the module docstring."""
+    from paddle_tpu_torch import monitor as mon
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.incubate.checkpoint.elastic import (
+        CheckpointManager)
+    from paddle_tpu_torch.monitor import chaos, flight
+
+    ckdir = os.path.join(tmp, "torn_ckpt")
+    os.environ["PADDLE_CKPT_SAVE_STEPS"] = str(FIT_SAVE_STEPS)
+    seen = {}
+
+    class Digest(Callback):
+        n = 0
+
+        def on_train_batch_end(self, step, logs=None):
+            Digest.n += 1
+            if Digest.n == FIT_SAVE_STEPS:
+                seen.update({k: _digest(v) for k, v in
+                             self.model.network.state_dict().items()})
+
+    chaos.configure(MON_TORN)
+    try:
+        model, opt, m, _ = _mon_fit(dev, tmp, [Digest()], epochs=1,
+                                    resume=ckdir)
+    finally:
+        chaos.disarm()
+        os.environ.pop("PADDLE_CKPT_SAVE_STEPS")
+    trig = mon.stat_get("chaos/ckpt_write/torn/triggered")
+    mgr = CheckpointManager(dir=ckdir, device=dev)
+    state = mgr.restore()
+    got = {k: _digest(v) for k, v in state["model"].items()}
+    kinds = [e["kind"] for e in flight.tail()]
+    steps = sorted(os.listdir(ckdir))
+    if trig != 1 or mgr.cursor["global_step"] != FIT_SAVE_STEPS \
+            or got != seen or "chaos_inject" not in kinds \
+            or "ckpt_error" not in kinds:
+        raise AssertionError(f"monitor (d): torn triggered {trig}, restored "
+                             f"{mgr.cursor}, {len(got)} tensors, equal "
+                             f"{got == seen}, dirs {steps}")
+    log("monitor", f"[{smi}] (d) {FIT_STEPS // FIT_EPOCHS}-step fit "
+        f"snapshotting every {FIT_SAVE_STEPS} steps under {MON_TORN}: step "
+        f"dirs {steps}, the epoch-end snapshot torn; restore fell back to "
+        f"global step {mgr.cursor['global_step']}, its {len(got)} tensors "
+        f"bit for bit the fit's at that step; the ring holds chaos_inject "
+        f"and ckpt_error")
+    del m, model, opt, state
+    torch.cuda.empty_cache()
+
+
+def _mon_oom(dev, smi, bert, opt, step, act):
+    """(e)'s out-of-memory: a BERT-base step at a batch whose
+    activations (`act` bytes a B 32 step, measured in (b)) need twice
+    the free memory."""
+    import gc
+
+    from paddle_tpu_torch.monitor import flight, memory
+
+    # the step clears the gradients first: let them go before `before`
+    opt.clear_grad()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(dev)
+    batch = int(math.ceil(2 * free / (act / BERT_BATCH)))
+    ids = torch.from_numpy(np.random.RandomState(5).randint(
+        0, bert.config.vocab_size, (batch, BERT_SEQ))).to(dev)
+    tt = torch.zeros_like(ids)
+    fdir = flight.dump_dir()
+    old = set(os.listdir(fdir)) if os.path.isdir(fdir) else set()
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    outcomes = []
+    try:
+        with memory.auto_oom_observer():
+            step(ids, tt, ids)
+        outcomes.append("returned")
+    except torch.OutOfMemoryError:
+        outcomes.append("oom")
+    except Exception as e:
+        outcomes.append(f"{type(e).__name__}: {e}"[:200])
+    gc.collect()
+    after = torch.cuda.memory_allocated(dev)
+    bundles = sorted(f for f in set(os.listdir(fdir)) - old
+                     if f.startswith("oom_"))
+    if outcomes != ["oom"] or len(bundles) != 1:
+        raise AssertionError(f"monitor (e): outcomes {outcomes}, oom "
+                             f"bundles {bundles}")
+    mem = flight.read_dump(os.path.join(fdir, bundles[0]))["memory"]
+    at_fault = mem["device"]["allocated_bytes"]
+    census = mem["census"]["devices"].get(str(dev), 0)
+    if "num_ooms" not in mem["device"] or census > at_fault \
+            or abs(after - before) > MON_OOM_SLACK:
+        raise AssertionError(f"monitor (e): census {census} vs allocated "
+                             f"{at_fault}, allocated {before} -> {after}")
+    log("monitor", f"[{smi}] (e) BERT-base step at B {batch} x S {BERT_SEQ}"
+        f" ({act / BERT_BATCH / 2 ** 20:.1f} MiB of activations a row, "
+        f"{free / 2 ** 30:.2f} GiB free): exactly one "
+        f"torch.OutOfMemoryError; one oom bundle ({bundles[0]}) with "
+        f"torch.cuda.memory_stats (num_ooms {mem['device']['num_ooms']}) "
+        f"and the census: {census} bytes on {dev} in "
+        f"{mem['census']['total_arrays']} storages <= {at_fault} allocated "
+        f"at the fault; allocated {before} before, {after} after (within "
+        f"{MON_OOM_SLACK >> 20} MiB)")
+
+
+def _mon_numerics(dev, smi, steps=3):
+    """(e)'s numerics probe: phase 9's GPT-2 steps under
+    PADDLE_SANITIZE=numerics:sample=1, then disarmed from the same seed;
+    the probed absmax of every tensor at the last step against a
+    recomputation from copies taken before it."""
+    from paddle_tpu_torch import monitor as mon
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.monitor import numerics, sanitize
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def absmax(t):
+        a = t.detach().float().abs()
+        return float(torch.where(torch.isfinite(a), a,
+                                 torch.zeros_like(a)).max())
+
+    def run(spec):
+        sanitize.configure(spec)
+        try:
+            gpt = _train_model(dev)
+            opt = AdamW(learning_rate=1e-4, parameters=gpt.parameters(),
+                        weight_decay=0.01, multi_precision=True)
+            step = TrainStepCompiler(gpt, opt)
+            ids, labels = _train_batch(gpt.config.vocab_size, dev)
+            losses, want = [], {}
+            for i in range(steps):
+                if i == steps - 1:
+                    want = {f"param/{n}": absmax(p)
+                            for n, p in gpt.named_parameters()}
+                loss = step(ids, labels)
+                losses.append(float(loss))
+            want["loss"] = absmax(loss)
+            want.update({f"grad/{n}": absmax(p.grad)
+                         for n, p in gpt.named_parameters()})
+            return losses, want
+        finally:
+            sanitize.disarm()
+
+    numerics.clear()
+    armed, want = run("numerics:sample=1")
+    # describe() keeps the freshest 256 tensors; the gauges keep all
+    last = numerics.describe()["last"]
+    stats = mon.registry.snapshot()
+    bad = [n for n, v in want.items()
+           if (n in last and last[n]["absmax"] != v)
+           or stats.get(f"numerics/{n}/absmax") != math.ceil(v)]
+    plain, _ = run("")
+    if bad or len(last) != min(256, len(want)) or armed != plain:
+        raise AssertionError(f"monitor (e) numerics: {len(bad)} of "
+                             f"{len(want)} gauges differ ({bad[:5]}), "
+                             f"losses {armed} vs {plain}")
+    log("monitor", f"[{smi}] (e) PADDLE_SANITIZE=numerics:sample=1 over "
+        f"{steps} of phase 9's steps: the numerics/*/absmax gauges of all "
+        f"{len(want)} tensors (loss, every grad, every pre-update param) "
+        f"equal the ceilings of a recomputation on the card, and the "
+        f"{len(last)} float absmax values the probe keeps equal it bit for "
+        f"bit; losses {[x.hex() for x in armed]} = the disarmed run's")
+    torch.cuda.empty_cache()
+
+
+def phase_monitor(dev, smi, serve_want, bert_mfu):
+    """Phase 27: the monitor planes (see the module docstring)."""
+    import tempfile
+
+    from paddle_tpu_torch.monitor import flight, server
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase27_")
+    os.environ["PADDLE_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+    try:
+        _mon_fit_telemetry(dev, smi, tmp, bert_mfu)
+        bert, wrap, opt, step, act = _mon_dispatch_cost(dev, smi)
+        _mon_zero_counters(smi)
+        model = _serve_model(dev)
+        _mon_chaos_router(dev, smi, model, serve_want)
+        _mon_chaos_spec(dev, smi, model, serve_want)
+        del model
+        torch.cuda.empty_cache()
+        _mon_oom(dev, smi, bert, opt, step, act)
+        del bert, wrap, opt, step
+        torch.cuda.empty_cache()
+        _mon_torn(dev, smi, tmp)
+        _mon_numerics(dev, smi)
+    finally:
+        server.stop_server()
+        flight.stop_watchdog()
+        os.environ.pop("PADDLE_MONITOR_SERVE", None)
+    log("monitor", f"phase 27 in {time.perf_counter() - t0:.1f} s")
+
+
 
 def _paged_ms(by):
     """(T = 1 launches' ms, T > 1 launches' ms) of the paged kernel in a
@@ -6536,7 +7107,7 @@ def main():
         e["launches"] = counts[e["name"]]
     entries += compress_entries
     torch.cuda.empty_cache()
-    phase_bert(dev, smi)
+    bert_mfu = phase_bert(dev, smi)
     torch.cuda.empty_cache()
     phase_fit(dev, smi)
     torch.cuda.empty_cache()
@@ -6552,6 +7123,8 @@ def main():
     del ernie_after1
     torch.cuda.empty_cache()
     phase_transformer(dev, smi)
+    torch.cuda.empty_cache()
+    phase_monitor(dev, smi, serve_outs, bert_mfu)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -17,8 +17,12 @@ op lists, runs `layer_norm` and `softmax` in f32 and caches casts.
 `audit_op_lists()` names the list entries no op of the port dispatches
 (`known_op_names()` scans the port's sources for the names it hands to
 `maybe_cast_inputs`, and adds the names the op factories pass to
-`register_op`). The JAX `auto_cast`'s PTA092 precision audit
-belongs to the analysis plane, which is not ported.
+`register_op`). `auto_cast.__enter__` runs the PTA092 precision audit
+(`analysis.precision.audit_autocast`: a float16 autocast whose custom
+white list force-lowers range-sensitive ops raises under
+PADDLE_SANITIZE=numerics and reports under PADDLE_ANALYSIS=1), and
+`GradScaler` records `amp_scale_growth` / `amp_scale_backoff` flight
+events, as in the JAX package (:145-152, 290-310).
 
 `decorate(models, optimizers=None, level="O2", dtype="bfloat16")` casts
 every floating parameter and buffer of the models to the amp dtype in
@@ -183,6 +187,11 @@ class auto_cast:
         self._dtype = _amp_dtype(dtype)
 
     def __enter__(self):
+        if self._enable and self._white:
+            from ..analysis.precision import audit_autocast
+
+            audit_autocast(str(self._dtype).replace("torch.", ""),
+                           self._white, where="auto_cast")
         self._prev = (_amp.enabled, _amp.dtype, _amp.level,
                       _amp.custom_white, _amp.custom_black)
         _amp.enabled = self._enable
@@ -297,6 +306,7 @@ class GradScaler:
                 self._scale = max(self._scale * self._decr_ratio, 1.0)
                 self._bad_steps = 0
                 _monitor.stat_add("amp/scale/backoffs", 1)
+                self._record_scale_event("amp_scale_backoff")
         else:
             self._good_steps += 1
             self._bad_steps = 0
@@ -304,7 +314,16 @@ class GradScaler:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
                 _monitor.stat_add("amp/scale/growths", 1)
+                self._record_scale_event("amp_scale_growth")
         self._found_inf = False
+
+    def _record_scale_event(self, kind):
+        try:
+            from ..monitor import flight as _flight
+
+            _flight.record(kind, scale=float(self._scale))
+        except Exception:
+            pass  # telemetry must never break the step
 
     def _record_step(self, found_inf):
         """The train step's hook (`TrainStepCompiler(grad_scaler=...)`):

@@ -2,12 +2,12 @@
 training paths (reference: paddle/fluid/platform/monitor.h:44
 StatValue/StatRegistry with STAT_ADD:130).
 
-A copy of `paddle_tpu.core.monitor` without its VLOG and PJRT memory
-readers: `stat_add`, `stat_set`, `stat_get`, `stat_reset`, the
+A copy of `paddle_tpu.core.monitor` without its PJRT memory readers
+(the card's are `monitor.memory`): `stat_add`, `stat_set`, `stat_get`, `stat_reset`, the
 mergeable `Histogram` with `quantile`, `merge`, `snapshot`,
 `delta_since` and `reset`, `snapshot_quantile` over a snapshot,
-`registry.snapshot()` / `snapshot_histograms()` / `reset_all()`, and
-the `_env_*` readers. The bucket layout is the JAX package's, with its
+`registry.snapshot()` / `snapshot_histograms()` / `reset_all()`, the
+`_env_*` readers and `VLOG` (stderr, enabled by GLOG_v). The bucket layout is the JAX package's, with its
 `PADDLE_MONITOR_HIST_LO` / `_PER_DECADE` / `_DECADES` knobs, so a
 quantile here is bit-equal to the JAX one on the same observations.
 Quantiles are read by the alert engine (`monitor.alerts`, whose
@@ -19,11 +19,14 @@ from __future__ import annotations
 
 import math
 import os
+import sys
 import threading
+import time
 
 __all__ = ["StatValue", "StatRegistry", "Histogram", "stat_add",
            "stat_get", "stat_set", "stat_reset", "hist_observe",
-           "hist_get", "snapshot_quantile", "registry"]
+           "hist_get", "snapshot_quantile", "registry", "VLOG",
+           "vlog_level"]
 
 
 class StatValue:
@@ -445,3 +448,28 @@ def hist_observe(name, value):
 
 def hist_get(name) -> Histogram:
     return registry.histogram(name)
+
+
+def vlog_level():
+    """Effective verbosity: the GLOG_v env (0 when unset)."""
+    try:
+        return int(os.environ.get("GLOG_v", "0"))
+    except ValueError:
+        return 0
+
+
+def VLOG(level, *msg):
+    """glog VLOG(level) << ... analog on stderr, the JAX package's
+    prefix: `V<level> HH:MM:SS]`, with ` r<rank>` when the launch env
+    names a world of more than one rank."""
+    if level <= vlog_level():
+        ts = time.strftime("%H:%M:%S")
+        try:
+            world = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+            rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+        except ValueError:
+            world, rank = 1, 0
+        if world > 1:
+            print(f"V{level} r{rank} {ts}]", *msg, file=sys.stderr)
+        else:
+            print(f"V{level} {ts}]", *msg, file=sys.stderr)

@@ -5,8 +5,10 @@ eager multi-process part of `paddle_tpu/distributed/collective.py`:
 their non-blocking forms `isend` / `irecv` (:672-760).
 
 Each call adds to `comm/<op>/{calls,bytes,wire_bytes,host_us}` in
-`core.monitor` (the JAX package's `_instrumented`, :129-215, without
-its profiler span and flight-recorder events). `bytes` is the logical
+`core.monitor` and runs inside a `collective` flight span (what the
+watchdog watches), with the `collective` chaos site inside the span —
+the JAX package's `_instrumented` (:129-215) without its profiler
+span. `bytes` is the logical
 per-rank payload (all_gather: the whole gathered list); `wire_bytes`
 is what crosses the wire at the wire's precision, equal to `bytes`
 except on the quantized all_reduce, so wire_bytes / bytes is the
@@ -41,6 +43,8 @@ import torch
 import torch.distributed as dist
 
 from ..core import monitor as _monitor
+from ..monitor import chaos as _chaos
+from ..monitor import flight as _flight
 from .env import group_size
 
 __all__ = ["ReduceOp", "all_reduce", "all_gather", "broadcast", "barrier",
@@ -86,8 +90,19 @@ def _instrumented(op):
             else:
                 nbytes = _payload_bytes(kwargs.get("tensor", args[0] if args
                                                    else None))
+            tok = None
+            if _flight.recorder.enabled:
+                tok = _flight.begin("collective", op, bytes=nbytes)
             t0 = time.perf_counter()
-            out, wire = fn(*args, **kwargs)
+            try:
+                # the chaos site sits INSIDE the span: an injected stall
+                # is what the watchdog sees for a real wedged collective
+                if _chaos._armed:
+                    _chaos.hit("collective", op=op)
+                out, wire = fn(*args, **kwargs)
+            finally:
+                # a leaked in-flight entry would look like a hang
+                _flight.end(tok)
             host_us = int((time.perf_counter() - t0) * 1e6)
             _monitor.stat_add(f"comm/{op}/calls", 1)
             _monitor.stat_add(f"comm/{op}/host_us", host_us)

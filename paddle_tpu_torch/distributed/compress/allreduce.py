@@ -34,6 +34,14 @@ The JAX package runs this inside a compiled shard_map island, where
 XLA contracts the phase-1 dequantize-and-sum into FMAs; the port
 rounds the dequantize and the sum separately, so a reduced element
 can differ from the JAX package's by an ulp or two.
+
+Monitor hooks (JAX :96-128, 159-160): `account` records the
+`comm_compress` flight event, and the `comm_compress` chaos site's
+`bitflip` fault XORs bit 6 into every code of scale block 0 after the
+phase-1 quantize. The JAX package fires the site once, at trace time,
+and bakes the flip into that built program; the port fires it on
+every call while armed, so `times=` / `after=` count calls (ROADMAP
+queue 3).
 """
 from __future__ import annotations
 
@@ -41,6 +49,8 @@ import torch
 import torch.distributed as dist
 
 from ...core import monitor as _monitor
+from ...monitor import chaos as _chaos
+from ...monitor import flight as _flight
 from ..env import group_rank, group_size
 from . import kernels as K
 from . import pack as P
@@ -90,14 +100,35 @@ def account(cfg, logical_bytes, elems, where="train_step", block=None):
     """Count one (possibly quantized) gradient allreduce in
     comm/all_reduce/{calls,bytes,wire_bytes}. `elems` is the on-wire
     element count (padded_elems), `block` the effective scale block;
-    `where` names the caller, as in the JAX package's flight event (the
-    port records none).
+    `where` names the caller in the `comm_compress` flight event.
     Returns the wire bytes."""
     wire = wire_bytes_of(cfg, elems, block=block)
     _monitor.stat_add("comm/all_reduce/calls", 1)
     _monitor.stat_add("comm/all_reduce/bytes", int(logical_bytes))
     _monitor.stat_add("comm/all_reduce/wire_bytes", int(wire))
+    if _flight.recorder.enabled:
+        _flight.record(
+            "comm_compress", op="all_reduce",
+            bytes=int(logical_bytes), wire_bytes=int(wire),
+            compress=(cfg.spec() if cfg is not None else "fp32"),
+            group=where)
     return wire
+
+
+def _maybe_bitflip(q, cfg, block):
+    """`comm_compress` chaos site, `bitflip` fault (site-interpreted):
+    XOR bit 6 into every code of scale block 0 of this call's phase-1
+    codes. Disarmed calls never reach this branch."""
+    act = _chaos.hit("comm_compress", mode=cfg.mode, block=int(block))
+    if act is None or act.fault != "bitflip":
+        return q
+    flat = q.reshape(-1).clone()
+    if q.dtype == torch.int8:
+        flat[:block] ^= 0x40
+    else:
+        bits = flat[:block].to(torch.bfloat16).view(torch.int16)
+        flat[:block] = (bits ^ 0x40).view(torch.bfloat16).to(q.dtype)
+    return flat.view(q.shape)
 
 
 def _all_to_all(x, nranks, group):
@@ -144,6 +175,8 @@ def all_reduce_flat(flat, *, group=None, cfg, residual=None, block=None):
     # phase 1: quantize, all_to_all (after it, row i holds rank i's
     # segment of MY output shard), dequantize, sum in rank order
     q, s = K.quantize_blocks(x.view(W, S), block, mode)
+    if _chaos._armed:
+        q = _maybe_bitflip(q, cfg, block)
     if use_ef:
         new_res = x - K.dequantize_blocks(q, s, block, mode).view(L)
     qr = _all_to_all(q, W, group)

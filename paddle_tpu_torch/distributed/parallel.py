@@ -51,7 +51,14 @@ TIMEOUT = datetime.timedelta(seconds=600)
 
 def init_parallel_env(*, backend=None, device=None):
     """Join the process group of the PADDLE_* env contract (once; a
-    single-rank world starts no group) and return a ParallelEnv."""
+    single-rank world starts no group) and return a ParallelEnv. Arms
+    the flight watchdog / excepthook first (on by default for
+    distributed runs; PADDLE_FLIGHT_AUTOARM gates), and the rendezvous
+    runs inside a `bootstrap` flight span, so a missing peer is a hang
+    the watchdog sees (JAX :55-71)."""
+    from ..monitor import flight as _flight
+
+    _flight.maybe_auto_arm("init_parallel_env")
     nranks = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
     if nranks <= 1 or dist.is_initialized():
         return ParallelEnv()
@@ -70,8 +77,10 @@ def init_parallel_env(*, backend=None, device=None):
     if dev.type == "cuda":
         local = int(os.environ.get("PADDLE_RANK_IN_NODE", "0"))
         torch.cuda.set_device(local % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method=url, rank=rank,
-                            world_size=nranks, timeout=TIMEOUT)
+    with _flight.in_flight("bootstrap", "init_process_group", url=url,
+                           nranks=nranks):
+        dist.init_process_group(backend, init_method=url, rank=rank,
+                                world_size=nranks, timeout=TIMEOUT)
     return ParallelEnv()
 
 

@@ -4,10 +4,10 @@ python/paddle/hapi/callbacks.py): `Callback`, `CallbackList`,
 `ProgBarLogger`, `ModelCheckpoint`, `LRScheduler`, `EarlyStopping`,
 `VisualDL`, `config_callbacks`.
 
-`config_callbacks` installs a `ProgBarLogger` (when `verbose`) and an
-`LRScheduler` stepped by batch. The JAX package's `Telemetry` callback
-(monitor.StepTimer) is not ported yet (ROADMAP queue 1 item 4), and
-`config_callbacks` does not install it.
+`config_callbacks` installs a `ProgBarLogger` (when `verbose`), an
+`LRScheduler` stepped by batch and, first in dispatch order, a
+`Telemetry` callback (monitor.StepTimer: the `step/*` stats of every
+fit step), as the JAX package does (:307-378).
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import time
 from ..core.monitor import _env_int
 
 __all__ = ["Callback", "CallbackList", "ProgBarLogger", "ModelCheckpoint",
-           "LRScheduler", "EarlyStopping", "VisualDL", "config_callbacks"]
+           "LRScheduler", "EarlyStopping", "Telemetry", "VisualDL",
+           "config_callbacks"]
 
 
 class Callback:
@@ -294,6 +295,41 @@ class VisualDL(Callback):
         self._records.append(("train", step, dict(logs or {})))
 
 
+class Telemetry(Callback):
+    """Per-step training telemetry: drives a monitor.StepTimer so every
+    Model.fit step records step time, throughput, loss, lr and the
+    card's memory gauges under `step/...`. config_callbacks installs
+    one; pass your own instance to share its StepTimer."""
+
+    def __init__(self, step_timer=None):
+        super().__init__()
+        if step_timer is None:
+            from .. import monitor as _mon
+
+            step_timer = _mon.StepTimer()
+        self.step_timer = step_timer
+
+    def _lr(self):
+        opt = getattr(self.model, "_optimizer", None)
+        if opt is None:
+            return None
+        try:
+            return float(opt.get_lr())
+        except Exception:
+            return None
+
+    def on_train_batch_begin(self, step, logs=None):
+        self.step_timer.begin_step()
+
+    def on_train_batch_end(self, step, logs=None):
+        logs = logs or {}
+        loss = logs.get("loss")
+        if isinstance(loss, (list, tuple)):
+            loss = loss[0] if loss else None
+        self.step_timer.end_step(batch_size=logs.get("batch_size"),
+                                 loss=loss, lr=self._lr())
+
+
 def config_callbacks(callbacks=None, model=None, batch_size=None,
                      epochs=None, steps=None, log_freq=2, verbose=2,
                      save_freq=1, save_dir=None, metrics=None, mode="train"):
@@ -302,6 +338,10 @@ def config_callbacks(callbacks=None, model=None, batch_size=None,
         cbks.append(ProgBarLogger(log_freq, verbose=verbose))
     if not any(isinstance(c, LRScheduler) for c in cbks):
         cbks.append(LRScheduler())
+    if not any(isinstance(c, Telemetry) for c in cbks):
+        # FIRST in dispatch order: on_train_batch_end must read the lr
+        # the step ran at, before any LRScheduler callback advances it
+        cbks.insert(0, Telemetry())
     cl = CallbackList(cbks)
     for c in cbks:
         c.set_model(model)

@@ -42,9 +42,14 @@ snapshot when checkpointing, then stop) and `resume`:
   `torch.Generator` the network holds as a module attribute (BERT's
   `dropout_generator`), set back on restore.
 
-Not ported: the OOM bundle (`_note_step_failure`), the flight and
-monitor-server hooks and `auto_oom_observer` (ROADMAP queue 1 item 4),
-`summary` and `flops` (item 5).
+Monitor hooks (JAX :428-437, 620-627, 764): `fit` calls
+`flight.maybe_auto_arm` and `server.maybe_auto_serve` first and runs
+its loop inside `memory.auto_oom_observer()`, so an out-of-memory
+leaves an "oom" bundle whose census was taken before unwinding freed
+the tensors; `terminate_on_nan` records its flight event. The JAX
+fit's `_note_step_failure` bundles an OOM its fallbacks swallow; the
+port's fit swallows no step failure, so every OOM reaches the
+observer. Not ported: `summary` and `flops` (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -57,6 +62,9 @@ import torch
 
 from ..core import monitor as _cmon
 from ..io import DataLoader, Dataset, _to_device
+from ..monitor import flight as _flight
+from ..monitor import memory as _memory
+from ..monitor import server as _mserver
 from . import callbacks as cb_mod
 
 __all__ = ["Model"]
@@ -262,6 +270,12 @@ class Model:
         `guard_nonfinite` defaults to $PADDLE_JIT_GUARD_NONFINITE. For a
         bit-identical resume pass a DataLoader over a seeded
         BatchSampler (or shuffle=False)."""
+        # failure forensics: distributed fits (or PADDLE_FLIGHT_AUTOARM
+        # =1) get the watchdog + crash-bundle excepthook before the
+        # first step; PADDLE_MONITOR_SERVE=<port> exposes /metrics,
+        # /statusz, /flightz, ... for the run's lifetime
+        _flight.maybe_auto_arm("hapi.Model.fit")
+        _mserver.maybe_auto_serve("hapi.Model.fit")
         accum = max(1, int(accumulate_grad_batches))
         self._fit_accum = accum
         if guard_nonfinite is None:
@@ -357,36 +371,43 @@ class Model:
             pending.clear()
 
         try:
-            for epoch in range(start_epoch, epochs):
-                cbks.on_epoch_begin(epoch)
-                for m in self._metrics:
-                    m.reset()
-                for step, batch in enumerate(loader):
-                    ins, lbls = self._split_batch(batch)
-                    pending.append((step, ins, lbls, _batch_size_of(ins)))
-                    if len(pending) >= k_fused:
-                        flush_pending()
-                        if self.stop_training:
-                            break
-                        if num_iters is not None and iters_done >= num_iters:
-                            break
-                flush_pending()  # a short last group
-                cbks.on_epoch_end(epoch, {"loss": loss[0]})
-                # an aborted epoch (preemption, terminate_on_nan) is
-                # incomplete: no eval, no epoch save
-                aborted = ((mgr is not None and mgr.preempted.is_set())
-                           or self._nonfinite_stopped)
-                if eval_loader is not None and not aborted \
-                        and (epoch + 1) % eval_freq == 0:
-                    self.evaluate(eval_loader, batch_size=batch_size,
-                                  verbose=0)
-                if save_dir is not None and not aborted \
-                        and (epoch + 1) % save_freq == 0:
-                    self.save(f"{save_dir}/epoch_{epoch}")
-                if self.stop_training:
-                    break
-                if num_iters is not None and iters_done >= num_iters:
-                    break
+            # OOM forensics: an out-of-memory anywhere in the loop leaves
+            # an "oom" bundle with the live-tensor census, taken here
+            # before unwinding frees the tensors
+            with _memory.auto_oom_observer():
+                for epoch in range(start_epoch, epochs):
+                    cbks.on_epoch_begin(epoch)
+                    for m in self._metrics:
+                        m.reset()
+                    for step, batch in enumerate(loader):
+                        ins, lbls = self._split_batch(batch)
+                        pending.append((step, ins, lbls,
+                                        _batch_size_of(ins)))
+                        if len(pending) >= k_fused:
+                            flush_pending()
+                            if self.stop_training:
+                                break
+                            if (num_iters is not None
+                                    and iters_done >= num_iters):
+                                break
+                    flush_pending()  # a short last group
+                    cbks.on_epoch_end(epoch, {"loss": loss[0]})
+                    # an aborted epoch (preemption, terminate_on_nan) is
+                    # incomplete: no eval, no epoch save
+                    aborted = ((mgr is not None
+                                and mgr.preempted.is_set())
+                               or self._nonfinite_stopped)
+                    if eval_loader is not None and not aborted \
+                            and (epoch + 1) % eval_freq == 0:
+                        self.evaluate(eval_loader, batch_size=batch_size,
+                                      verbose=0)
+                    if save_dir is not None and not aborted \
+                            and (epoch + 1) % save_freq == 0:
+                        self.save(f"{save_dir}/epoch_{epoch}")
+                    if self.stop_training:
+                        break
+                    if num_iters is not None and iters_done >= num_iters:
+                        break
             cbks.on_end("train")
         finally:
             if self._fit_accum > 1:
@@ -501,6 +522,7 @@ class Model:
         """terminate_on_nan tripped: checkpoint (the last completed step
         boundary, through the manager's state provider), then stop."""
         _cmon.stat_add("train/nonfinite_stops", 1)
+        _flight.record("terminate_on_nan", streak=self._nan_streak)
         step = mgr.emergency_save("nonfinite") if mgr is not None else None
         warnings.warn(
             f"terminate_on_nan: {self._nan_streak} consecutive non-finite "

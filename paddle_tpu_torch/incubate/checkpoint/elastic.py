@@ -49,14 +49,21 @@ and plain values; `hapi.Model._training_state` decides what goes in.
   provider if no boundary save lands within the grace window.
 - Counters: ckpt/{saves, async_inflight, write_us, bytes, dropped,
   errors, emergency_saves, restores, capture_us} (`core.monitor`).
-
-Not ported (ROADMAP queue 1 item 4): the `chaos` torn-write site, the
-`flight` events and dumps, the `sanitize` lock wrappers and the
-watchdog incident hook (`_on_incident`).
+- Monitor hooks (JAX :72-74, 291-305, 349-354, 380-520, 569-744): the
+  `ckpt_write` chaos site (its `torn` fault writes half a rank file and
+  no manifest, then raises; `enospc` raises ENOSPC), each write inside
+  `in_flight("ckpt_write")`, the `ckpt_save` / `ckpt_error` /
+  `ckpt_restore` / `ckpt_emergency` / `preempt` flight events and the
+  "preempt" dump bundle, the sanitizer's `lock` / `condition`, the
+  PTA043 ownership check of each capture under
+  PADDLE_SANITIZE=donation, and `_on_incident`: `arm()` registers it
+  as a flight incident hook, so a watchdog fire writes an emergency
+  snapshot next to the bundle.
 """
 from __future__ import annotations
 
 import glob as _glob
+import io
 import json
 import os
 import pickle
@@ -72,6 +79,9 @@ from ... import framework as _framework
 from ...core import monitor as _cmon
 from ...core.monitor import _env_float, _env_int, _env_on
 from ...device import resolve_device
+from ...monitor import chaos as _chaos
+from ...monitor import flight as _flight
+from ...monitor import sanitize as _sanitize
 
 __all__ = ["CheckpointManager", "SCHEMA", "default_checkpoint_dir"]
 
@@ -169,7 +179,9 @@ class CheckpointManager:
         self.cursor = None       # set by restore(): where to resume
         self.preempted = threading.Event()
         self._pool = _HostPool(pin=self.device.type == "cuda")
-        self._cv = threading.Condition()
+        # sanitize-aware primitives (PADDLE_SANITIZE=locks): plain
+        # threading objects when disarmed
+        self._cv = _sanitize.condition("ckpt.cv")
         self._pending = None     # latest-wins _Snapshot slot
         self._busy = False
         self._writer = None
@@ -183,7 +195,7 @@ class CheckpointManager:
         self._preempt_grace_s = 10.0  # window for the loop's own save
         self._lock_timeout_s = 15.0   # bounded waits on a wedged writer
         self._closing = threading.Event()
-        self._write_lock = threading.Lock()
+        self._write_lock = _sanitize.lock("ckpt.writer")  # vs emergency
 
     # -- cadence ----------------------------------------------------------
     def due(self, global_step):
@@ -239,6 +251,12 @@ class CheckpointManager:
         tree = host(state)
         for s in streams.values():
             s.synchronize()
+        if _sanitize._donation:
+            # PTA043: every leaf must own its memory — a view of a
+            # pooled buffer would change under the snapshot when the
+            # next capture reuses that buffer
+            tree = _sanitize.verify_host_tree(
+                tree, site="ckpt.save", what="checkpoint snapshot")
         _cmon.stat_add("ckpt/capture_us",
                        int((time.perf_counter() - t0) * 1e6))
         return tree, bufs
@@ -298,10 +316,12 @@ class CheckpointManager:
                 self._write_snapshot(
                     snap, lock_timeout=(self._lock_timeout_s
                                         if self.async_write else None))
-            except Exception:
+            except Exception as e:
                 # best effort like the writer path: a full disk must not
                 # crash the fit out of checkpoint-then-stop
                 _cmon.stat_add("ckpt/errors", 1)
+                _flight.record("ckpt_error",
+                               error=f"{type(e).__name__}: {e}"[:200])
             finally:
                 with self._cv:
                     self._release(snap)
@@ -336,8 +356,10 @@ class CheckpointManager:
                 self._busy = True
             try:
                 self._write_snapshot(snap)
-            except Exception:
+            except Exception as e:
                 _cmon.stat_add("ckpt/errors", 1)
+                _flight.record("ckpt_error",
+                               error=f"{type(e).__name__}: {e}"[:200])
             finally:
                 with self._cv:
                     self._release(snap)
@@ -401,23 +423,42 @@ class CheckpointManager:
             nbytes[0] = f.tell()
 
         try:
-            d = self._step_dir(g)
-            os.makedirs(d, exist_ok=True)
-            _framework._atomic_write(
-                os.path.join(d, f"state_rank{self.rank}.pd"), write)
-            if self.rank == 0:
-                # the manifest last: its presence is the published-
-                # snapshot marker
-                payload = json.dumps(snap.meta, indent=1).encode()
-                _framework._atomic_write(os.path.join(d, "manifest.json"),
-                                         lambda f: f.write(payload))
-                self._rotate()
+            with _flight.in_flight("ckpt_write", f"step_{g}"):
+                d = self._step_dir(g)
+                os.makedirs(d, exist_ok=True)
+                own = os.path.join(d, f"state_rank{self.rank}.pd")
+                # chaos site "ckpt_write": enospc/delay/stall enact
+                # inside hit(); "torn" comes back for us to enact — a
+                # PARTIAL rank file bypassing the atomic writer and no
+                # manifest, what a crash mid-write leaves (restore()
+                # skips it and falls back to the previous snapshot)
+                if _chaos._armed:
+                    act = _chaos.hit("ckpt_write", step=g)
+                    if act is not None and act.fault == "torn":
+                        buf = io.BytesIO()
+                        write(buf)
+                        payload = buf.getvalue()
+                        with open(own, "wb") as fh:
+                            fh.write(payload[:max(1, len(payload) // 2)])
+                        raise OSError(
+                            "chaos: torn checkpoint write (injected)")
+                _framework._atomic_write(own, write)
+                if self.rank == 0:
+                    # the manifest last: its presence is the published-
+                    # snapshot marker
+                    payload = json.dumps(snap.meta, indent=1).encode()
+                    _framework._atomic_write(
+                        os.path.join(d, "manifest.json"),
+                        lambda f: f.write(payload))
+                    self._rotate()
         finally:
             self._write_lock.release()
         self._durable_step = max(self._durable_step, g)
+        us = int((time.perf_counter() - t0) * 1e6)
         _cmon.stat_add("ckpt/saves", 1)
-        _cmon.stat_add("ckpt/write_us", int((time.perf_counter() - t0) * 1e6))
+        _cmon.stat_add("ckpt/write_us", us)
         _cmon.stat_add("ckpt/bytes", nbytes[0])
+        _flight.record("ckpt_save", step=g, bytes=nbytes[0], us=us)
 
     def _rotate(self):
         for g in self._snapshot_steps()[:-self.max_num]:
@@ -452,6 +493,7 @@ class CheckpointManager:
                 self.global_step = int(meta["step"])
                 self._durable_step = int(meta["step"])
                 _cmon.stat_add("ckpt/restores", 1)
+                _flight.record("ckpt_restore", step=meta["step"])
                 return state
             except _TORN:
                 continue  # torn snapshot: the one before
@@ -495,16 +537,23 @@ class CheckpointManager:
             with self._cv:
                 self._release(snap)
         _cmon.stat_add("ckpt/emergency_saves", 1)
+        _flight.record("ckpt_emergency", reason=reason,
+                       step=snap.meta["step"])
         return snap.meta["step"]
+
+    def _on_incident(self, reason):
+        self.emergency_save(reason)
 
     # -- arming -----------------------------------------------------------
     def arm(self):
-        """Preemption: a SIGTERM now ends the fit with a resumable
+        """Watchdog checkpoint-then-abort and preemption: a watchdog
+        fire (an incident hook) or a SIGTERM now produces a resumable
         snapshot."""
         self._closing.clear()
         # a preemption flag latched by a previous fit must not stop this
         # one at its first boundary
         self.preempted.clear()
+        _flight.add_incident_hook(self._on_incident)
         self.install_preemption_handler()
         return self
 
@@ -550,8 +599,16 @@ class CheckpointManager:
 
     def _on_preempt_signal(self, signum, frame):
         self.preempted.set()
+        _flight.record("preempt", signal=int(signum))
 
         def _bg():
+            # off the handler (it runs between bytecodes, possibly over a
+            # held recorder/registry lock)
+            try:
+                _flight.write_dump("preempt",
+                                   extra={"signal": int(signum)})
+            except Exception:
+                pass
             # a live fit loop saves its next boundary itself; only when
             # none lands within the grace window is the provider asked
             start = self._durable_step
@@ -571,8 +628,9 @@ class CheckpointManager:
             prev(signum, frame)
 
     def close(self, timeout=30.0):
-        """Disarm the handler and drain and join the writer (fit exit)."""
+        """Disarm the hooks and drain and join the writer (fit exit)."""
         self._closing.set()
+        _flight.remove_incident_hook(self._on_incident)
         self.uninstall_preemption_handler()
         t, self._preempt_thread = self._preempt_thread, None
         if t is not None and t.is_alive():

@@ -71,9 +71,11 @@ Lifecycle:
     elsewhere.
   * `arm_incident_export()` registers a flight incident hook
     (`monitor.flight`): on an incident the engine fences and exports
-    its live requests into `emergency_exports`. The watchdog that
-    raises incidents is not ported (ROADMAP queue 1 item 4); a direct
-    `flight._run_incident_hooks(reason)` call fires it.
+    its live requests into `emergency_exports`. A watchdog fire does
+    so only to the engine whose own prefill or decode dispatch is among
+    the stuck entries (by the thread running it), so a Router's healthy
+    replicas keep serving; the JAX hook fences every armed engine with
+    live work.
   * `load_score()` (free blocks net of queued demand) and `heartbeat`
     (stamped at every completed prefill and decode dispatch) are the
     router's routing and health signals; `state_summary()` is attached
@@ -94,10 +96,21 @@ queue_wait_us,e2e_us,accept_len}` histograms, `serve/spec/*` and
 `serve_prefill` / `serve_decode` / `serve_drain` flight spans. A
 speculative round counts as one `serve/decode_dispatches` (its verify
 dispatch; its k draft dispatches come with it).
+
+Chaos sites (JAX :696-731, 886-933, 1120-1124): `serve_decode` inside
+the decode span (a `resource_exhausted` there takes the out-of-memory
+eviction path, classified by `monitor.memory.is_oom_error`),
+`serve_spec_verify` between the draft proposals and the verify
+dispatch (`corrupt` shifts every proposal by one token id, so
+verification rejects them and each round emits one token, the
+target's own), and `serve_drain` at drain entry. The engine registers
+its `export_traces` with the debug server's /tracez.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 import time
 
 import numpy as np
@@ -107,7 +120,9 @@ from ...core import monitor as _cmon
 from ...device import resolve_device
 from ...incubate.nn.kernels.paged_attention import (MAX_QUERY_SLOTS,
                                                     paged_decode_supported)
+from ...monitor import chaos as _chaos
 from ...monitor import flight as _flight
+from ...monitor import memory as _memory
 from ...monitor import trace as _trace
 from . import model_runner as _mr
 from .kv_cache import (NULL_BLOCK, PagedKVCache, env_max_batch,
@@ -207,6 +222,12 @@ class LLMEngine:
         # the emergency drain-and-export's landing zone (incident hook)
         self.emergency_exports = None
         self._incident_armed = False
+        # the thread inside this engine's prefill / decode span, if any
+        self._dispatch_tid = None
+        # /tracez reads this engine's spool (registered weakly)
+        from ...monitor import server as _mserver
+
+        _mserver.add_trace_source(self.export_traces)
 
     def _fwd_kwargs(self):
         cfg = self.config
@@ -355,7 +376,7 @@ class LLMEngine:
             return _mr.prefill_step(params, ids_t, plen, k_pool, v_pool,
                                     table_t, *sampling, **kw)
 
-        with _flight.in_flight("serve_prefill", req.req_id, tokens=plen):
+        with self._dispatch_span("serve_prefill", req.req_id, tokens=plen):
             tok = int(run(self.params, self.cache.k, self.cache.v,
                           s.temperature, s.top_k,
                           _mr.seed_for(s.seed, plen)))  # waits
@@ -438,15 +459,19 @@ class LLMEngine:
         running = dict(self.scheduler.running)
         t0 = time.perf_counter()
         try:
-            with _flight.in_flight(
+            with self._dispatch_span(
                     "serve_decode", "spec_decode" if k > 1 else "decode",
                     batch=len(running)):
+                if _chaos._armed:
+                    _chaos.hit("serve_decode", batch=len(running))
                 if k > 1:
                     rows = self._spec_round(running, arrays)
                 else:
                     toks = self._dispatch_decode(arrays)
                     rows = {slot: [int(toks[slot])] for slot in running}
-        except torch.cuda.OutOfMemoryError:
+        except Exception as e:
+            if not _memory.is_oom_error(e):
+                raise
             self._oom_streak += 1
             if self._oom_streak > max(3, self.max_batch):
                 raise
@@ -560,6 +585,16 @@ class LLMEngine:
         position-seeded choices."""
         wide = self._to_device(self._wide_tables(arrays[2]))
         drafts = self._draft_propose(running, wide, arrays)
+        if _chaos._armed:
+            rule = _chaos.hit("serve_spec_verify", batch=len(running),
+                              k=self.spec_k)
+            if rule is not None:
+                # forced draft divergence: verification must reject
+                # every corrupted proposal and still emit the target's
+                # own token — >= 1 token a round, never a wrong one
+                vocab = self.config.vocab_size
+                drafts = {slot: [(d + 1) % vocab for d in ds]
+                          for slot, ds in drafts.items()}
         toks = self._dispatch_verify(running, drafts, wide, arrays)
         rows = {}
         for slot, req in running.items():
@@ -703,6 +738,9 @@ class LLMEngine:
         with _flight.in_flight("serve_drain", "drain",
                                running=len(self.scheduler.running),
                                waiting=len(self.scheduler.waiting)):
+            if _chaos._armed:
+                _chaos.hit("serve_drain",
+                           running=len(self.scheduler.running))
             self.scheduler.draining = True
             while self.scheduler.running and not self._fenced:
                 if deadline is not None and time.monotonic() > deadline:
@@ -743,10 +781,28 @@ class LLMEngine:
             _flight.remove_incident_hook(self._incident_export)
             self._incident_armed = False
 
+    @contextlib.contextmanager
+    def _dispatch_span(self, kind, name, **data):
+        """A dispatch's flight span, noting the thread that runs it: a
+        watchdog's stuck entry names that thread."""
+        self._dispatch_tid = threading.get_ident()
+        try:
+            with _flight.in_flight(kind, name, **data):
+                yield
+        finally:
+            self._dispatch_tid = None
+
     def _incident_export(self, reason):
         """The hook's body: an engine with live work fences and exports;
-        an idle one is untouched. No dispatch runs here."""
+        an idle one is untouched. Under a watchdog fire (`reason`
+        carries its stuck entries) only the engine whose own dispatch
+        is stuck does. No dispatch runs here."""
         if self._fenced or not self.scheduler.has_work():
+            return
+        stuck = getattr(reason, "stuck", None)
+        if stuck is not None and not any(
+                e.get("kind") in ("serve_prefill", "serve_decode")
+                and e.get("tid") == self._dispatch_tid for e in stuck):
             return
         self.emergency_exports = self.export_requests(fence=True)
         _cmon.stat_add("serve/drains", 1)

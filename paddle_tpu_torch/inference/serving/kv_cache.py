@@ -38,6 +38,14 @@ uncached remainder; the engine then prefills only the tail. Sharing is
 capped below the full context, so every write lands in a private block
 (`check_cow` enforces it). A block returns to the free list, and leaves
 the index, only when its LAST reference goes.
+
+PTA07x (block-leak) accounting, as in the JAX package (:46-49): with
+`PADDLE_SANITIZE=serving` armed, double-free / free-of-unowned trips a
+PTA071 finding at the faulting call, `audit_leaks(live_owners)`
+reports PTA070 for blocks still owned by requests the serving layer no
+longer tracks, and PTA074 flags copy-on-write violations (a shared
+block written through, or a block physically reclaimed while another
+table still maps it).
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ import torch
 
 from ...core import monitor as _cmon
 from ...device import resolve_device
+from ...monitor import sanitize as _san
 
 __all__ = ["BlockAllocator", "PagedKVCache", "NULL_BLOCK",
            "auto_num_blocks", "bytes_per_block", "prefix_hashes",
@@ -134,8 +143,10 @@ def auto_num_blocks(per_block, pool_bytes=None, fraction=0.45,
     resident), else the CPU fallback budget."""
     budget = pool_bytes if pool_bytes else env_pool_bytes()
     if not budget and device is not None and device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        budget = int(free * fraction)
+        from ...monitor import memory as _memory
+
+        budget = int(_memory.memory_stats(device)["bytes_free"]
+                     * fraction)
     if not budget:
         budget = _DEF_POOL_BYTES
     # +1: block 0 is the null block, not usable capacity
@@ -230,14 +241,32 @@ class BlockAllocator:
         digest = self._hash_of.pop(block_id, None)
         if digest is not None and self._by_hash.get(digest) == block_id:
             del self._by_hash[digest]
+        if _san._serving:
+            # defensive PTA074 half: reclaiming a block some OTHER
+            # table still maps means a refcount was lost somewhere
+            holders = [o for o, bl in self._owned.items()
+                       if block_id in bl]
+            if holders:
+                _san._emit(
+                    "PTA074",
+                    f"block {block_id} physically reclaimed while "
+                    f"still mapped by {holders!r} (refcount lost)",
+                    dedup=("PTA074", "reclaim", block_id))
         self._free.append(block_id)
         return 1
 
     def check_cow(self, block_id):
         """Copy-on-write guard: a block mapped by more than one request
-        is immutable. ValueError when it is shared."""
+        is immutable. PTA074 when the serving sanitizer is armed,
+        ValueError always."""
         rc = self._refcnt.get(block_id, 1)
         if rc > 1:
+            if _san._serving:
+                _san._emit(
+                    "PTA074",
+                    f"write to shared block {block_id} (refcount "
+                    f"{rc}) without copy-on-write",
+                    dedup=("PTA074", "cow", block_id))
             raise ValueError(
                 f"block {block_id} is shared by {rc} requests and "
                 f"immutable (copy-on-write required)")
@@ -277,9 +306,16 @@ class BlockAllocator:
 
     def free_one(self, owner, block_id):
         """Return one specific block. Freeing a block the owner doesn't
-        hold (double-free or foreign free) raises ValueError."""
+        hold (double-free or foreign free) is PTA071 when the serving
+        sanitizer is armed, ValueError always."""
         blocks = self._owned.get(owner)
         if not blocks or block_id not in blocks:
+            if _san._serving:
+                _san._emit(
+                    "PTA071",
+                    f"free of block {block_id} not owned by "
+                    f"{owner!r} (double-free or foreign free)",
+                    dedup=("PTA071", owner, block_id))
             raise ValueError(
                 f"block {block_id} is not owned by {owner!r}")
         blocks.remove(block_id)
@@ -291,10 +327,20 @@ class BlockAllocator:
 
     def audit_leaks(self, live_owners=()):
         """{owner: [blocks]} of blocks owned by request ids the serving
-        layer no longer tracks ({} when clean)."""
+        layer no longer tracks ({} when clean); with the `serving`
+        sanitize family armed each leak also emits a PTA070 finding."""
         live = set(live_owners)
-        return {o: list(b) for o, b in self._owned.items()
-                if o not in live and b}
+        leaked = {o: list(b) for o, b in self._owned.items()
+                  if o not in live and b}
+        if leaked and _san._serving:
+            for owner, blocks in sorted(leaked.items(),
+                                        key=lambda kv: str(kv[0])):
+                _san._emit(
+                    "PTA070",
+                    f"KV block leak: {len(blocks)} block(s) still "
+                    f"owned by finished/unknown request {owner!r}",
+                    dedup=("PTA070", owner))
+        return leaked
 
 
 class PagedKVCache:

@@ -49,9 +49,10 @@ wedge rather than joining it. Worker threads are daemons, and
 worker dispatches on the current stream of the engines' device; no
 worker calls `torch.cuda.set_device`.
 
-The JAX router's chaos sites (`serve_route`, `serve_drain`) and its
-debug server are not ported (ROADMAP queue 1 item 4); tests inject
-faults from outside, by wrapping a replica engine's methods.
+Monitor hooks (JAX :167, 266-267, 597-598): the constructor calls
+`server.maybe_auto_serve` (PADDLE_MONITOR_SERVE), `_pick_replica` hits
+the `serve_route` chaos site before touching any replica, and `drain`
+the `serve_drain` site inside its flight span.
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ import threading
 import time
 
 from ...core import monitor as _cmon
+from ...monitor import chaos as _chaos
 from ...monitor import flight as _flight
 from ...monitor import trace as _trace
 from .engine import EngineTimeout, LLMEngine
@@ -140,6 +142,9 @@ class Router:
             env_heartbeat_s() if heartbeat_timeout_s is None
             else float(heartbeat_timeout_s))
         self._poll_s = float(poll_s)
+        from ...monitor import server as _mserver
+
+        _mserver.maybe_auto_serve("serving.Router")
         self._lock = threading.RLock()
         self._records = {}         # req_id -> _Record
         self._stop = False
@@ -248,6 +253,8 @@ class Router:
             raise RuntimeError(
                 "no healthy serving replicas "
                 f"({len(self._replicas)} configured, all dead)")
+        if _chaos._armed:
+            _chaos.hit("serve_route", candidates=len(cands))
         return max(cands, key=lambda r: (r.load_score(), -r.idx))
 
     def submit(self, prompt_ids, sampling=None, on_token=None,
@@ -574,6 +581,8 @@ class Router:
         re-opens admission."""
         with _flight.in_flight("serve_drain", "router",
                                replicas=len(self._live())):
+            if _chaos._armed:
+                _chaos.hit("serve_drain", scope="router")
             with self._lock:
                 self._draining = True
                 live = self._live()

@@ -52,6 +52,7 @@ import time
 from collections import deque
 
 from ...core import monitor as _cmon
+from ...monitor import chaos as _chaos
 from ...monitor import flight as _flight
 from ...monitor import trace as _trace
 
@@ -371,6 +372,10 @@ class Scheduler:
                     need_tokens, lookahead_blocks=self._lookahead,
                     cached_blocks=cached_blocks):
                 break
+            if _chaos._armed:
+                # slow-client / admission faults land here, BEFORE the
+                # request takes any pool resources
+                _chaos.hit("serve_admit", req=req.req_id)
             self.waiting.popleft()
             nblocks = self.cache.blocks_for_tokens(need_tokens)
             cached = self.cache.admit(req.req_id, ctx_ids)

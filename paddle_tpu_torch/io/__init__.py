@@ -23,16 +23,26 @@ torch tensors and moved to `device` (None: the card). The JAX
 package's worker pool (`io/worker.py`, its shared-memory rings), its
 threaded and device prefetchers and the bad-sample policy are not
 ported: `num_workers > 0` raises NotImplementedError.
+
+Telemetry (JAX :689-726): each map-style fetch passes the `io_fetch`
+chaos site once per sample, and each batch counts `io/batches`,
+`io/fetch_us` and the `io/hist/fetch_us` histogram and records an
+`io_fetch` flight event (the per-sample batch_size=None path keeps the
+chaos site only).
 """
 from __future__ import annotations
 
 import itertools
 import math
+import time
 
 import numpy as np
 import torch
 
+from ..core import monitor as _monitor
 from ..device import resolve_device
+from ..monitor import chaos as _chaos
+from ..monitor import flight as _flight
 
 __all__ = [
     "Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
@@ -467,8 +477,24 @@ class DataLoader:
                 yield _to_device(self._collate(batch), dev)
         elif self.batch_sampler is None:
             for i in range(len(self.dataset)):
-                yield _to_device(self._collate([self.dataset[i]]), dev)
+                yield _to_device(self._collate(self._fetch([i])), dev)
         else:
             for indices in self.batch_sampler:
-                yield _to_device(
-                    self._collate([self.dataset[i] for i in indices]), dev)
+                t0 = time.perf_counter()
+                batch = _to_device(self._collate(self._fetch(indices)), dev)
+                us = int((time.perf_counter() - t0) * 1e6)
+                _monitor.stat_add("io/batches", 1)
+                _monitor.stat_add("io/fetch_us", us)
+                _monitor.hist_observe("io/hist/fetch_us", us)
+                _flight.record("io_fetch", n=len(indices), us=us)
+                yield batch
+
+    def _fetch(self, indices):
+        """The samples at `indices`, each through the `io_fetch` chaos
+        site (the in-process loader: worker None)."""
+        out = []
+        for i in indices:
+            if _chaos._armed:
+                _chaos.hit("io_fetch", worker=None)
+            out.append(self.dataset[i])
+        return out

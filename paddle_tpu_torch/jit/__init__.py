@@ -54,18 +54,72 @@ step's error-feedback residual); the optimizer's slots live in the
 optimizer, so `restore_state` writes them into its `_accumulators` and
 `adopt_state_from` shares them. Slots and buffers are keyed by the
 model's structured parameter names, which survive a relaunch.
+
+Monitor hooks, at the JAX package's places (:1120-1300, 1495-1525):
+
+- the `dispatch` chaos site at the top of each call (`monitor.chaos`);
+- the memory ledger at the first call: its peak-memory delta on the
+  card (`monitor.memory.first_call_footprint`, gauges
+  `mem/program/<name>/*`), which `cache_report()` carries into dump
+  bundles. `<name>` is `train_step:<model class>[@k<K>]`. The train
+  step records no cost (`perf/program/<name>/*`): the JAX package
+  reads XLA's `cost_analysis()`, and counting the port's aten ops
+  takes a dispatch mode, which imports `torch._dynamo` (seconds, once
+  a process) and would still miss the ctypes kernel launches;
+- `observe_dispatch` of every later call into
+  `jit/hist/<name>/dispatch_us` with a `dispatch_end` flight event,
+  blocked on the call's work (a device synchronisation) under
+  PADDLE_PERF_DISPATCH, on by default as in the JAX package;
+- the `nonfinite_skip` flight event beside `train/nonfinite_skips`;
+- the PTA093 audit and, under PADDLE_SANITIZE=numerics (armed at the
+  first call), the numerics probe: each microstep's loss, gradients
+  (after unscaling and the data-parallel reduction) and pre-update
+  parameters go through `monitor.numerics.stats_tree`, and the call's
+  stats through `numerics.observe`. Disarmed, nothing of it runs.
 """
 from __future__ import annotations
 
 import contextlib
+import time
+import weakref
 
 import numpy as np
 import torch
 
 from .. import amp as _amp
 from ..core import monitor as _monitor
+from ..monitor import chaos as _chaos
+from ..monitor import flight as _flight
+from ..monitor import memory as _memory
+from ..monitor import perf as _perf
+from ..monitor import sanitize as _sanitize
 
-__all__ = ["TrainStepCompiler"]
+__all__ = ["TrainStepCompiler", "cache_report"]
+
+# every live train step, for cache_report()
+_live_compiled = weakref.WeakSet()
+
+
+def cache_report():
+    """The program ledger of every live train step — what flight dump
+    bundles embed as `jit_caches` (the JAX package's keys): kind, fn,
+    entries (1 once its first call ran), steps, steps_per_dispatch,
+    memory (the first-call footprint) and cost (None: the train step
+    records none)."""
+    out = []
+    for obj in list(_live_compiled):
+        try:
+            out.append({"kind": "train_step",
+                        "fn": type(obj._model).__name__,
+                        "entries": int(obj._calls > 0),
+                        "steps": obj._step,
+                        "steps_per_dispatch": obj._steps_per_dispatch,
+                        "memory": obj._mem_analysis,
+                        "cost": None})
+        except Exception:
+            pass  # a half-torn-down object must not break a dump
+    out.sort(key=lambda d: (d["kind"], d["fn"]))
+    return out
 
 
 class TrainStepCompiler:
@@ -102,6 +156,18 @@ class TrainStepCompiler:
         self._accum = {}     # param name -> f32 gradient-merge buffer
         self._step = 0       # microsteps run
         self._comm_state = {}  # a data-parallel step's residual
+        # monitor: the ledgers' program name (the dispatch width keeps a
+        # fused step and its K=1 tail apart), calls run, the first
+        # call's footprint, the numerics probe (armed at the
+        # first call) and its per-microstep stats
+        self._perf_name = f"train_step:{type(model).__name__}"
+        if self._steps_per_dispatch != 1:
+            self._perf_name += f"@k{self._steps_per_dispatch}"
+        self._calls = 0
+        self._mem_analysis = None
+        self._numerics_built = False
+        self._nstats = []
+        _live_compiled.add(self)
 
     def _device(self):
         return next(self._model.parameters()).device
@@ -120,9 +186,13 @@ class TrainStepCompiler:
             return self._model(*batch)
 
     def __call__(self, *batch):
+        k = self._steps_per_dispatch
+        # chaos site "dispatch": a synthetic out-of-memory here drives
+        # the real OOM-forensics path
+        if _chaos._armed:
+            _chaos.hit("dispatch", steps=k)
         dev = self._device()
         batch = [torch.as_tensor(b, device=dev) for b in batch]
-        k = self._steps_per_dispatch
         if k > 1:
             bad = [tuple(b.shape) for b in batch if b.dim() < 1
                    or b.shape[0] != k]
@@ -130,16 +200,33 @@ class TrainStepCompiler:
                 raise ValueError(f"steps_per_dispatch={k}: every batch "
                                  f"element needs a leading axis of {k}, "
                                  f"got {bad}")
+        fresh = self._calls == 0
+        if fresh:
+            self._first_call_setup()
         # host scalars, sampled once per call
         lr = np.float32(self._opt.get_lr())
         scale = np.float32(self._grad_scaler._scale
                            if self._grad_scaler is not None else 1.0)
-        losses, skips = [], []
-        for i in range(k):
-            micro = [b[i] for b in batch] if k > 1 else batch
-            loss, skipped = self._one_step(micro, lr, scale, self._step + i)
-            losses.append(loss)
-            skips.append(skipped)
+        # the first call runs the memory ledger; later ones are timed
+        # (blocked on their work) when dispatch timing is on
+        t_d0 = (time.perf_counter()
+                if not fresh and _perf.dispatch_timing_enabled() else None)
+        with self._ledgers(dev) if fresh else contextlib.nullcontext():
+            losses, skips = [], []
+            for i in range(k):
+                micro = [b[i] for b in batch] if k > 1 else batch
+                loss, skipped = self._one_step(micro, lr, scale,
+                                               self._step + i)
+                losses.append(loss)
+                skips.append(skipped)
+        if t_d0 is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dus = int((time.perf_counter() - t_d0) * 1e6)
+            _perf.observe_dispatch(self._perf_name, dus)
+            _flight.record("dispatch_end", name=self._perf_name,
+                           dur_us=dus)
+        self._calls += 1
         prev = self._step
         self._step += k
         # optimizer steps: the merge boundaries these microsteps crossed
@@ -147,14 +234,56 @@ class TrainStepCompiler:
         self._opt._step_count += self._step // a - prev // a
         _monitor.stat_add("jit/dispatches", 1)
         _monitor.stat_add("jit/steps", k)
+        if k > 1:
+            _monitor.stat_set("jit/steps_per_dispatch", k)
+            _flight.record("jit_dispatch", steps=k)
         if self._guard_nonfinite:
             self.last_skips = n = sum(skips)
             if n:
                 _monitor.stat_add("train/nonfinite_skips", n)
+                _flight.record("nonfinite_skip", steps=n,
+                               dispatch_steps=k)
             if self._grad_scaler is not None:
                 for s in skips:
                     self._grad_scaler._record_step(s)
+        if self._numerics_built:
+            self._observe_numerics(prev)
         return losses[0] if k == 1 else torch.stack(losses)
+
+    def _first_call_setup(self):
+        """The JAX step's build-time work: the PTA093 audit (raises under
+        PADDLE_SANITIZE=numerics, reports under PADDLE_ANALYSIS=1) and
+        arming the numerics probe."""
+        from ..analysis.precision import audit_train_precision
+
+        audit_train_precision(
+            {n: str(p.dtype).replace("torch.", "")
+             for n, p in self._model.named_parameters() if p.requires_grad},
+            self._grad_scaler, getattr(self._opt, "_multi_precision", False),
+            where=f"train_step:{type(self._model).__name__}")
+        self._numerics_built = _sanitize._numerics
+
+    @contextlib.contextmanager
+    def _ledgers(self, dev):
+        """The first call's footprint, recorded after it (never raises
+        for the ledger's sake)."""
+        with _memory.first_call_footprint(dev) as mem:
+            yield
+        try:
+            self._mem_analysis = _memory.record_program_memory(
+                self._perf_name, footprint=mem)
+        except Exception:
+            pass
+
+    def _observe_numerics(self, step):
+        """The probe's host leg over this call's microsteps: one (K, 3)
+        stack per tensor into numerics.observe (its sample=N cadence
+        decides whether the host reads them)."""
+        from ..monitor import numerics as _numerics
+
+        rows, self._nstats = self._nstats, []
+        stats = {n: torch.stack([r[n] for r in rows]) for n in rows[0]}
+        _numerics.observe(stats, where=self._perf_name, step=step)
 
     def _one_step(self, batch, lr, scale, microstep):
         """One microstep; returns (its loss, detached f32; whether the
@@ -181,6 +310,8 @@ class TrainStepCompiler:
                 for _, p in named:
                     p.grad = (p.grad.float() * inv).to(p.grad.dtype)
             loss, named = self._reduce_grads(loss, named)
+            if self._numerics_built:
+                self._probe(loss, named)
             ok = True
             if self._guard_nonfinite:
                 finite = [torch.isfinite(loss)] + [
@@ -214,6 +345,17 @@ class TrainStepCompiler:
                         acc.zero_()
                     opt._apply(float(lr))
         return loss.detach(), int(not ok)
+
+    def _probe(self, loss, named):
+        """One microstep's numerics stats: loss, gradients and the
+        pre-update parameters, by structured name."""
+        from ..monitor import numerics as _numerics
+
+        to_s, _ = self._structured()
+        self._nstats.append(_numerics.stats_tree(
+            {"loss": loss,
+             "grad": {to_s.get(n, n): p.grad for n, p in named},
+             "param": {to_s.get(n, n): p for n, p in named}}))
 
     def _forward_backward(self, batch, scale):
         """The microstep's forward loss (f32) and its backward, on loss
