@@ -14,7 +14,8 @@ and the decode-step, speculative-round and training-step profiles
 (`measure`;
 `--kernels`: the kernel times alone), with `paddle_tpu_torch` imported
 from DIR when given: a comparison of
-two source trees runs it on each in turns in one call. `--bert-grads`
+two source trees runs it on each in turns in one call.
+`--bert-grads`
 runs phases 1-2 and then `bert_grads_rows`: where BERT-base's bf16
 gradient rows disagree, kernel path, plain path and f32, on two seeds,
 with other labels, the decoder untied and after training. Phases, each
@@ -358,6 +359,39 @@ printing one line (or a few):
               phase 9's steps under PADDLE_SANITIZE=numerics:sample=1:
               each probed absmax equals a recomputation on the card and
               the losses equal the disarmed run's, bit for bit
+ 28. pipeline (runs right after phase 21, before any background thread
+              of phase 27 exists to be forked) bench_resnet50_pipeline's
+              on-chip config, not cut: phase 21's ResNet-50 recipe fed by
+              DataLoader(num_workers=-1, persistent_workers=True,
+              prefetch_to_device=2) over forked workers and 128 MiB
+              shared-memory ring slots (FLAGS_dataloader_shm_slot_mb),
+              bench's synthetic ImageNet (3x224x224 f32, one
+              preallocated image), cast to bf16 on the card in phase
+              21's kept cuDNN and layout setting. Every rate is read in
+              steady state, after workers x 2 + 5 batches (each ring
+              slot used once): (a) the rings' rate of slot views
+              (MultiprocessLoader.run_epoch, one element touched) and
+              (b) of user-owned batches (a CPU DataLoader), 40 batches
+              each; (c) end to end, phase 21's 3 windows of 20 steps:
+              imgs/s and MFU beside phase 21's, exactly one
+              fused_momentum launch a step, the loss falls, io/h2d_us a
+              batch and io/device_prefetch/stalls of the windows, host
+              CPUs, workers and /dev/shm; (d) the same loader with the
+              loop only taking batches (the feed's rate and io/h2d_us
+              with the GIL to the feeder thread); the device's idle
+              share of a profiled window of 5 steps; then the gates:
+              six batches of a dataset whose
+              image i is base + i x 1e-3, trained from a fresh seed-0
+              model through the loader (5 workers, so worker 0 is fed
+              two of the six) and in process (num_workers=0, no
+              prefetch), cuDNN deterministic: every loss and every
+              weight and buffer after the last step bit for bit; again
+              under io_fetch:crash:after=200:times=1, armed in each
+              worker as PADDLE_CHAOS would arm it (worker 0 dies in its
+              second batch; the trainer arms nothing): exactly one
+              io_worker_restart, the same bits; no thread fallback
+              (its RuntimeWarning fails the phase) and every io_fetch
+              event of the worker pipelines carries transport="shm"
 
 Then one JSON line with every kernel's launches (the optimizer kernels'
 from phase 12, the other training kernels' from phase 9, the multi-query
@@ -4838,7 +4872,8 @@ def phase_resnet(dev, smi):
     faster one reported, the global setting restored), 3 windows of
     synchronised steps: the loss falls, exactly one fused_momentum
     launch a step, the running statistics finite and moved; imgs/s,
-    MFU, peak memory and a profiled step split."""
+    MFU, peak memory and a profiled step split. Returns (imgs/s, the
+    kept setting as (cudnn.benchmark, channels_last))."""
     from paddle_tpu_torch import amp, nn
     from paddle_tpu_torch.jit import TrainStepCompiler
     from paddle_tpu_torch.optimizer import Momentum
@@ -4957,6 +4992,421 @@ def phase_resnet(dev, smi):
     finally:
         torch.backends.cudnn.benchmark = bench0
     del model, opt, step, x, xin
+    return RESNET_BATCH / dt, best
+
+
+# -- phase 28 ------------------------------------------------------------
+# bench_resnet50_pipeline's on-chip config (bench.py:319-470, on_tpu true),
+# not cut: phase 21's recipe fed by the worker pool, bench's
+# _SynthImageNet, FLAGS_dataloader_shm_slot_mb=128, num_workers=-1,
+# persistent workers, prefetch_to_device=2, and phase 21's kept cuDNN and
+# input-layout setting. Every rate is read in steady state: a loader first
+# serves more batches than its rings hold slots (workers x PIPE_SLOTS, so
+# each slot has been written and read once in both processes) plus phase
+# 21's 5 warm-up batches; then the rings' rates over 40 batches, and end
+# to end phase 21's 3 windows of 20 steps, the dataset sized to serve
+# all of (c) and (d) in one epoch.
+PIPE_SLOTS = 2                # a ring's slots (prefetch_factor 2)
+PIPE_LOADER_BATCHES = 40
+PIPE_FEED_BATCHES = 20
+PIPE_PROFILE_STEPS = 5
+PIPE_SLOT_MB = 128
+# the gates: 6 batches through 5 workers, so worker 0 alone is fed two
+# (batches 0 and 5) and the crash rule, counted per forked worker, fires
+# in its second batch only; the restarted worker is re-fed batch 5 alone
+# (128 fetches, under `after`). Decode overlap is off in the crash run,
+# so batch 0 is in worker 0's ring before batch 5's fetches start: a
+# crash before that commit would re-feed batch 0 too and trip again.
+PIPE_GATE_BATCHES = 6
+PIPE_GATE_WORKERS = 5
+PIPE_CHAOS = "io_fetch:crash:after=200:times=1"
+PIPE_FALLBACK = "multiprocess DataLoader unavailable"
+
+
+class _SynthImageNet:
+    """bench.py's pipeline dataset (:300-316): one preallocated image
+    from RandomState(0), so a sample costs an index and the measured
+    cost is collation, ring transport and the copy to the card."""
+
+    def __init__(self, n, size):
+        rng = np.random.RandomState(0)
+        self.n = n
+        self.base = rng.randn(3, size, size).astype(np.float32)
+        self.labels = rng.randint(0, 1000, (n,)).astype(np.int64)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.base, self.labels[i]
+
+
+class _IndexedImages(_SynthImageNet):
+    """The gates' dataset: image i is base + i x 1e-3, so a batch out of
+    order, or read after its ring slot was reused, changes the loss."""
+
+    def __getitem__(self, i):
+        return self.base + np.float32(i * 1e-3), self.labels[i]
+
+
+def _np_collate_pair(b):
+    xs, ys = zip(*b)
+    return np.stack(xs), np.stack(ys)
+
+
+def _pipe_model(dev):
+    """Phase 21's model from seed 0 and its step."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.jit import TrainStepCompiler
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = amp.decorate(resnet50(device=dev, generator=gen), level="O2",
+                         dtype="bfloat16")
+    ce = nn.CrossEntropyLoss()
+    opt = Momentum(learning_rate=0.01, momentum=0.9,
+                   parameters=list(model.named_parameters()),
+                   multi_precision=True)
+    return model, TrainStepCompiler(model, opt, lambda o, t: ce(o, t))
+
+
+def _pipe_decreasing(first, last):
+    """bench's _check_decreasing (bench.py:107-111)."""
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"pipeline: loss did not decrease "
+                             f"({first:.4f} -> {last:.4f})")
+
+
+def _pipe_events(t0, kind):
+    from paddle_tpu_torch.monitor import flight
+
+    return [e for e in flight.tail() if e.get("kind") == kind
+            and e.get("ts", 0.0) >= t0]
+
+
+def _pipe_shm_only(tag, t0):
+    """Every io_fetch event since t0 came through the rings."""
+    ev = _pipe_events(t0, "io_fetch")
+    bad = [e for e in ev if e.get("transport") != "shm"]
+    if not ev or bad:
+        raise AssertionError(f"pipeline {tag}: {len(ev)} io_fetch events, "
+                             f"{len(bad)} not transport='shm'")
+
+
+def _pipe_close(loader):
+    if loader._mp_loader is not None:
+        loader._mp_loader.shutdown()
+
+
+def _pipe_arm_chaos(worker_id):
+    """worker_init_fn of the crash run: each worker arms PIPE_CHAOS for
+    itself, as PADDLE_CHAOS arms every process of a job at import. A
+    rule counts its own process's fetches either way; arming it here
+    keeps the trainer's registry free of chaos/* counters, which phase
+    27 (b) holds to none."""
+    from paddle_tpu_torch.monitor import chaos
+
+    chaos.configure(PIPE_CHAOS)
+
+
+def _pipe_gate_run(dev, ds, workers, batch, init=None):
+    """(losses, state tensors) of a fresh seed-0 model trained on every
+    batch of `ds`, fed in process (workers 0) or by the worker pool with
+    the device-feed stage (`init`: its worker_init_fn)."""
+    from paddle_tpu_torch.io import DataLoader
+
+    kw = (dict(num_workers=0, prefetch_to_device=0) if workers == 0 else
+          dict(num_workers=workers, persistent_workers=True,
+               prefetch_to_device=2, worker_init_fn=init))
+    loader = DataLoader(ds, batch_size=batch, drop_last=True, device=dev,
+                        **kw)
+    model, step = _pipe_model(dev)
+    losses = []
+    try:
+        for x, y in loader:
+            losses.append(float(step(x.to(torch.bfloat16), y).item()))
+    finally:
+        _pipe_close(loader)
+    state = [t.detach().clone() for t in model.state_dict().values()]
+    del model, step
+    return losses, state
+
+
+def _pipe_same(tag, got, want):
+    (gl, gs), (wl, ws) = got, want
+    if gl != wl or len(gl) != PIPE_GATE_BATCHES:
+        raise AssertionError(f"pipeline {tag}: losses {gl} != in-process "
+                             f"{wl}")
+    diff = sum(not torch.equal(a, b) for a, b in zip(gs, ws))
+    if diff or len(gs) != len(ws):
+        raise AssertionError(f"pipeline {tag}: {diff} of {len(ws)} state "
+                             "tensors differ from the in-process run's")
+
+
+def _pipe_workers(smi):
+    """(workers, slot MiB) of phase 28's pools: num_workers=-1's count,
+    capped (and said so) where its rings do not fit /dev/shm's free
+    bytes; fails when the gates' 5 rings do not fit."""
+    from paddle_tpu_torch.io import _auto_num_workers
+    from paddle_tpu_torch.io import worker as io_worker
+
+    os.environ.setdefault("FLAGS_dataloader_shm_slot_mb", str(PIPE_SLOT_MB))
+    slot_mb = int(os.environ["FLAGS_dataloader_shm_slot_mb"])
+    st = os.statvfs("/dev/shm")
+    shm_total, shm_free = st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+    ring = io_worker.ring_bytes(PIPE_SLOTS, slot_mb << 20)
+    auto = _auto_num_workers()
+    fit = shm_free // ring
+    if fit < PIPE_GATE_WORKERS:
+        raise AssertionError(
+            f"pipeline: /dev/shm has {shm_free} bytes free of {shm_total}; "
+            f"{PIPE_GATE_WORKERS} rings of {ring} bytes do not fit")
+    capped = ""
+    if fit < auto:
+        os.environ["PADDLE_IO_WORKERS"] = str(fit)
+        capped = (f" (PADDLE_IO_WORKERS capped from {auto} to {fit}: "
+                  f"{auto} rings of {ring} bytes exceed /dev/shm's free "
+                  f"{shm_free})")
+    workers = _auto_num_workers()
+    log("pipeline", f"[{smi}] host CPUs {os.cpu_count()}, workers {workers}"
+        f"{capped}; /dev/shm {shm_total} bytes, {shm_free} free; slots "
+        f"{slot_mb} MiB, ring {ring} bytes a worker, {workers * ring} in all")
+    return workers, slot_mb
+
+
+def _pipe_warm(workers):
+    """Batches a pool serves before a timed one: every slot of every
+    ring once, then phase 21's warm-up."""
+    return workers * PIPE_SLOTS + RESNET_WARMUP
+
+
+def _pipe_loader_rates(smi, workers, slot_mb):
+    """(a) the rings' rate of slot views (MultiprocessLoader.run_epoch,
+    one element touched) and (b) of user-owned batches (a CPU
+    DataLoader), each over PIPE_LOADER_BATCHES after the warm-up."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.io import worker as io_worker
+
+    batch, warm = RESNET_BATCH, _pipe_warm(workers)
+    n = warm + PIPE_LOADER_BATCHES
+    ds = _SynthImageNet(n * batch, RESNET_SIZE)
+    mpl = io_worker.MultiprocessLoader(
+        ds, _np_collate_pair, workers, PIPE_SLOTS, slot_mb, None, 0, False,
+        batch_size=batch, default_collate=True)
+    try:
+        gen = mpl.run_epoch([list(range(i * batch, (i + 1) * batch))
+                             for i in range(n)])
+        for _ in range(warm):
+            next(gen)
+        t0 = time.perf_counter()
+        for xb, _ in gen:
+            _ = xb[0, 0, 0, 0]   # touch: the view holds real data
+        view_dt = (time.perf_counter() - t0) / PIPE_LOADER_BATCHES
+    finally:
+        mpl.shutdown()
+    t_b = time.time()
+    it = iter(DataLoader(ds, batch_size=batch, num_workers=-1,
+                         use_shared_memory=True, drop_last=True,
+                         collate_fn=_np_collate_pair, device="cpu"))
+    for _ in range(warm):
+        next(it)
+    t0 = time.perf_counter()
+    for _ in it:
+        pass
+    own_dt = (time.perf_counter() - t0) / PIPE_LOADER_BATCHES
+    _pipe_shm_only("(b)", t_b)
+    log("pipeline", f"[{smi}] (a) loader_view_imgs_s {batch / view_dt:.1f} "
+        f"({view_dt * 1e3:.3f} ms a batch of slot views, {workers} workers, "
+        f"{PIPE_LOADER_BATCHES} batches after {warm}); (b) loader_imgs_s "
+        f"{batch / own_dt:.1f} ({own_dt * 1e3:.3f} ms a user-owned batch, "
+        f"{PIPE_LOADER_BATCHES} after {warm})")
+
+
+def _pipe_train(dev, smi, workers, setting, resnet_imgs_s):
+    """(c) phase 21's model and step fed by the pipeline, in phase 21's
+    `setting` (cudnn.benchmark, channels_last): exactly one
+    fused_momentum launch a step and a falling loss; imgs/s and MFU
+    beside phase 21's, io/h2d_us a batch and the stalls of the timed
+    windows; (d) the feed alone; the device's idle share of a profiled
+    window. Returns the end-to-end imgs/s."""
+    from paddle_tpu_torch.core import monitor as cmon
+    from paddle_tpu_torch.incubate.nn import kernels
+    from paddle_tpu_torch.io import DataLoader
+
+    batch, size, warm = RESNET_BATCH, RESNET_SIZE, _pipe_warm(workers)
+    n_steps = warm + RESNET_WINDOWS * RESNET_STEPS
+    ds = _SynthImageNet((n_steps + PIPE_FEED_BATCHES + 2
+                         + 2 * PIPE_PROFILE_STEPS) * batch, size)
+    fmt = torch.channels_last if setting[1] else torch.contiguous_format
+    name = (f"cudnn.benchmark={setting[0]}, input "
+            f"{'channels_last' if setting[1] else 'NCHW-contiguous'}")
+    per_batch = batch * (3 * size * size * 4 + 8)
+    keys = ("io/h2d_us", "io/device_prefetch/stalls",
+            "io/device_prefetch/bytes")
+    bench0 = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = setting[0]
+    t_c = time.time()
+    loader = DataLoader(ds, batch_size=batch, num_workers=-1,
+                        use_shared_memory=True, drop_last=True,
+                        persistent_workers=True, prefetch_to_device=2,
+                        device=dev)
+    model, step = _pipe_model(dev)
+    it = iter(loader)
+
+    def next_batch():
+        nonlocal it
+        try:
+            return next(it)
+        except StopIteration:
+            it = iter(loader)
+            return next(it)
+
+    def next_step():
+        x, y = next_batch()
+        return step(x.to(torch.bfloat16, memory_format=fmt), y)
+
+    try:
+        kernels.reset_launches()
+        first = float(next_step().item())
+        for _ in range(warm - 1):
+            next_step()
+        c0 = {k: cmon.stat_get(k) for k in keys}
+        dts, losses = _timed_windows(next_step, (), RESNET_WINDOWS,
+                                     RESNET_STEPS)
+        c1 = {k: cmon.stat_get(k) for k in keys}
+        counts = _launch_counts()
+        _only_launches("pipeline", counts, {"fused_momentum": n_steps})
+        _pipe_decreasing(first, losses[-1])
+        # (d) the feed alone: the loop only takes batches, so the feeder
+        # thread has the GIL to itself
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PIPE_FEED_BATCHES):
+            next_batch()
+        torch.cuda.synchronize()
+        feed_dt = (time.perf_counter() - t0) / PIPE_FEED_BATCHES
+        c2 = {k: cmon.stat_get(k) for k in keys}
+        wall, busy, count, top, _ = profile_ms(next_step,
+                                               reps=PIPE_PROFILE_STEPS)
+    finally:
+        _pipe_close(loader)
+        torch.backends.cudnn.benchmark = bench0
+    _pipe_shm_only("(c)", t_c)
+    del model, step
+    torch.cuda.empty_cache()
+    d = {k: c1[k] - c0[k] for k in keys}
+    placed = d["io/device_prefetch/bytes"] / per_batch
+    feed_placed = (c2["io/device_prefetch/bytes"] - c1[
+        "io/device_prefetch/bytes"]) / per_batch
+    feed_h2d = (c2["io/h2d_us"] - c1["io/h2d_us"]) / max(1, feed_placed)
+    dt = float(np.median(dts))
+    mfu = RESNET_FLOP * batch / dt / PEAK_BF16_FLOPS
+    log("pipeline", f"[{smi}] (c) ResNet-50 bf16 O2 fed by "
+        f"DataLoader(num_workers=-1 = {workers}, persistent, "
+        f"prefetch_to_device=2), B={batch} x 3x{size}x{size} f32 cast to "
+        f"bf16 on the card, {name}: loss {first:.4f} -> " + " -> ".join(
+            f"{v:.4f}" for v in losses) + f"; after {warm} warm-up steps "
+        f"({workers} x {PIPE_SLOTS} slots + {RESNET_WARMUP}): step "
+        f"{dt * 1e3:.3f} ms (median of {RESNET_WINDOWS} windows of "
+        f"{RESNET_STEPS}: " + ", ".join(f"{v * 1e3:.3f}" for v in dts)
+        + f") = {batch / dt:.1f} imgs/s end to end, MFU {100 * mfu:.2f}% "
+        f"(3 x 4.09 GFLOP an image over 989 TFLOP/s); phase 21 fed from the "
+        f"card: {resnet_imgs_s:.1f} imgs/s "
+        f"({100 * batch / dt / resnet_imgs_s:.1f}%); fused_momentum "
+        f"{counts['fused_momentum']} launches = 1 x {n_steps}; in the timed "
+        f"windows io/h2d_us {d['io/h2d_us'] / max(placed, 1):.1f} a batch "
+        f"(pinned copy + issue, {placed:.0f} batches placed), "
+        f"io/device_prefetch/stalls {d['io/device_prefetch/stalls']} in "
+        f"{RESNET_WINDOWS * RESNET_STEPS} steps")
+    log("pipeline", f"[{smi}] (d) the feed alone (the loop only takes "
+        f"batches, {PIPE_FEED_BATCHES} after (c)): {feed_dt * 1e3:.3f} ms a "
+        f"batch = {batch / feed_dt:.1f} imgs/s, io/h2d_us {feed_h2d:.1f} a "
+        "batch")
+    if busy is None:
+        log("pipeline", f"[{smi}] profiled window: wall {wall:.3f} ms a "
+            "step; device time not measured (the profiler saw no device "
+            "activity)")
+    else:
+        log("pipeline", f"[{smi}] profiled window ({PIPE_PROFILE_STEPS} "
+            f"pipeline-fed steps after (d)): wall {wall:.3f} ms a step, "
+            f"device busy {busy:.3f} ms (kernels and copies, summed over "
+            f"streams), idle share {max(0.0, 1 - busy / wall):.3f}; "
+            f"{count:.0f} device events a step; top: " + "; ".join(
+                f"{n} x{c:.0f} {t:.3f} ms" for n, c, t in top))
+    return batch / dt
+
+
+def _pipe_gates(dev, smi):
+    """The gates: 6 indexed batches from a fresh seed-0 model, cuDNN
+    deterministic, through 5 workers and the device feed, bit for bit
+    the in-process feed; again with PIPE_CHAOS armed in each worker:
+    exactly one io_worker_restart, the same bits; every io_fetch event
+    transport="shm"."""
+    from paddle_tpu_torch.core import monitor as cmon
+
+    batch = RESNET_BATCH
+    bench0 = torch.backends.cudnn.benchmark
+    det0 = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        gds = _IndexedImages(PIPE_GATE_BATCHES * batch, RESNET_SIZE)
+        want = _pipe_gate_run(dev, gds, 0, batch)
+        t_g = time.time()
+        got = _pipe_gate_run(dev, gds, PIPE_GATE_WORKERS, batch)
+        _pipe_same("workers", got, want)
+        _pipe_shm_only("gate", t_g)
+        r0 = cmon.stat_get("io/workers/restarts")
+        overlap0 = os.environ.get("PADDLE_IO_OVERLAP_DECODE")
+        os.environ["PADDLE_IO_OVERLAP_DECODE"] = "0"
+        t_x = time.time()
+        try:
+            crashed = _pipe_gate_run(dev, gds, PIPE_GATE_WORKERS, batch,
+                                     init=_pipe_arm_chaos)
+        finally:
+            if overlap0 is None:
+                os.environ.pop("PADDLE_IO_OVERLAP_DECODE", None)
+            else:
+                os.environ["PADDLE_IO_OVERLAP_DECODE"] = overlap0
+        restarts = _pipe_events(t_x, "io_worker_restart")
+        if len(restarts) != 1 or \
+                cmon.stat_get("io/workers/restarts") - r0 != 1:
+            raise AssertionError(f"pipeline chaos: {len(restarts)} "
+                                 "io_worker_restart events, expected 1: "
+                                 f"{restarts}")
+        _pipe_same("chaos", crashed, want)
+        _pipe_shm_only("chaos", t_x)
+    finally:
+        torch.backends.cudnn.benchmark = bench0
+        torch.backends.cudnn.deterministic = det0
+    log("pipeline", f"[{smi}] gates: {PIPE_GATE_BATCHES} batches of "
+        f"image i = base + i x 1e-3 from a fresh seed-0 model, cuDNN "
+        f"deterministic: {PIPE_GATE_WORKERS} workers + device feed "
+        "bit-identical to the in-process feed (losses " + ", ".join(
+            f"{v:.6f}" for v in want[0]) + f"; {len(want[1])} state "
+        f"tensors); under {PIPE_CHAOS} (armed in each worker): 1 "
+        f"io_worker_restart (worker {restarts[0].get('worker')}, "
+        f"{restarts[0].get('why')}, {restarts[0].get('refed')} batches "
+        "re-fed), bit-identical again; every io_fetch event of the worker "
+        "pipelines transport='shm'")
+
+
+def phase_pipeline(dev, smi, resnet_imgs_s, setting):
+    """Phase 28 (see above). `resnet_imgs_s`, `setting`: phase 21's
+    imgs/s and kept (cudnn.benchmark, channels_last)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        workers, slot_mb = _pipe_workers(smi)
+        _pipe_loader_rates(smi, workers, slot_mb)
+        _pipe_train(dev, smi, workers, setting, resnet_imgs_s)
+        _pipe_gates(dev, smi)
+    fallback = [str(w.message) for w in caught
+                if PIPE_FALLBACK in str(w.message)]
+    if fallback:
+        raise AssertionError(f"pipeline: the thread fallback ran: {fallback}")
 
 
 # -- phases 22-23 --------------------------------------------------------
@@ -7113,7 +7563,9 @@ def main():
     torch.cuda.empty_cache()
     phase_lenet(dev, smi)
     torch.cuda.empty_cache()
-    phase_resnet(dev, smi)
+    resnet_imgs_s, resnet_setting = phase_resnet(dev, smi)
+    torch.cuda.empty_cache()
+    phase_pipeline(dev, smi, resnet_imgs_s, resnet_setting)
     torch.cuda.empty_cache()
     ernie_losses, ernie_after1 = phase_ernie(dev, smi)
     torch.cuda.empty_cache()

@@ -74,10 +74,15 @@ package's, so each counterpart sits at the same path:
   * `hapi`                              `Model`: prepare, fit (gradient
                                         merge, K steps a call, the
                                         non-finite guard, elastic resume),
-                                        evaluate, predict, save / load;
-                                        the callbacks
+                                        evaluate, predict, save / load,
+                                        summary; the callbacks;
+                                        `summary` and `flops` (also at
+                                        the package root)
   * `io`                                datasets, samplers (seeded,
                                         fast-forwardable), `DataLoader`
+                                        (in process, or forked workers
+                                        over shared-memory rings, the
+                                        device-feed stage)
   * `metric`                            Accuracy, Precision, Recall, Auc
   * `framework`                         `save` / `load` (atomic; bf16 bit
                                         for bit; reads the JAX
@@ -109,6 +114,7 @@ from .ops import PUBLIC_OPS as _PUBLIC_OPS
 from .ops.random import get_rng_state, seed, set_rng_state
 from .framework import get_default_dtype, set_default_dtype
 from . import nn, optimizer
+from .hapi import Model, flops, summary
 
 # `from .ops import *` bound `linalg` to `ops.linalg` (and `math`,
 # `random`, ... to their ops modules). The JAX package rebinds
@@ -124,4 +130,5 @@ __all__ = sorted(set(_PUBLIC_OPS) | {
     "int16", "int32", "int64", "uint8", "to_tensor", "no_grad",
     "enable_grad", "set_grad_enabled", "is_grad_enabled", "grad", "seed",
     "get_rng_state", "set_rng_state", "set_default_dtype",
-    "get_default_dtype", "ops", "linalg", "nn", "optimizer"})
+    "get_default_dtype", "ops", "linalg", "nn", "optimizer", "Model",
+    "summary", "flops"})

@@ -49,7 +49,17 @@ leaves an "oom" bundle whose census was taken before unwinding freed
 the tensors; `terminate_on_nan` records its flight event. The JAX
 fit's `_note_step_failure` bundles an OOM its fallbacks swallow; the
 port's fit swallows no step failure, so every OOM reaches the
-observer. Not ported: `summary` and `flops` (ROADMAP queue 1 item 5).
+observer.
+
+`summary(net)` and `flops(net, input_size)` (JAX :918-970) give the JAX
+package's totals: every parameter counted, the trainable ones apart;
+2 x k_h x k_w x c_in / groups FLOPs an output element of each Conv2D
+and 2 x in x out a row of each Linear, over one forward of zeros
+(float32, on the network's device) in eval mode, restored afterwards
+(the JAX package leaves the network in eval mode). The JAX rule counts
+a convolution's output elements without the batch dimension and a
+Linear's rows with it (ROADMAP queue 3 #38); the port keeps that rule.
+`fit`'s `num_workers` (-1 = auto) reaches the `DataLoader` it builds.
 """
 from __future__ import annotations
 
@@ -67,7 +77,7 @@ from ..monitor import memory as _memory
 from ..monitor import server as _mserver
 from . import callbacks as cb_mod
 
-__all__ = ["Model"]
+__all__ = ["Model", "summary", "flops"]
 
 
 def _batch_size_of(inputs):
@@ -604,6 +614,9 @@ class Model:
     def parameters(self, *args, **kwargs):
         return self.network.parameters()
 
+    def summary(self, input_size=None, dtype=None):
+        return summary(self.network, input_size, dtype)
+
     # -- helpers ----------------------------------------------------------
     @staticmethod
     def _to_list(x):
@@ -634,3 +647,63 @@ class Model:
                 return list(batch[:-1]), [batch[-1]]
             return list(batch), []
         return [batch], []
+
+
+def summary(net, input_size=None, dtypes=None, input=None):
+    """paddle.summary (reference: hapi/model_summary.py): prints each
+    parameter's name, shape and size and returns {"total_params",
+    "trainable_params"}. `input_size`, `dtypes` and `input` are
+    accepted and unused, as in the JAX package."""
+    rows = []
+    total_params = 0
+    trainable_params = 0
+    for name, p in net.named_parameters():
+        n = int(np.prod(p.shape))
+        total_params += n
+        if p.requires_grad:
+            trainable_params += n
+        rows.append((name, tuple(p.shape), n))
+    lines = [f"{'Param':<50s}{'Shape':<24s}{'Count':>12s}"]
+    lines += [f"{n:<50s}{str(s):<24s}{c:>12,d}" for n, s, c in rows]
+    lines.append(f"Total params: {total_params:,}")
+    lines.append(f"Trainable params: {trainable_params:,}")
+    print("\n".join(lines))
+    return {"total_params": total_params,
+            "trainable_params": trainable_params}
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    """paddle.flops — analytic Conv2D / Linear FLOPs of one forward at
+    `input_size` (see the module docstring for the rule). `custom_ops`
+    and `print_detail` are accepted and unused, as in the JAX
+    package."""
+    from ..nn import Conv2D, Linear
+
+    total = [0]
+
+    def conv_hook(layer, inputs, output):
+        kh, kw = layer._kernel_size
+        cin = layer._in_channels // layer._groups
+        total[0] += 2 * kh * kw * cin * int(np.prod(output.shape[1:]))
+
+    def linear_hook(layer, inputs, output):
+        total[0] += 2 * layer._in_features * layer._out_features * \
+            int(np.prod(output.shape[:-1]))
+
+    hooks = []
+    for lay in net.modules():
+        if isinstance(lay, Conv2D):
+            hooks.append(lay.register_forward_hook(conv_hook))
+        elif isinstance(lay, Linear):
+            hooks.append(lay.register_forward_hook(linear_hook))
+    dev = next((t.device for t in net.parameters()), torch.device("cpu"))
+    was_training = net.training
+    net.eval()
+    try:
+        with torch.no_grad():
+            net(torch.zeros(list(input_size), device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+        net.train(was_training)
+    return total[0]

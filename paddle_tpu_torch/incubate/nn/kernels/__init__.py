@@ -110,8 +110,12 @@ def _nvcc():
 
 
 def _digest():
+    """Of nvcc's flags and inputs (csrc/*.cu and *.cuh; the host code
+    there, shm_ring.cc, is g++'s)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(os.listdir(CSRC_DIR)):
+        if not name.endswith((".cu", ".cuh")):
+            continue
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]

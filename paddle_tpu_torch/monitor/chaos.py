@@ -10,7 +10,7 @@ in WAITING, with their ROADMAP item):
 
     collective   eager collective enter (distributed.collective.*)
     ckpt_write   checkpoint snapshot write (incubate.checkpoint.elastic)
-    io_fetch     DataLoader sample fetch (in-process)
+    io_fetch     DataLoader sample fetch (worker loop + in-process)
     dispatch     train-step dispatch (jit.TrainStepCompiler)
     serve_admit  serving-scheduler request admission
     serve_decode serving-engine decode dispatch (LLMEngine)
@@ -74,7 +74,8 @@ SITES = {
     "collective": "eager collective enter (distributed.collective.*)",
     "ckpt_write": "checkpoint snapshot write "
                   "(incubate.checkpoint.elastic._write_snapshot)",
-    "io_fetch": "DataLoader sample fetch (the in-process loader)",
+    "io_fetch": "DataLoader sample fetch (io.worker's worker loop + "
+                "the in-process DataLoader._fetch)",
     "dispatch": "train-step dispatch "
                 "(jit.TrainStepCompiler.__call__)",
     "serve_admit": "serving-scheduler request admission "
@@ -117,7 +118,7 @@ FAULTS = {
     "torn": "site-interpreted torn write: the site persists a partial "
             "artifact, then raises (ckpt_write)",
     "crash": "os._exit(3) THIS process — meant for mp DataLoader "
-             "workers (the port has none: it raises instead)",
+             "workers",
     "bad_sample": "raise ChaosBadSample — feeds the DataLoader "
                   "on_bad_sample policy",
     "resource_exhausted": "raise torch.OutOfMemoryError "
@@ -305,10 +306,12 @@ class Rule:
                 errno.ENOSPC,
                 f"chaos: no space left on device ({site})"))
         if f == "crash":
-            # hard worker death — forked DataLoader workers only (the
-            # port has none yet): in the trainer process os._exit
-            # would bypass the flight excepthook and every
-            # emergency-checkpoint path, so it raises there
+            # hard worker death (SIGKILL analog a supervisor can't
+            # catch) — forked DataLoader workers only (io.worker's
+            # loop passes its worker id): in the trainer process
+            # os._exit would bypass the flight excepthook and every
+            # emergency-checkpoint path the crash is supposed to
+            # exercise, so it raises there
             if ctx.get("worker") is None:
                 raise _tag(ChaosInjected(
                     f"chaos: crash fault at {site} outside an mp "

@@ -1185,3 +1185,105 @@ def test_fused_adam_on_ernie_o2_set_bit_identical(cuda):
     for key, v in sd[0].items():
         assert (v == sd[1][key] if key == "@step"
                 else torch.equal(v, sd[1][key])), key
+
+
+class _Images:
+    """20 batches of 8: two float32 images of one shape whose values
+    depend on the index (two leaves that may share a staging buffer's
+    size), a float64 vector (float32 on the way to the card) and an
+    int64 label."""
+
+    def __len__(self):
+        return 160
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(i)
+        return (rng.randn(3, 32, 32).astype(np.float32) + np.float32(i),
+                rng.randn(3, 32, 32).astype(np.float32) - np.float32(i),
+                rng.randn(5), np.int64(i))
+
+
+@pytest.mark.parametrize("slow_copy", [False, True])
+def test_worker_loader_prefetch_to_card_equals_host_batches(
+        cuda, slow_copy, monkeypatch):
+    """A 4-worker loader with the device-feed stage (pinned buffers, a
+    copy stream, events) delivers, in order and bit for bit, the
+    batches the in-process loader makes on the CPU, each checked when
+    it arrives and again after all 20 are held (a pinned or a device
+    block reused too early would change one). slow_copy puts a sleep on
+    the copy stream before each leaf, so every copy runs long after it
+    is issued: a pinned block written again before its copy ran would
+    show."""
+    from paddle_tpu_torch import io as pio
+
+    if slow_copy:
+        stage = pio._PinnedStage._stage
+
+        def slow(self, leaf):
+            with torch.cuda.stream(self.stream):
+                torch.cuda._sleep(20000000)   # ~10 ms
+            return stage(self, leaf)
+
+        monkeypatch.setattr(pio._PinnedStage, "_stage", slow)
+    want = list(pio.DataLoader(_Images(), batch_size=8, device="cpu"))
+    loader = pio.DataLoader(_Images(), batch_size=8, num_workers=4,
+                            prefetch_to_device=2, device=cuda)
+    held = []
+    for k, batch in enumerate(loader):
+        torch.cuda._sleep(1000000)   # a consumer slower than the feed
+        assert all(t.device.type == "cuda" for t in batch)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(batch, want[k]))
+        held.append(batch)
+    assert len(held) == len(want) == 20
+    for got, exp in zip(held, want):
+        for g, w in zip(got, exp):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_pinned_stage_leaves_and_batches_behind_queued_copies(cuda):
+    """`_PinnedStage` with its copies held back on the copy stream (a
+    sleep queued before them): two leaves of one size in one batch, and
+    the next batches staged before the first one's copies ran, each
+    reach the card with its own values, so no pinned block was handed
+    out again before its copy read it."""
+    from paddle_tpu_torch import io as pio
+
+    stage = pio._PinnedStage(cuda)
+    a = np.full(1 << 20, 1.0, np.float32)
+    b = np.full(1 << 20, 2.0, np.float32)
+    stage((a, b))[1].synchronize()   # blocks cached by the allocator, free
+    batches = [(a * (3 + k), b * (5 + k)) for k in range(3)]
+    outs = []
+    for batch in batches:
+        with torch.cuda.stream(stage.stream):
+            torch.cuda._sleep(100000000)     # ~50 ms before the copies
+        outs.append(stage(batch))
+    for k, (out, ev) in enumerate(outs):
+        ev.synchronize()
+        assert float(out[0][0]) == 3 + k and float(out[0][-1]) == 3 + k
+        assert float(out[1][0]) == 2 * (5 + k)
+
+
+def test_device_feed_covers_card_leaves_for_a_side_stream_consumer(cuda):
+    """A dataset already on the card, collated by the feeder thread on
+    its own current stream behind queued work, read by a consumer on
+    another stream: the stage's event covers the feeder's work, so the
+    consumer sees every batch's values."""
+    from paddle_tpu_torch import io as pio
+
+    data = torch.arange(64, dtype=torch.float32, device=cuda).reshape(16, 4)
+
+    def collate(rows):
+        torch.cuda._sleep(50000000)   # ~25 ms of the feeder's stream
+        return torch.stack(rows) * 2
+
+    loader = pio.DataLoader(pio.TensorDataset([data]), batch_size=4,
+                            collate_fn=lambda b: collate([r[0] for r in b]),
+                            prefetch_to_device=2, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        got = [batch.clone() for batch in loader]
+    side.synchronize()
+    assert len(got) == 4
+    for k, g in enumerate(got):
+        assert torch.equal(g, data[4 * k:4 * k + 4] * 2)

@@ -30,6 +30,8 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.io as jio
+from paddle_tpu.hapi import flops as jflops
+from paddle_tpu.hapi import summary as jsummary
 import paddle_tpu.metric as jmetric
 import paddle_tpu.nn.functional as JF
 import paddle_tpu.optimizer as joptim
@@ -43,6 +45,8 @@ import paddle_tpu_torch.optimizer as poptim
 from paddle_tpu_torch.convert import load_reference_state_dict
 from paddle_tpu_torch.hapi import Model as PModel
 from paddle_tpu_torch.hapi import callbacks as pcb
+from paddle_tpu_torch.hapi import flops as pflops
+from paddle_tpu_torch.hapi import summary as psummary
 from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.text.models import bert as pbert
 
@@ -301,7 +305,10 @@ def test_early_stopping_matches_jax():
 
 def test_fit_over_a_dataset_and_a_failing_step_raises():
     """A Dataset is loaded on the network's device; a step that raises
-    is not demoted to another path: the error reaches the caller."""
+    is not demoted to another path: the error reaches the caller.
+    `num_workers` reaches the DataLoader fit builds: fed by 2 worker
+    processes, the same 2 steps give the same parameters, bit for
+    bit."""
     pair = Pair()
     pds = pio.TensorDataset([torch.from_numpy(a) for a in pair.arrays])
     pair.pm.fit(pds, batch_size=B, epochs=1, shuffle=False, verbose=0,
@@ -315,5 +322,39 @@ def test_fit_over_a_dataset_and_a_failing_step_raises():
     pair.pm._compiled_step = None
     with pytest.raises(RuntimeError, match="a broken loss"):
         pair.pm.fit(pds, batch_size=B, epochs=1, verbose=0)
-    with pytest.raises(NotImplementedError):
-        pair.pm.fit(pds, batch_size=B, num_workers=2, verbose=0)
+    fed = Pair()
+    fed.pm.fit(pds, batch_size=B, epochs=1, shuffle=False, verbose=0,
+               num_iters=2, num_workers=2)
+    assert fed.popt._step_count == 2
+    want = dict(pair.pnet.named_parameters())
+    for name, p in fed.pnet.named_parameters():
+        assert torch.equal(p, want[name]), name
+
+
+def test_summary_and_flops_on_lenet_match_jax(capsys):
+    """`summary` / `flops` / `Model.summary` (and the root's `paddle.summary`
+    / `paddle.flops`) give the JAX package's totals on LeNet: 61,610
+    parameters, all trainable, and its Conv2D / Linear FLOPs at 1 x 28²
+    and 4 x 28² (the convolutions counted without the batch, the Linear
+    rows with it: ROADMAP queue 3 #38); a frozen parameter leaves the
+    trainable count; the network's training mode is restored."""
+    import paddle_tpu_torch
+    from paddle_tpu.vision.models import LeNet as JLeNet
+    from paddle_tpu_torch.vision.models import LeNet as PLeNet
+
+    paddle.seed(0)
+    jnet, pnet = JLeNet(), PLeNet(device="cpu")
+    want = jsummary(jnet)
+    assert psummary(pnet) == PModel(pnet).summary() == \
+        paddle_tpu_torch.summary(pnet) == want == \
+        {"total_params": 61610, "trainable_params": 61610}
+    assert "Total params: 61,610" in capsys.readouterr().out
+    for shape in ([1, 1, 28, 28], [4, 1, 28, 28]):
+        assert pflops(pnet, shape) == paddle_tpu_torch.flops(pnet, shape) \
+            == jflops(jnet, shape)
+    assert pflops(pnet, [1, 1, 28, 28]) == 682512
+    assert pnet.training
+    pnet.fc[0].weight.requires_grad_(False)
+    jnet.fc[0].weight.trainable = False
+    assert psummary(pnet) == jsummary(jnet)
+    assert psummary(pnet)["trainable_params"] == 61610 - 120 * 400

@@ -145,12 +145,18 @@ def test_dataloader_state_dict_round_trip():
     assert len(first) + len(rest) == 6
 
 
-def test_dataloader_refuses_workers_and_defaults_to_the_card():
+def test_dataloader_refuses_workers_and_defaults_to_the_card(monkeypatch):
+    """Workers are served (num_workers=1 and -1, the batches those of
+    num_workers=0); the loader's device is the card unless "cpu" is
+    asked for; an IterableDataset pipeline has no cursor."""
     ds = pio.TensorDataset([torch.arange(4)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        pio.DataLoader(ds, num_workers=1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pio.DataLoader(ds, num_workers=-1, device="cpu")
+    want = [b[0].tolist() for b in pio.DataLoader(ds, batch_size=2,
+                                                  device="cpu")]
+    monkeypatch.setenv("PADDLE_IO_WORKERS", "2")
+    for n, w in ((1, 1), (-1, 2)):
+        dl = pio.DataLoader(ds, batch_size=2, num_workers=n, device="cpu")
+        assert dl.num_workers == w
+        assert [b[0].tolist() for b in dl] == want == [[0, 1], [2, 3]]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pio.DataLoader(ds)

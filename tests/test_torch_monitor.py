@@ -88,9 +88,15 @@ STEPS = [(0.125, 32, 2.5, 1e-4), (0.25, 32, 2.25, 2e-4),
 def test_step_timer_matches_jax(monkeypatch):
     """The same steps under an injected clock give the JAX StepTimer's
     step/* stats (the memory and step-attribution gauges aside: their
-    inputs are each package's own device and flight ring)."""
-    jcore.registry.reset_all()
-    core.registry.reset_all()
+    inputs are each package's own device and flight ring).
+
+    Each registry starts empty for this test: `reset_all` only zeroes,
+    so a `step/...` name another test registered earlier in the same
+    process (`test_observability.py` sets `step/time`) would stay in
+    one snapshot as a 0 and not in the other."""
+    for reg in (jcore.registry, core.registry):
+        monkeypatch.setattr(reg, "_stats", {})
+        monkeypatch.setattr(reg, "_hists", {})
     jclock = _Clock()
     fake = types.SimpleNamespace(perf_counter=jclock,
                                  time=lambda: 1.0)
